@@ -1,0 +1,40 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+//
+// Every kernel takes float32 or bfloat16 tensors; the dtype travels from
+// the Python wrapper as one of the codes below. Arithmetic is float32
+// throughout, bf16 converts on load and rounds to nearest-even on store
+// (the same rounding as torch's .to(torch.bfloat16)).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+enum { RT_F32 = 0, RT_BF16 = 1 };
+
+namespace rt {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Dynamic shared memory above the 48 KB default needs an explicit opt-in.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace rt

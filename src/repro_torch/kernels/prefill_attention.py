@@ -1,0 +1,84 @@
+"""Paged chunked-prefill attention: a hand-written CUDA kernel and its
+plain PyTorch version.
+
+q (B, C, H, hd) — a chunk of C queries per slot — against k/v block pools
+(N, P, Hkv, hd) through a (B, n_pages) int32 block table. Query ``i`` of
+slot ``b`` sits at logical position ``q_offset[b] + i`` and sees column
+``c`` iff ``c <= q_offset[b] + i`` and ``c < kv_valid_len[b]``; rows with
+no visible column (idle slots) return zeros. Softmax in float32, output
+in q's dtype. Pad rows past a slot's real chunk are well-defined and
+discarded by the caller.
+
+Replaces ``src/repro/kernels/prefill_attention.py::paged_prefill_attention_pallas``.
+The CUDA source (``csrc/prefill_attention.cu``) carries the design note:
+the C·G query rows of a (slot, kv-head) split across blocks, one warp per
+row, each block sweeping pages only up to its rows' causal frontier.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.counters import LaunchCounter
+
+counter = LaunchCounter("paged_prefill_attention")
+REPLACES = "src/repro/kernels/prefill_attention.py:150"
+SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, table, q_offset, kv_valid_len):
+    """Plain PyTorch version: gather pages, two-sided masked float32 softmax."""
+    counter.plain += 1
+    return ref.paged_prefill_attention_ref(
+        q, k_pool, v_pool, table, q_offset, kv_valid_len
+    )
+
+
+def _check(q, k_pool, v_pool, table, qoff, vl) -> None:
+    if q.ndim != 4:
+        raise ValueError(f"prefill attention needs q (B, C, H, hd), got {tuple(q.shape)}")
+    b, c, h, hd = q.shape
+    if k_pool.ndim != 4 or v_pool.shape != k_pool.shape or k_pool.shape[3] != hd:
+        raise ValueError(f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} vs hd {hd}")
+    hkv = k_pool.shape[2]
+    if h % hkv:
+        raise ValueError(f"H={h} must be a multiple of Hkv={hkv}")
+    if hd > 256:
+        raise ValueError(f"head dim {hd} > 256")
+    if table.shape[0] != b or qoff.shape != (b,) or vl.shape != (b,):
+        raise ValueError("table / q_offset / kv_valid_len must have B rows")
+    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if table.dtype != torch.int32 or qoff.dtype != torch.int32 or vl.dtype != torch.int32:
+        raise TypeError("table, q_offset and kv_valid_len must be int32")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table),
+                    ("q_offset", qoff), ("kv_valid_len", vl)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def paged_prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len):
+    """-> (B, C, H, hd). ``q_offset``/``kv_valid_len`` are (B,) int32 tensors."""
+    if not q.is_cuda:
+        return paged_prefill_attention_plain(q, k_pool, v_pool, table, q_offset, kv_valid_len)
+    _check(q, k_pool, v_pool, table, q_offset, kv_valid_len)
+    b, c, h, hd = q.shape
+    n, page, hkv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    if b == 0 or c == 0:
+        return out
+    rc = build.library().rt_paged_prefill_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        q_offset.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(),
+        b, c, n, page, hkv, hd, h // hkv, table.shape[1], _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(rc, "paged_prefill_attention")
+    counter.kernel += 1
+    return out

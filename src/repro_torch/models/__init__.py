@@ -1,0 +1,3 @@
+from repro_torch.models.registry import Model, get_model
+
+__all__ = ["Model", "get_model"]

@@ -1,0 +1,58 @@
+"""The model API the engine drives (port of ``repro.models.registry``,
+dense family only)."""
+
+from __future__ import annotations
+
+import torch.nn as nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+
+class Model(nn.Module):
+    """A config-bound dense decoder. Weights live in a nested param dict
+    (:func:`init`, or converted from the reference), passed to each call as
+    in the reference, so one ``Model`` serves any param tree of its config.
+    Per-layer views of the last param tree and tenant stacks seen are kept,
+    so the serving loop does not re-slice the layer stacks every step."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        if cfg.family != "dense":
+            raise ValueError(f"the port serves the dense family, got {cfg.family!r}")
+        self.cfg = cfg
+        self._views: tuple = (None, None)
+        self._a_views: tuple = ((), None)
+
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random weights from ``seed`` on ``device`` (default ``cuda``)."""
+        return transformer.init_params(self.cfg, seed=seed, device=resolve_device(device))
+
+    def init_paged_cache(self, num_blocks: int, page_size: int, device) -> dict:
+        return transformer.init_paged_cache(self.cfg, num_blocks, page_size, device)
+
+    def _layers(self, params) -> list[dict]:
+        if self._views[0] is not params["blocks"]:
+            self._views = (params["blocks"], transformer.layer_views(params))
+        return self._views[1]
+
+    def _adapter_views(self, adapters):
+        """Per-layer views of the tenant stacks, kept while the engine
+        passes the same stacks (they change only on register/remove)."""
+        blocks = adapters.get("blocks") if adapters else None
+        key = tuple(id(d.idx) for d in blocks.values()) if blocks else ()
+        if self._a_views[0] != key:
+            self._a_views = (key, transformer.adapter_views(adapters))
+        return self._a_views[1]
+
+    def prefill_chunk(self, params, adapters, cache, batch):
+        return transformer.prefill_chunk(self.cfg, params, adapters, cache, batch,
+                                         self._layers(params), self._adapter_views(adapters))
+
+    def decode_step(self, params, adapters, cache, batch):
+        return transformer.decode_step(self.cfg, params, adapters, cache, batch,
+                                       self._layers(params), self._adapter_views(adapters))
+
+
+def get_model(cfg) -> Model:
+    return Model(cfg)

@@ -16,3 +16,9 @@ except ModuleNotFoundError:
     HAVE_HYPOTHESIS = False
 
 collect_ignore_glob = [] if HAVE_HYPOTHESIS else ["core/test_property_core.py"]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one (run on the card)"
+    )
