@@ -6,31 +6,44 @@
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the three hand-written CUDA kernels from
+2. build: compile the five hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (timed);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the full-width qwen2-1.5b serving shapes (bf16 and fp32; ragged
-   frontiers, shared and sentinel pages), then timed beside its plain
-   version, its bound and, for attention, one
-   ``F.scaled_dot_product_attention`` call on the pre-gathered cache as a
-   yardstick (the port never calls it);
-4. reduced: reduced qwen2-1.5b in fp32 through the paged multi-tenant
-   engine on the card (kernels) and on the CPU (plain versions): greedy
-   tokens must be identical;
-5. full: qwen2-1.5b at full published width in bf16, random weights from a
-   seed, 3 NeuroAda tenants plus the base, 8 slots, ``max_len`` 1024,
-   prompts of 40-700 tokens: every request ends, all three kernels
-   launched, no plain version called, one device-to-host transfer per
-   step, the block pool fully free at the end; the same run again under
-   ``torch.profiler`` (device time by kernel); then a longer,
-   decode-dominated window (16 requests x 128 new tokens) served three
-   times, for the median and spread of tokens/s and step times.
+   the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
+   kernels at the serving shapes (ragged frontiers, shared and sentinel
+   pages), ``fused_linear`` and ``sparse_delta_dval`` on ragged shapes
+   (row, column and K tails) and at every projection of a training step
+   (M = 4 x 512 rows; wdown's K = 8960 included) — then
+   timed beside its plain version, its bound and a one-call PyTorch
+   yardstick where there is one (the port never calls it);
+4. reduced serving: reduced qwen2-1.5b in fp32 through the paged
+   multi-tenant engine on the card (kernels) and on the CPU (plain
+   versions): greedy tokens must be identical;
+5. full serving: qwen2-1.5b at full published width in bf16, random
+   weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
+   ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
+   three serving kernels launched, no plain version called, one
+   device-to-host transfer per step, the block pool fully free at the end;
+   the same run again under ``torch.profiler`` (device time by kernel);
+   then a longer, decode-dominated window (16 requests x 128 new tokens)
+   served three times, for the median and spread of tokens/s;
+6. reduced training: reduced qwen2-1.5b in fp32, the same params and three
+   batches trained on the card (kernels) and on the CPU (plain versions):
+   losses within 1e-5, final values within 1e-5 relative;
+7. full training: qwen2-1.5b at full width and depth in bf16, NeuroAda
+   k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 10
+   measured (losses, step time, tokens/s, peak memory, launches per step:
+   196 of each training kernel, no plain call), one profiled step (device
+   busy share); then the trained adapter is exported and served as a
+   tenant beside the base.
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``. Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the window's runs to
 ``chiprun_out/window.json``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
+The training phases write ``train.json`` and ``train_profile.txt`` to the
+same directory.
 """
 
 from __future__ import annotations
@@ -50,16 +63,20 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import PeftConfig, TrainConfig, get_config, reduced  # noqa: E402
 from repro_torch.core.adapt import init_adapters  # noqa: E402
-from repro_torch.kernels import COUNTERS, build, reset_counters  # noqa: E402
+from repro_torch.data import TASKS, DataLoader  # noqa: E402
+from repro_torch.kernels import COUNTERS, SERVING, TRAINING, build, reset_counters  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import fused_linear as fl_mod  # noqa: E402
 from repro_torch.kernels import prefill_attention as pre_mod  # noqa: E402
 from repro_torch.kernels import sparse_delta as sd_mod  # noqa: E402
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.peft import export_adapter, get_peft, load_adapter, stats  # noqa: E402
 from repro_torch.serve import AdapterStore, ServeEngine  # noqa: E402
-from repro_torch.tree import map_leaves  # noqa: E402
+from repro_torch.train import Trainer  # noqa: E402
+from repro_torch.tree import flatten, map_leaves  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and dense bf16
@@ -71,6 +88,9 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # full-width serving shape of qwen2-1.5b (configs/qwen2_1p5b.py)
 SLOTS, MAX_LEN, PAGE, PREFILL_CHUNK, DECODE_CHUNK = 8, 1024, 16, 256, 8
 N_TENANTS, K_DELTA = 3, 2
+# full-width training step: batch x seq rows through every projection
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_LR = 4, 512, 1, 3e-3
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 
 
 def log(msg: str) -> None:
@@ -102,11 +122,17 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(self_device_us(e) for e in device_kernels(prof)) / iters / 1e3
+    # a profiling session now and then records no kernel at all (seen once
+    # in a run of ~60 sessions); take the next session then, never a zero
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(self_device_us(e) for e in device_kernels(prof))
+        if total > 0:
+            return total / iters / 1e3
+    raise RuntimeError("torch.profiler recorded no device time in 3 sessions")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -207,7 +233,7 @@ def sdpa_yardstick(q, kp, vp, table, mask):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def phase_kernels(dev) -> tuple[dict, list]:
+def phase_kernels(dev, card: str) -> tuple[dict, list]:
     gen = torch.Generator(device=dev).manual_seed(1234)
     cfg = get_config("qwen2-1.5b")
     d, dq, dkv, dff = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim, \
@@ -253,7 +279,7 @@ def phase_kernels(dev) -> tuple[dict, list]:
                 detail.append(row)
     b_ms, b_by = bound(layer["bytes"], layer["flops"], torch.bfloat16)
     summary["sparse_delta_batched"] = {
-        "mod": sd_mod, "max_abs_err": err_bf16, "ms": layer["ms"],
+        "source": sd_mod.SOURCE, "replaces": sd_mod.REPLACES, "max_abs_err": err_bf16, "ms": layer["ms"],
         "plain_ms": layer["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
         "shape": f"7 projections of one layer, M={m_mixed} bf16 rows, k={K_DELTA}, "
@@ -261,7 +287,7 @@ def phase_kernels(dev) -> tuple[dict, list]:
     }
     log(f"[kernels] sparse_delta_batched ok: max|err| bf16 {err_bf16:.3e}, "
         f"one layer at M={m_mixed}: {layer['ms']:.4f} ms (plain {layer['plain_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by})")
+        f"bound {b_ms:.4f} ms by {b_by}) [{card}]")
 
     # -- paged decode attention: one query per slot, ragged frontiers
     dec_vl = [1, 17, 300, MAX_LEN - 1, 512, 0, 640, 33]
@@ -287,7 +313,7 @@ def phase_kernels(dev) -> tuple[dict, list]:
             row["bound_ms"], row["bound_by"] = bound(
                 attention_bytes(q, kp, table, vl, q_rows, 1), flops, dt)
             summary["paged_decode_attention"] = dict(
-                mod=dec_mod, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+                source=dec_mod.SOURCE, replaces=dec_mod.REPLACES, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"],
                 shape=f"q (8,1,12,128) bf16, pool ({num_blocks},16,2,128), "
@@ -296,7 +322,7 @@ def phase_kernels(dev) -> tuple[dict, list]:
     r = summary["paged_decode_attention"]
     log(f"[kernels] paged_decode_attention ok: max|err| bf16 {r['max_abs_err']:.3e}, "
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, "
-        f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+        f"bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
 
     # -- paged prefill attention: one mixed step's chunk buffer; decode
     #    slots are one-token chunks, idle and stalled slots q_len = 0
@@ -329,7 +355,7 @@ def phase_kernels(dev) -> tuple[dict, list]:
             row["bound_ms"], row["bound_by"] = bound(
                 attention_bytes(q, kp, table, vl, q_rows, 2), flops, dt)
             summary["paged_prefill_attention"] = dict(
-                mod=pre_mod, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+                source=pre_mod.SOURCE, replaces=pre_mod.REPLACES, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"],
                 shape=f"q (8,256,12,128) bf16, pool ({num_blocks},16,2,128), "
@@ -338,8 +364,135 @@ def phase_kernels(dev) -> tuple[dict, list]:
     r = summary["paged_prefill_attention"]
     log(f"[kernels] paged_prefill_attention ok: max|err| bf16 {r['max_abs_err']:.3e}, "
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, "
-        f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+        f"bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
+    train_kernels(gen, projections, dev, summary, detail, card)
     return summary, detail
+
+
+def linear_cost(x, w, idx, val, bias) -> tuple[float, float]:
+    """x and W read once, idx/val/bias read once, y written once; the
+    product's 2·M·K·N flops plus 2·M·k·N of bypass."""
+    m, kd = x.shape
+    k, n = idx.shape
+    es = x.element_size()
+    nbytes = (m * kd + kd * n + m * n) * es + k * n * (4 + val.element_size())
+    if bias is not None:
+        nbytes += n * es
+    return nbytes, 2.0 * m * kd * n + 2.0 * m * k * n
+
+
+def dval_cost(x, idx, dy) -> tuple[float, float]:
+    """dy read once, of x only the columns idx names (each once per row),
+    idx read once, the float32 (k, d_out) output written once."""
+    k, n = idx.shape
+    cols = int(torch.unique(idx).numel())
+    nbytes = (dy.numel() + x.shape[0] * cols) * x.element_size() + k * n * 8
+    return nbytes, 2.0 * x.shape[0] * k * n
+
+
+def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
+    """``fused_linear`` and ``sparse_delta_dval`` at every projection of a
+    full-width training step (M = batch x seq rows; qkv carry a bias; k =
+    1 magnitude selection gives one distinct index per column), bf16 and
+    fp32; the bf16 calls timed, summed over the layer's 7 projections."""
+    # ragged shapes first (untimed): row, column and K tails, K not a
+    # multiple of 8 (the kernel's unaligned load path), k > 1, both value
+    # dtypes — the path shapes below all tile evenly
+    for rm, rk, rn, kk in ((130, 77, 129, 1), (200, 1000, 264, 2), (7, 4500, 520, 3)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(rm, rk, generator=gen, device=dev).to(dt)
+            w = (torch.randn(rk, rn, generator=gen, device=dev) * rk**-0.5).to(dt)
+            idx = torch.randint(0, rk, (kk, rn), generator=gen, device=dev, dtype=torch.int32)
+            b = torch.randn(rn, generator=gen, device=dev).to(dt)
+            dy = (torch.randn(rm, rn, generator=gen, device=dev) * rm**-0.5).to(dt)
+            for vdt in (torch.bfloat16, torch.float32):
+                val = (torch.randn(kk, rn, generator=gen, device=dev) * 0.05).to(vdt)
+                for bias in (b, None):
+                    got = fl_mod.fused_linear(x, w, idx, val, bias)
+                    want = fl_mod.fused_linear_plain(x, w, idx, val, bias)
+                    torch.cuda.synchronize()
+                    check_close(f"fused_linear ragged M={rm} K={rk} N={rn}", got, want, dt)
+            got = sd_mod.sparse_delta_dval(x, idx, dy)
+            want = sd_mod.sparse_delta_dval_plain(x, idx, dy)
+            torch.cuda.synchronize()
+            check_close(f"sparse_delta_dval ragged M={rm} d_in={rk} d_out={rn}", got, want, dt)
+    log(f"[kernels] fused_linear and sparse_delta_dval ok on ragged shapes (M 7/130/200, "
+        f"K 77/1000/4500, N 129/264/520, k 1-3; bf16 2e-2, fp32 2e-5)")
+    m = TRAIN_BATCH * TRAIN_SEQ
+    layer = {n: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "lib": 0.0,
+                 "err": 0.0} for n in TRAINING}
+    for name, d_in, d_out in projections:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(m, d_in, generator=gen, device=dev).to(dt)
+            w = (torch.randn(d_in, d_out, generator=gen, device=dev) * d_in**-0.5).to(dt)
+            idx = torch.randint(0, d_in, (TRAIN_K, d_out), generator=gen, device=dev,
+                                dtype=torch.int32)
+            val = (torch.randn(TRAIN_K, d_out, generator=gen, device=dev) * 0.05).to(
+                torch.bfloat16)
+            bias = (torch.randn(d_out, generator=gen, device=dev).to(dt)
+                    if name in ("wq", "wk", "wv") else None)
+            # the gradient of a mean over the rows: dval stays O(1), so the
+            # float32 tolerance measures rounding, not the size of a sum
+            dy = (torch.randn(m, d_out, generator=gen, device=dev) * m**-0.5).to(dt)
+            got = fl_mod.fused_linear(x, w, idx, val, bias)
+            want = fl_mod.fused_linear_plain(x, w, idx, val, bias)
+            gd = sd_mod.sparse_delta_dval(x, idx, dy)
+            wd = sd_mod.sparse_delta_dval_plain(x, idx, dy)
+            torch.cuda.synchronize()
+            e_fl = check_close(f"fused_linear {name} K={d_in} N={d_out}", got, want, dt)
+            e_dv = check_close(f"sparse_delta_dval {name}", gd, wd, dt)
+            assert torch.equal(gd, sd_mod.sparse_delta_dval(x, idx, dy)), \
+                f"sparse_delta_dval {name}: two launches on the same inputs differ"
+            rows = [{"kernel": "fused_linear", "proj": name, "M": m, "K": d_in, "N": d_out,
+                     "bias": bias is not None, "dtype": str(dt), "max_abs_err": e_fl},
+                    {"kernel": "sparse_delta_dval", "proj": name, "M": m, "d_in": d_in,
+                     "d_out": d_out, "dtype": str(dt), "max_abs_err": e_dv}]
+            if dt == torch.bfloat16:
+                for row, fn, plain, cost in (
+                        (rows[0], lambda: fl_mod.fused_linear(x, w, idx, val, bias),
+                         lambda: fl_mod.fused_linear_plain(x, w, idx, val, bias),
+                         linear_cost(x, w, idx, val, bias)),
+                        (rows[1], lambda: sd_mod.sparse_delta_dval(x, idx, dy),
+                         lambda: sd_mod.sparse_delta_dval_plain(x, idx, dy),
+                         dval_cost(x, idx, dy))):
+                    row["ms"] = cuda_ms(fn)
+                    row["plain_ms"] = cuda_ms(plain, iters=3)
+                    row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+                    acc = layer[row["kernel"]]
+                    acc["ms"] += row["ms"]
+                    acc["plain_ms"] += row["plain_ms"]
+                    acc["bytes"] += cost[0]
+                    acc["flops"] += cost[1]
+                    acc["err"] = max(acc["err"], row["max_abs_err"])
+                # the library yardstick of fused_linear: the dense part only
+                lib = ((lambda: torch.addmm(bias, x, w)) if bias is not None
+                       else (lambda: torch.mm(x, w)))
+                rows[0]["library_ms"] = cuda_ms(lib)
+                layer["fused_linear"]["lib"] += rows[0]["library_ms"]
+                r0, r1 = rows
+                log(f"[kernels] {name} K={d_in} N={d_out}: fused_linear {r0['ms']:.4f} ms "
+                    f"(plain {r0['plain_ms']:.4f}, torch.addmm dense part "
+                    f"{r0['library_ms']:.4f}, bound {r0['bound_ms']:.4f} by "
+                    f"{r0['bound_by']}); sparse_delta_dval {r1['ms']:.4f} ms (plain "
+                    f"{r1['plain_ms']:.4f}, bound {r1['bound_ms']:.4f} by {r1['bound_by']}) "
+                    f"[{card}]")
+            detail.extend(rows)
+    shape = (f"7 projections of one layer of qwen2-1.5b, M={m} bf16 rows, k={TRAIN_K}, "
+             f"qkv bias")
+    for name, mod_source, mod_replaces in (
+            ("fused_linear", fl_mod.SOURCE, fl_mod.REPLACES),
+            ("sparse_delta_dval", sd_mod.DVAL_SOURCE, sd_mod.DVAL_REPLACES)):
+        acc = layer[name]
+        b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
+        summary[name] = {
+            "source": mod_source, "replaces": mod_replaces, "max_abs_err": acc["err"],
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": acc["lib"] if name == "fused_linear" else None, "shape": shape,
+        }
+        lib = f", torch.addmm/mm dense part {acc['lib']:.4f}" if name == "fused_linear" else ""
+        log(f"[kernels] {name} ok (bf16 2e-2, fp32 2e-5 at all 7 shapes): max|err| bf16 "
+            f"{acc['err']:.3e}; one layer {acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}"
+            f"{lib}, bound {b_ms:.4f} by {b_by}) [{card}]")
 
 
 # --------------------------------------------------------------- engine runs
@@ -383,7 +536,8 @@ def phase_reduced() -> None:
     reset_counters()
     eng, got = serve(model, to_cuda(params_cpu), tenants, prompts, 10, "cuda", **kw)
     for c in COUNTERS.values():
-        assert c.kernel > 0, f"reduced run on the card never launched {c.name}"
+        assert c.name not in SERVING or c.kernel > 0, \
+            f"reduced run on the card never launched {c.name}"
         assert c.plain == 0, f"reduced run on the card called plain {c.name}"
     for a, b in zip(want, got):
         assert a.out == b.out, f"rid {a.rid}: cpu {a.out} != cuda {b.out}"
@@ -416,9 +570,9 @@ def phase_full(card: str) -> dict:
     eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: c.kernel for n, c in COUNTERS.items()}
+    launches = {n: COUNTERS[n].kernel for n in SERVING}
     for name, c in COUNTERS.items():
-        assert c.kernel > 0, f"full run never launched {name}"
+        assert name not in SERVING or c.kernel > 0, f"full run never launched {name}"
         assert c.plain == 0, f"full run called the plain version of {name} {c.plain} times"
     for r in reqs:
         assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
@@ -434,8 +588,9 @@ def phase_full(card: str) -> dict:
         f"mean mixed step {times['mixed'] * 1e3:.2f} ms, mean decode megastep "
         f"{times['decode'] * 1e3:.2f} ms; peak memory {peak:.2f} GiB; "
         f"preemptions {eng.preemptions} [{card}]")
-    log(f"[full] launches on the main path: {json.dumps(launches)}")
-    profile_serve(lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card)
+    log(f"[full] launches on the serving path: {json.dumps(launches)}")
+    profile_run(lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
+                "profile", "full_profile.txt")
     phase_window(model, params, tenants, card, kw)
     return launches
 
@@ -485,14 +640,17 @@ def phase_window(model, params, tenants, card: str, kw: dict) -> None:
 
 BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("paged_decode_attention", ("paged_decode",)),
-           ("sparse_delta_batched", ("sparse_delta",)),
+           ("sparse_delta_batched", ("sparse_delta_batched",)),
+           ("fused_linear", ("fused_linear",)),
+           ("sparse_delta_dval", ("dval_",)),
+           ("index ops (index_add_, gathers)", ("index",)),
            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")))
 
 
-def profile_serve(run, card: str) -> None:
-    """The same serve run again under ``torch.profiler``: device time by
-    kernel (table in chiprun_out/full_profile.txt), by bucket, and the
-    device's busy share of the run's wall time."""
+def profile_run(run, card: str, tag: str, fname: str) -> float:
+    """``run`` under ``torch.profiler``: device time by kernel (a table in
+    the output directory's ``fname``), by bucket, and the device's busy
+    share of the run's wall time (returned)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -501,7 +659,7 @@ def profile_serve(run, card: str) -> None:
     dev = self_device_us
     rows = sorted((e for e in device_kernels(prof) if dev(e) > 0), key=dev, reverse=True)
     total = sum(dev(e) for e in rows)
-    with open(os.path.join(OUT_DIR, "full_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(f"{card}\nwall {wall_us:.0f} us, device {total:.0f} us\n")
         for e in rows:
             f.write(f"{dev(e):12.0f} us {e.count:7d} x  {e.key}\n")
@@ -510,9 +668,130 @@ def profile_serve(run, card: str) -> None:
         key = e.key.lower()
         name = next((n for n, pats in BUCKETS if any(p in key for p in pats)), "other")
         buckets[name] = buckets.get(name, 0.0) + dev(e)
-    shares = ", ".join(f"{k} {v / total:.1%}" for k, v in buckets.items())
-    log(f"[profile] device busy {total / wall_us:.1%} of {wall_us / 1e3:.1f} ms wall "
-        f"(profiled run); device time: {shares} [{card}]")
+    shares = ", ".join(f"{k} {v / total:.1%}" for k, v in buckets.items() if v)
+    log(f"[{tag}] device busy {total / wall_us:.1%} of {wall_us / 1e3:.1f} ms wall "
+        f"(profiled run; device {total / 1e3:.1f} ms); device time: {shares} [{card}]")
+    return total / wall_us
+
+
+# ---------------------------------------------------------------- training
+
+
+def train_run(model, params, pcfg, tcfg, batches):
+    """Train on ``batches`` (numpy) from ``params``; (losses, values)."""
+    trainer = Trainer(model, get_peft(pcfg), tcfg, params)
+    hist = trainer.run(iter(batches))
+    return [h["loss"] for h in hist], trainer.state.trainable
+
+
+def phase_reduced_train(card: str) -> None:
+    """Reduced qwen2-1.5b in fp32 (fp32 values too), the same params and
+    three batches, trained on the card and on the CPU."""
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+    model = get_model(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    pcfg = PeftConfig(k=2, delta_dtype="float32")
+    tcfg = TrainConfig(steps=3, learning_rate=TRAIN_LR)
+    batches = [TASKS["reasoning"](cfg.vocab_size, 4, 16, 0, i) for i in range(3)]
+    want_loss, want_val = train_run(model, params_cpu, pcfg, tcfg, batches)
+    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
+    reset_counters()
+    got_loss, got_val = train_run(model, to_cuda(params_cpu), pcfg, tcfg, batches)
+    for name, c in COUNTERS.items():
+        assert name not in TRAINING or c.kernel > 0, f"reduced training never launched {name}"
+        assert c.plain == 0, f"reduced training on the card called plain {name}"
+    for i, (a, b) in enumerate(zip(want_loss, got_loss)):
+        assert abs(a - b) <= 1e-5, f"step {i}: loss cpu {a!r} != cuda {b!r}"
+    # relative error of the whole value tree: ||cuda - cpu|| / ||cpu||
+    pairs = [(a, b.cpu()) for (_, a), (_, b) in zip(flatten(want_val), flatten(got_val))
+             if a is not None]
+    diff = sum(float((b - a).double().square().sum()) for a, b in pairs) ** 0.5
+    norm = sum(float(a.double().square().sum()) for a, _ in pairs) ** 0.5
+    assert diff <= 1e-5 * norm, f"values: ||cuda - cpu|| / ||cpu|| = {diff / norm:.3e}"
+    log(f"[reduced-train] 3 steps of reduced qwen2-1.5b fp32: losses cpu "
+        f"{[f'{x:.7f}' for x in want_loss]} cuda {[f'{x:.7f}' for x in got_loss]} "
+        f"(max |diff| {max(abs(a - b) for a, b in zip(want_loss, got_loss)):.2e}); values "
+        f"||cuda - cpu|| / ||cpu|| = {diff / norm:.2e} [{card}]")
+
+
+def phase_train(card: str) -> dict:
+    """Full-width qwen2-1.5b NeuroAda training, then its adapter served."""
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    tcfg = TrainConfig(steps=TRAIN_WARMUP + TRAIN_STEPS + 1, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)), tcfg, params)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    st = stats(params, trainer.state.trainable)
+    per_layer = 2 * cfg.d_model + cfg.num_heads * cfg.resolved_head_dim \
+        + 2 * cfg.num_kv_heads * cfg.resolved_head_dim + 2 * cfg.d_ff
+    assert st["trainable"] == cfg.num_layers * per_layer * TRAIN_K, st
+    log(f"[train] qwen2-1.5b bf16, NeuroAda k={TRAIN_K} magnitude: trainable "
+        f"{st['trainable']:,} of {st['total']:,} ({100 * st['fraction']:.4f} %), selection "
+        f"{select_s:.2f} s [{card}]")
+    data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    try:
+        for _ in range(TRAIN_WARMUP):
+            trainer.step(next(data))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            batch = next(data)
+            t0 = time.perf_counter()
+            m = trainer.step(batch)  # returns floats: waits for the device
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            assert m["skipped"] == 0, m
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: COUNTERS[n].kernel for n in TRAINING}
+        for name, c in COUNTERS.items():
+            assert c.plain == 0, f"training called the plain version of {name} {c.plain} times"
+        per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
+        want = 7 * cfg.num_layers
+        assert all(v == want for v in per_step.values()), (per_step, want)
+        assert all(np.isfinite(losses)), losses
+        busy = profile_run(lambda: trainer.step(next(data)), card, "train-profile",
+                           "train_profile.txt")
+    finally:
+        data.close()
+    med = float(np.median(times))
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
+    log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: step time "
+        f"median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
+        f"{tok / med:.0f} training tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"per step {json.dumps(per_step)}, plain 0; device busy {busy:.1%} of a profiled "
+        f"step [{card}]")
+    with open(os.path.join(OUT_DIR, "train.json"), "w") as f:
+        json.dump({"card": card, "losses": losses, "step_s": times, "tokens_per_step": tok,
+                   "peak_bytes": peak, "launches_per_step": per_step, "busy_share": busy,
+                   "trainable": st["trainable"], "fraction": st["fraction"]}, f, indent=1)
+    serve_trained(model, params, trainer, card)
+    return launches
+
+
+def serve_trained(model, params, trainer, card: str) -> None:
+    """Export the trained adapter, load it back and serve it as tenant 1
+    beside the base (id 0)."""
+    path = os.path.join(OUT_DIR, "trained_adapter.npz")
+    export_adapter(path, trainer.aux, trainer.state.trainable, {"arch": model.cfg.name})
+    idx, val = load_adapter(path)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(3, model.cfg.vocab_size, size=n).tolist() for n in (60, 300, 25, 128)]
+    reset_counters()
+    eng, reqs = serve(model, params, [(idx, val)], prompts, 16, "cuda", slots=4, max_len=512,
+                      prefill_chunk=PREFILL_CHUNK, decode_chunk=DECODE_CHUNK, page_size=PAGE)
+    assert all(r.done for r in reqs) and eng.kv.drained()
+    assert {r.adapter_id for r in reqs} == {0, 1}
+    assert COUNTERS["sparse_delta_batched"].kernel > 0
+    assert all(c.plain == 0 for c in COUNTERS.values())
+    log(f"[train] exported adapter ({os.path.getsize(path)} bytes) served as tenant 1 beside "
+        f"the base: {len(reqs)} requests, {sum(len(r.out) for r in reqs)} tokens [{card}]")
 
 
 def main() -> int:
@@ -538,17 +817,19 @@ def main() -> int:
         if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
             log("[build] " + line.strip())
 
-    summary, detail = phase_kernels(torch.device("cuda"))
+    summary, detail = phase_kernels(torch.device("cuda"), card)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "rows": detail}, f, indent=1)
     phase_reduced()
     launches = phase_full(card)
+    phase_reduced_train(card)
+    launches.update(phase_train(card))
 
     kernels = []
     for name, s in summary.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": s["mod"].SOURCE,
-            "replaces": s["mod"].REPLACES, "launches": launches[name],
+            "name": name, "route": "cuda", "source": s["source"],
+            "replaces": s["replaces"], "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "kernel_ms": s["ms"],
             "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],

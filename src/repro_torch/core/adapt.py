@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.delta import Delta, init_delta, merge
 from repro_torch.core.selection import topk_indices
-from repro_torch.tree import map_leaves, path_str
+from repro_torch.tree import flatten, map_leaves, path_str
 
 # Matrices never adapted: embeddings (rows are tokens, not neurons) and
 # routers — the reference's ``DEFAULT_QUANT_EXCLUDE``. Only ``…/w`` leaves
@@ -53,6 +53,24 @@ def init_adapters(params, k: int, *, strategy: str = "magnitude",
     pairs = map_leaves(one, _with_paths(params))
     return (map_leaves(lambda p: p[0], pairs),
             map_leaves(lambda p: p[1], pairs))
+
+
+def zip_adapters(indices, values):
+    """Aligned (indices, values) trees -> one tree of :class:`Delta` leaves;
+    ``None`` where a matrix is not adapted (the training adapters)."""
+    return map_leaves(lambda i, v: None if i is None else Delta(i, v), indices, values)
+
+
+def count_trainable(values) -> int:
+    return sum(v.numel() for _, v in flatten(values) if v is not None)
+
+
+def count_total(params) -> int:
+    return sum(p.numel() for _, p in flatten(params) if p is not None)
+
+
+def trainable_fraction(params, values) -> float:
+    return count_trainable(values) / max(count_total(params), 1)
 
 
 def merge_adapters(params, indices, values):

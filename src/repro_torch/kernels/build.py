@@ -42,6 +42,11 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, q_offset, kv_valid_len, out | B, C, n_blocks, page,
     # hkv, hd, g, n_pages, dtype | stream
     "rt_paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_P],
+    # x, w, idx, val, bias (may be null), y | M, N, K, k, x_dtype, v_dtype | stream
+    "rt_fused_linear": [_P] * 6 + [_I] * 6 + [_P],
+    # x, idx, dy, partials, dval | M, d_in, d_out, k, rows_per_split, n_split,
+    # dtype | stream
+    "rt_sparse_delta_dval": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 

@@ -25,6 +25,37 @@ def sparse_delta_batched_ref(x, idx, val, aid):
     return (xg.float() * val[a].float()).sum(dim=1).to(x.dtype)
 
 
+def sparse_delta_f32(x, idx, val):
+    """Σ_j val[j, o] · x[m, idx[j, o]] in float32: x (M, d_in), idx/val
+    (k, d_out) -> (M, d_out) float32."""
+    xg = x[:, idx.long()]  # (M, k, d_out)
+    return (xg.float() * val.float()).sum(dim=1)
+
+
+def fused_linear_ref(x, w, idx, val, bias=None):
+    """y = x @ W + bypass (+ bias): float32 product, bypass and bias, one
+    cast to x's dtype (the Pallas kernel's accumulator and flush)."""
+    acc = x.float() @ w.float() + sparse_delta_f32(x, idx, val)
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(x.dtype)
+
+
+def sparse_delta_dval_ref(x, idx, dy):
+    """dval[j, o] = Σ_m dy[m, o] · x[m, idx[j, o]] in float32 -> (k, d_out)."""
+    xg = x[:, idx.long()].float()  # (M, k, d_out)
+    return torch.einsum("mko,mo->ko", xg, dy.float())
+
+
+def sparse_delta_dx_ref(idx, val, dy, d_in: int):
+    """dx[m, i] = Σ_{(j, o): idx[j, o] = i} dy[m, o] · val[j, o]: a float32
+    scatter-add of the k·d_out terms of each row (``index_add_``)."""
+    m = dy.shape[0]
+    upd = (dy.float()[:, None, :] * val.float()[None]).reshape(m, -1)
+    dx = torch.zeros((m, d_in), dtype=torch.float32, device=dy.device)
+    return dx.index_add_(1, idx.reshape(-1).long(), upd)
+
+
 def gather_paged_kv(pool, table):
     """(N, P, Hkv, hd) pool through a (B, n_pages) table -> contiguous
     (B, n_pages·P, Hkv, hd) view. Out-of-range (sentinel) entries clamp

@@ -1,5 +1,6 @@
-"""Multi-tenant NeuroAda bypass apply: a hand-written CUDA kernel and its
-plain PyTorch version.
+"""NeuroAda bypass kernels: the multi-tenant apply of serving and the
+value gradient of training, each a hand-written CUDA kernel beside its
+plain PyTorch version and its own launch counter.
 
     y[m, o] = Σ_j val[aid[m], j, o] · x[m, idx[aid[m], j, o]]
 
@@ -17,6 +18,16 @@ uses the plain version only for a CPU tensor; a build or launch failure
 raises. The plain version follows the kernel's rounding (float32 products
 and sums, one cast at the end), not the jnp oracle's, which sums in x's
 dtype.
+
+    dval[j, o] = Σ_m dy[m, o] · x[m, idx[j, o]]
+
+x (M, d_in) and dy (M, d_out) float32 or bf16 (the same dtype), idx
+(k, d_out) int32; dval comes back (k, d_out) float32. Replaces
+``src/repro/kernels/sparse_delta.py::sparse_delta_dval_pallas``; the CUDA
+source (``csrc/sparse_delta_dval.cu``) splits M across blocks and sums the
+float32 partials in a fixed order, so the result repeats bit for bit.
+:func:`sparse_delta_dval` launches it for a CUDA tensor and uses
+:func:`sparse_delta_dval_plain` only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -30,7 +41,12 @@ counter = LaunchCounter("sparse_delta_batched")
 REPLACES = "src/repro/kernels/sparse_delta.py:104"
 SOURCE = "src/repro_torch/kernels/csrc/sparse_delta.cu"
 
+dval_counter = LaunchCounter("sparse_delta_dval")
+DVAL_REPLACES = "src/repro/kernels/sparse_delta.py:137"
+DVAL_SOURCE = "src/repro_torch/kernels/csrc/sparse_delta_dval.cu"
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DVAL_COLS = 128  # output columns per block (csrc/sparse_delta_dval.cu kCols)
 
 
 def sparse_delta_batched_plain(x, idx, val, aid):
@@ -76,3 +92,63 @@ def sparse_delta_batched(x, idx, val, aid):
     build.check(rc, "sparse_delta_batched")
     counter.kernel += 1
     return y
+
+
+# ------------------------------------------------------------ value gradient
+
+
+def sparse_delta_dval_plain(x, idx, dy):
+    """Plain PyTorch version: gather, float32 products and sums."""
+    dval_counter.plain += 1
+    return ref.sparse_delta_dval_ref(x, idx, dy)
+
+
+def _check_dval(x, idx, dy) -> None:
+    if x.ndim != 2 or idx.ndim != 2 or dy.ndim != 2:
+        raise ValueError(f"want x (M, d_in), idx (k, d_out), dy (M, d_out); got "
+                         f"{tuple(x.shape)}, {tuple(idx.shape)}, {tuple(dy.shape)}")
+    if dy.shape != (x.shape[0], idx.shape[1]):
+        raise ValueError(f"dy {tuple(dy.shape)} != ({x.shape[0]}, {idx.shape[1]})")
+    if x.shape[1] == 0:
+        raise ValueError("x has no columns (d_in = 0)")
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"x/dy must share float32 or bfloat16, got {x.dtype}/{dy.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    for name, t in (("x", x), ("idx", idx), ("dy", dy)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def dval_split(m: int, d_out: int, sms: int) -> tuple[int, int]:
+    """(rows_per_split, n_split): split M so that the column tiles times
+    the row ranges put about four blocks on each of ``sms`` SMs."""
+    col_tiles = -(-d_out // _DVAL_COLS)
+    want = max(1, min(m, -(-4 * sms // col_tiles)))
+    rows = -(-m // want)
+    return rows, -(-m // rows)
+
+
+def sparse_delta_dval(x, idx, dy):
+    """(M, d_in), (k, d_out) indices, (M, d_out) -> (k, d_out) float32."""
+    if not x.is_cuda:
+        return sparse_delta_dval_plain(x, idx, dy)
+    _check_dval(x, idx, dy)
+    m, d_in = x.shape
+    k, d_out = idx.shape
+    dval = torch.empty((k, d_out), dtype=torch.float32, device=x.device)
+    if m == 0 or k == 0 or d_out == 0:
+        return dval.zero_()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows, n_split = dval_split(m, d_out, sms)
+    part = torch.empty((n_split, k, d_out), dtype=torch.float32, device=x.device)
+    rc = build.library().rt_sparse_delta_dval(
+        x.data_ptr(), idx.data_ptr(), dy.data_ptr(), part.data_ptr(), dval.data_ptr(),
+        m, d_in, d_out, k, rows, n_split, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(rc, "sparse_delta_dval")
+    dval_counter.kernel += 1
+    return dval

@@ -1,6 +1,6 @@
 """Building blocks of the dense decoder: norm, RoPE, the adapter-aware
-linear and the paged cache writers (port of the matching functions in
-``repro.models.layers``).
+linear, the paged cache writers and the training loss (port of the
+matching functions in ``repro.models.layers``).
 
 Sentinel writes. A block table marks unallocated pages, shared prefix
 pages (in the write table), pads and idle slots with the out-of-range
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.delta import Delta
 from repro_torch.kernels import ops
 
 
@@ -28,12 +29,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
 
 
 def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+ every row's tenant bypass) (+ b). ``p[name]`` is
-    ``{"w": (d_in, d_out), ["b": (d_out,)]}``; ``a`` maps projection names
-    to :class:`~repro_torch.core.delta.BatchedDelta` (or is ``None``)."""
+    """y = x @ W (+ bypass) (+ b). ``p[name]`` is ``{"w": (d_in, d_out),
+    ["b": (d_out,)]}``; ``a`` maps projection names to a
+    :class:`~repro_torch.core.delta.BatchedDelta` (serving: every row's
+    tenant), to a :class:`~repro_torch.core.delta.Delta` — or an adapter
+    leaf ``{"w": Delta, ...}`` beside the bias slot — (training: the fused
+    kernel, W frozen), or is ``None``."""
     leaf = p[name]
-    y = x @ leaf["w"]
     d = a.get(name) if a else None
+    if isinstance(d, dict):
+        d = d.get("w")
+    if isinstance(d, Delta):
+        # a Delta bypass implies the NeuroAda contract: W is frozen
+        return ops.fused_linear(x, leaf["w"], d.idx, d.val, leaf.get("b"), w_frozen=True)
+    y = x @ leaf["w"]
     if d is not None:
         y = y + ops.delta_apply_batched(x, d.idx, d.val, d.aid)
     b = leaf.get("b")
@@ -116,3 +125,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def decode_positions(pos: torch.Tensor) -> torch.Tensor:
     """(B, 1) rope positions from per-slot positions (B,)."""
     return pos[:, None]
+
+
+# --------------------------------------------------------------------- loss
+
+
+def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None,
+                          real_vocab: int | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood in float32. Columns ``>= real_vocab``
+    (vocab padding) are masked out of the normaliser; with ``mask`` the
+    mean runs over its weights (at least 1)."""
+    lg = logits.float()
+    v = lg.shape[-1]
+    if real_vocab is not None and real_vocab < v:
+        pad = torch.arange(v, device=lg.device) >= real_vocab
+        lg = lg.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

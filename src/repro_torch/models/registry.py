@@ -1,5 +1,5 @@
-"""The model API the engine drives (port of ``repro.models.registry``,
-dense family only)."""
+"""The model API the engine and the trainer drive (port of
+``repro.models.registry``, dense family only)."""
 
 from __future__ import annotations
 
@@ -44,6 +44,16 @@ class Model(nn.Module):
         if self._a_views[0] != key:
             self._a_views = (key, transformer.adapter_views(adapters))
         return self._a_views[1]
+
+    def loss(self, params, adapters, batch):
+        """(loss, {"ce", "aux"}) of a training batch; see
+        :func:`repro_torch.models.transformer.loss_fn`."""
+        return transformer.loss_fn(self.cfg, params, adapters, batch, self._layers(params))
+
+    def forward_train(self, params, adapters, batch):
+        """((B, S, V) logits, aux) of a training batch."""
+        return transformer.forward_train(self.cfg, params, adapters, batch,
+                                         self._layers(params))
 
     def prefill_chunk(self, params, adapters, cache, batch):
         return transformer.prefill_chunk(self.cfg, params, adapters, cache, batch,

@@ -1,5 +1,5 @@
-"""Dense decoder-only transformer for paged serving (port of the dense path
-of ``repro.models.transformer``).
+"""Dense decoder-only transformer: paged serving and training (port of the
+dense path of ``repro.models.transformer``).
 
 Params are a nested dict in the reference's layout and names: weights
 ``W (d_in, d_out)`` with ``y = x @ W``, per-layer leaves stacked along a
@@ -12,18 +12,25 @@ The layer stack is a Python loop over per-layer views (the reference's
 ``(L, num_blocks + 1, page, KV, hd)``, updated in place: the extra block
 absorbs sentinel writes (see :mod:`repro_torch.models.layers`).
 
-Adapters, when given, are ``{"blocks": {name: BatchedDelta}}`` with
-``(L, N, k, d_out)`` stacks and a ``(B,)`` adapter id per slot, plus an
-optional ``"head"`` ``BatchedDelta`` for an untied head.
+Serving adapters, when given, are ``{"blocks": {name: BatchedDelta}}``
+with ``(L, N, k, d_out)`` stacks and a ``(B,)`` adapter id per slot, plus
+an optional ``"head"`` ``BatchedDelta`` for an untied head. Training
+adapters are the tree of :func:`repro_torch.core.adapt.zip_adapters`:
+``Delta`` leaves of ``(L, k, d_out)`` beside each adapted ``w``, every
+projection of every layer through the fused kernel with W frozen.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.delta import BatchedDelta
+from repro_torch.core.delta import BatchedDelta, Delta
 from repro_torch.kernels import ops
-from repro_torch.models.attention import paged_attention, paged_prefill_attention
+from repro_torch.models.attention import (
+    paged_attention,
+    paged_prefill_attention,
+    train_attention,
+)
 from repro_torch.models.layers import (
     alinear,
     apply_rope,
@@ -35,6 +42,7 @@ from repro_torch.models.layers import (
     rope_angles,
     rope_freqs,
     silu_mlp,
+    softmax_cross_entropy,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -239,3 +247,72 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
         h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head_logits(cfg, params, adapters, h)[:, 0]
+
+
+# ------------------------------------------------------------------- train
+
+
+def delta_views(adapters, n_layers: int) -> list[dict]:
+    """Per-layer ``{name: Delta}`` views into the ``(L, k, d_out)`` leaves
+    of a training adapter tree (slicing keeps the autograd link to the
+    stacked values)."""
+    out = [{} for _ in range(n_layers)]
+    blocks = adapters.get("blocks") if adapters else None
+    for name, leaf in (blocks or {}).items():
+        d = leaf.get("w") if isinstance(leaf, dict) else leaf
+        if d is None:
+            continue
+        for i in range(n_layers):
+            out[i][name] = Delta(d.idx[i], d.val[i])
+    return out
+
+
+def _train_head(cfg, params, adapters, h):
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["w"].T
+    d = adapters.get("head") if adapters else None
+    if isinstance(d, dict):
+        d = d.get("w")
+    if d is not None:
+        raise NotImplementedError(
+            "a NeuroAda delta on an untied head needs the single-tenant bypass "
+            "kernel (sparse_delta_pallas), which the port does not have yet "
+            "(ROADMAP.md §2)")
+    return h @ params["head"]["w"]
+
+
+def forward_train(cfg, params, adapters, batch, layers=None):
+    """Training forward over ``batch["tokens"]`` (B, S) at positions
+    ``0..S-1`` (or ``batch["positions"]``): causal attention, every adapted
+    projection through the fused kernel. Returns ((B, S, V) logits, the
+    auxiliary loss — 0 for the dense family)."""
+    layers = layer_views(params) if layers is None else layers
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = _embed(cfg, params, tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    cos, sin = rope_angles(positions, rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
+                                                 device=h.device))
+    deltas = delta_views(adapters, len(layers))
+    for p, a in zip(layers, deltas):
+        x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, a, x, cos, sin)
+        o = train_attention(q, k, v, cfg)
+        h = h + alinear(p, a, "wo", o.reshape(b, s, -1))
+        h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _train_head(cfg, params, adapters, h), aux / cfg.num_layers
+
+
+def loss_fn(cfg, params, adapters, batch, layers=None):
+    """Next-token cross-entropy in float32 (``batch["targets"]`` shifted by
+    one, weighted by ``batch["loss_mask"]`` when given, vocab padding
+    masked) plus ``router_aux_coef`` × the auxiliary loss. Returns
+    (loss, {"ce", "aux"})."""
+    logits, aux = forward_train(cfg, params, adapters, batch, layers)
+    ce = softmax_cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
+                               batch.get("loss_mask"), real_vocab=cfg.vocab_size)
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

@@ -1,5 +1,15 @@
-"""Port of ``repro.peft`` (adapter export/load)."""
+"""Port of ``repro.peft``: NeuroAda for the trainer, adapter export/load."""
 
-from repro_torch.peft.api import export_adapter, load_adapter
+from repro_torch.peft.api import (
+    METHODS,
+    Peft,
+    count_params,
+    export_adapter,
+    get_peft,
+    load_adapter,
+    neuroada,
+    stats,
+)
 
-__all__ = ["export_adapter", "load_adapter"]
+__all__ = ["METHODS", "Peft", "count_params", "export_adapter", "get_peft",
+           "load_adapter", "neuroada", "stats"]

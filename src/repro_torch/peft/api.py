@@ -1,11 +1,84 @@
-"""Adapter export and load (port of ``repro.peft.api.export_adapter`` /
-``load_adapter``): the unmerged multi-tenant serving artifact, in the
-same npz format, so an adapter written by either package loads in the
-other."""
+"""The PEFT interface of the trainer, and adapter export and load (port of
+``repro.peft.api``; NeuroAda only).
+
+A :class:`Peft` bundles the functions the trainer calls, so the trainer
+does not know the method:
+
+* ``init(params, rng=None) -> (trainable, aux)`` — ``trainable`` is the
+  only tree that gets gradients; for NeuroAda the ``(…, k, d_out)``
+  values, zero-initialised in ``pcfg.delta_dtype``, with the frozen
+  indices as ``aux``;
+* ``model_inputs(params, trainable, aux) -> (params, adapters)``;
+* ``post_grad(grads, aux) -> grads``;
+* ``merge(params, trainable, aux) -> params`` (Alg. 1 phase 3).
+
+Adapter files are the unmerged multi-tenant serving artifact, in the same
+npz format as the reference, so an adapter written by either package
+loads in the other.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 from repro_torch.checkpoint import load_pytree, save_pytree
+from repro_torch.core.adapt import (
+    DEFAULT_EXCLUDE,
+    count_total,
+    count_trainable,
+    init_adapters,
+    merge_adapters,
+    trainable_fraction,
+    zip_adapters,
+)
+from repro_torch.models.transformer import DTYPES
+from repro_torch.tree import flatten
+
+METHODS = ("neuroada",)
+
+
+class Peft(NamedTuple):
+    method: str
+    init: Callable  # (params, rng=None) -> (trainable, aux)
+    model_inputs: Callable  # (params, trainable, aux) -> (params, adapters)
+    post_grad: Callable  # (grads, aux) -> grads
+    merge: Callable  # (params, trainable, aux) -> params
+
+
+def neuroada(pcfg, *, exclude=DEFAULT_EXCLUDE) -> Peft:
+    """NeuroAda: top-k input connections per neuron by ``pcfg.strategy``,
+    values the only trainables."""
+    dtype = DTYPES[pcfg.delta_dtype]
+
+    def init(params, rng=None):
+        indices, values = init_adapters(params, pcfg.k, strategy=pcfg.strategy,
+                                        dtype=dtype, exclude=exclude)
+        return values, indices
+
+    def model_inputs(params, values, indices):
+        return params, zip_adapters(indices, values)
+
+    def merge(params, values, indices):
+        return merge_adapters(params, indices, values)
+
+    return Peft("neuroada", init, model_inputs, lambda g, aux: g, merge)
+
+
+def get_peft(pcfg, **kw) -> Peft:
+    if pcfg.method != "neuroada":
+        raise NotImplementedError(
+            f"peft method {pcfg.method!r} is not ported yet; the port has "
+            f"{METHODS} (ROADMAP.md §1, remaining PEFT methods)")
+    return neuroada(pcfg, **kw)
+
+
+count_params = count_total
+
+
+def stats(params, trainable) -> dict:
+    base = sum(x.numel() * x.element_size() for _, x in flatten(params) if x is not None)
+    return {"trainable": count_trainable(trainable), "total": count_total(params),
+            "fraction": trainable_fraction(params, trainable), "base_bytes": base}
 
 
 def export_adapter(path: str, indices, values, metadata: dict | None = None) -> None:

@@ -1,5 +1,9 @@
 """Kernel modules of the PyTorch port against the JAX reference.
 
+Serving kernels (sparse_delta_batched, paged decode and prefill attention)
+and training kernels (fused_linear, sparse_delta_dval, and the gradient of
+``ops.fused_linear`` against ``jax.vjp`` of the reference's).
+
 On the CPU each wrapper runs its kernel's plain PyTorch version. Those are
 held against the reference's jnp oracles in fp32 and against its Pallas
 kernels in interpret mode in fp32 and bf16 (the repo's tolerances: 2e-5 and
@@ -20,11 +24,13 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import paged_decode_attention_pallas
+from repro.kernels.fused_linear import fused_linear_pallas
 from repro.kernels.prefill_attention import paged_prefill_attention_pallas
-from repro.kernels.sparse_delta import sparse_delta_batched_pallas
+from repro.kernels.sparse_delta import sparse_delta_batched_pallas, sparse_delta_dval_pallas
 from repro_torch.convert import to_tensor
-from repro_torch.kernels import COUNTERS, build, ops, reset_counters
+from repro_torch.kernels import COUNTERS, SERVING, TRAINING, build, ops, reset_counters
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import prefill_attention as pre
 from repro_torch.kernels import sparse_delta as sd
 
@@ -169,6 +175,100 @@ def test_ops_accept_scalar_lengths_like_reference():
     close(got, want, 2e-5)
 
 
+# ------------------------------------------------------ training kernels
+
+
+def linear_inputs(rng, m=24, kd=40, n=48, k=3):
+    x = rng.normal(size=(m, kd)).astype(np.float32)
+    w = (rng.normal(size=(kd, n)) * kd**-0.5).astype(np.float32)
+    idx = np.stack([rng.permutation(kd)[:k] for _ in range(n)], axis=1).astype(np.int32)
+    val = (0.1 * rng.normal(size=(k, n))).astype(np.float32)
+    b = rng.normal(size=(n,)).astype(np.float32)
+    return x, w, idx, val, b
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fused_linear_plain_matches_pallas_interpret(dtype, bias):
+    x, w, idx, val, b = linear_inputs(np.random.default_rng(20))
+    (jx, tx), (jw, tw), (jv, tv), (jb, tb) = (both(a, dtype) for a in (x, w, val, b))
+    if not bias:
+        jb = tb = None
+    want = fused_linear_pallas(jx, jw, jnp.asarray(idx), jv, jb, interpret=True)
+    got = fl.fused_linear(tx, tw, torch.from_numpy(idx), tv, tb)
+    assert got.dtype == tx.dtype and got.shape == (24, 48)
+    close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_sparse_delta_dval_plain_matches_pallas_interpret(dtype):
+    rng = np.random.default_rng(21)
+    x, _, idx, _, _ = linear_inputs(rng)
+    dy = rng.normal(size=(24, 48)).astype(np.float32)
+    jx, tx = both(x, dtype)
+    jdy, tdy = both(dy, dtype)
+    want = sparse_delta_dval_pallas(jx, jnp.asarray(idx), jdy, interpret=True)
+    got = sd.sparse_delta_dval(tx, torch.from_numpy(idx), tdy)
+    assert got.dtype == torch.float32 and got.shape == idx.shape
+    close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_fused_linear_gradient_matches_reference_vjp(dtype):
+    """dx, dval and dbias of ``ops.fused_linear`` against ``jax.vjp`` of the
+    reference's under its Pallas kernels (interpret mode); W gets none."""
+    rng = np.random.default_rng(22)
+    x, w, idx, val, b = linear_inputs(rng)
+    x = x.reshape(2, 12, 40)
+    dy = rng.normal(size=(2, 12, 48)).astype(np.float32)
+    (jx, tx), (jw, tw), (jv, tv), (jb, tb), (jdy, tdy) = (
+        both(a, dtype) for a in (x, w, val, b, dy))
+    jidx, tidx = jnp.asarray(idx), torch.from_numpy(idx)
+    with jops.use_backend("pallas_interpret"):
+        jy, vjp = jax.vjp(lambda a, v, c: jops.fused_linear(a, jw, jidx, v, c, w_frozen=True),
+                          jx, jv, jb)
+        want_dx, want_dval, want_db = vjp(jdy)
+    tx, tv, tb = (t.requires_grad_() for t in (tx, tv, tb))
+    y = ops.fused_linear(tx, tw, tidx, tv, tb, w_frozen=True)
+    close(y.detach(), jy, TOL[dtype])
+    y.backward(tdy)
+    assert tw.grad is None and not tw.requires_grad
+    assert tv.grad.dtype == tv.dtype and tb.grad.dtype == tb.dtype
+    close(tx.grad, want_dx, TOL[dtype])
+    close(tv.grad, want_dval, TOL[dtype])
+    close(tb.grad, want_db, TOL[dtype])
+
+
+def test_training_wrappers_check_their_inputs():
+    x, w, idx, val, b = map(torch.from_numpy, linear_inputs(np.random.default_rng(23)))
+    fl._check(x, w, idx, val, b)
+    with pytest.raises(ValueError):
+        fl._check(x, w[:-1], idx, val, b)  # K does not chain
+    with pytest.raises(TypeError):
+        fl._check(x, w.bfloat16(), idx, val, b)
+    with pytest.raises(TypeError):
+        fl._check(x, w, idx.long(), val, b)
+    with pytest.raises(ValueError):
+        fl._check(x, w, idx, val, b[:-1])
+    dy = torch.zeros(24, 48)
+    sd._check_dval(x, idx, dy)
+    with pytest.raises(ValueError):
+        sd._check_dval(x, idx, dy[:-1])
+    with pytest.raises(TypeError):
+        sd._check_dval(x, idx, dy.bfloat16())
+
+
+@pytest.mark.parametrize("m,d_out,sms,want", [
+    (2048, 256, 132, (8, 256)),      # wk/wv: 2 column tiles, M split 256 ways
+    (2048, 8960, 132, (256, 8)),     # wgate/wup: 70 column tiles
+    (5, 8960, 132, (1, 5)),          # fewer rows than splits wanted
+])
+def test_dval_split_fills_the_card_and_covers_every_row(m, d_out, sms, want):
+    rows, n_split = sd.dval_split(m, d_out, sms)
+    assert (rows, n_split) == want
+    assert rows * n_split >= m > rows * (n_split - 1)
+
+
 # ------------------------------------------------- wrappers and counters
 
 
@@ -180,6 +280,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     assert (COUNTERS["sparse_delta_batched"].plain,
             COUNTERS["sparse_delta_batched"].kernel) == (2, 0)
     assert COUNTERS["paged_decode_attention"].plain == 0
+    x, w, idx, val, b = map(torch.from_numpy, linear_inputs(np.random.default_rng(24)))
+    fl.fused_linear(x, w, idx, val, b)
+    sd.sparse_delta_dval(x, idx, torch.ones(24, 48))
+    assert (COUNTERS["fused_linear"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
+    assert set(COUNTERS) == set(SERVING) | set(TRAINING)
     reset_counters()
     assert all(c.plain == c.kernel == 0 for c in COUNTERS.values())
 
@@ -255,7 +360,31 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype):
         close(dec.paged_decode_attention(q1, tk, tv, tt, tvl).cpu(),
               dec.paged_decode_attention_plain(q1, tk, tv, tt, tvl).cpu(), tol)
     torch.cuda.synchronize()
-    assert all(c.kernel > 0 for c in COUNTERS.values())
+    assert all(COUNTERS[name].kernel > 0 for name in SERVING)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_cuda_training_kernels_match_plain_versions(cuda, dtype):
+    """Both training kernels on ragged shapes (row, column and K tails, K
+    not a multiple of 8 for the unaligned load path)."""
+    rng = np.random.default_rng(61)
+    tol = TOL[dtype]
+    reset_counters()
+    for m, kd, n, k in ((200, 1000, 264, 2), (130, 77, 129, 1), (7, 4500, 520, 3)):
+        x, w, idx, val, b = linear_inputs(rng, m, kd, n, k)
+        dy = (rng.normal(size=(m, n)) * m**-0.5).astype(np.float32)  # dval stays O(1)
+        tx, tw, tb, tdy = (both(a, dtype)[1].to(cuda) for a in (x, w, b, dy))
+        tidx = torch.from_numpy(idx).to(cuda)
+        for tv in (both(val, jnp.bfloat16)[1].to(cuda), both(val, jnp.float32)[1].to(cuda)):
+            for bias in (tb, None):
+                close(fl.fused_linear(tx, tw, tidx, tv, bias).cpu(),
+                      fl.fused_linear_plain(tx, tw, tidx, tv, bias).cpu(), tol)
+        got = sd.sparse_delta_dval(tx, tidx, tdy)
+        close(got.cpu(), sd.sparse_delta_dval_plain(tx, tidx, tdy).cpu(), tol)
+        assert torch.equal(got, sd.sparse_delta_dval(tx, tidx, tdy))  # no atomics
+    torch.cuda.synchronize()
+    assert all(COUNTERS[name].kernel > 0 for name in TRAINING)
 
 
 def test_jax_stays_on_cpu():

@@ -283,7 +283,9 @@ def test_npz_trees_cross_between_packages(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.convert, repro_torch.peft, repro_torch.kernels.build; "
+            "repro_torch.convert, repro_torch.peft, repro_torch.kernels.build, "
+            "repro_torch.train, repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.data, repro_torch.distributed; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
