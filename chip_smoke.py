@@ -6,19 +6,24 @@
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the five hand-written CUDA kernels from
+2. build: compile the six hand-written CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (timed);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
    pages), ``fused_linear`` and ``sparse_delta_dval`` on ragged shapes
    (row, column and K tails) and at every projection of a training step
-   (M = 4 x 512 rows; wdown's K = 8960 included) — then
-   timed beside its plain version, its bound and a one-call PyTorch
-   yardstick where there is one (the port never calls it);
+   (M = 4 x 512 rows; wdown's K = 8960 included), ``fused_linear_q`` (int8
+   and NF4) on ragged shapes (scale blocks 2-128 crossing K tiles, k 0-3)
+   and at every projection at M = 2048 (training, bypass k = 1) and M = 8
+   (decode rows, no bypass) — then timed beside its plain version, its
+   bound and a one-call PyTorch yardstick where there is one (the port
+   never calls it);
 4. reduced serving: reduced qwen2-1.5b in fp32 through the paged
    multi-tenant engine on the card (kernels) and on the CPU (plain
-   versions): greedy tokens must be identical;
+   versions): greedy tokens must be identical; then the same on an int8
+   and on an NF4 base (each engine packs its own copy; every base matmul
+   through ``fused_linear_q``, 7 a layer-forward);
 5. full serving: qwen2-1.5b at full published width in bf16, random
    weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
    ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
@@ -26,24 +31,30 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    device-to-host transfer per step, the block pool fully free at the end;
    the same run again under ``torch.profiler`` (device time by kernel);
    then a longer, decode-dominated window (16 requests x 128 new tokens)
-   served three times, for the median and spread of tokens/s;
+   served three times, for the median and spread of tokens/s; then the
+   same tenants, prompts and settings on an int8 and on an NF4 base
+   (``ServeEngine(base_dtype=...)``): the gate run (every base matmul
+   through ``fused_linear_q``, 7 a layer-forward) and one window run;
 6. reduced training: reduced qwen2-1.5b in fp32, the same params and three
-   batches trained on the card (kernels) and on the CPU (plain versions):
-   losses within 1e-5, final values within 1e-5 relative;
+   batches trained on the card (kernels) and on the CPU (plain versions),
+   on the fp32, an int8 and an NF4 base: losses within 1e-5, final values
+   within 1e-5 relative;
 7. full training: qwen2-1.5b at full width and depth in bf16, NeuroAda
    k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 10
    measured (losses, step time, tokens/s, peak memory, launches per step:
    196 of each training kernel, no plain call), one profiled step (device
    busy share); then the trained adapter is exported and served as a
-   tenant beside the base.
+   tenant beside the base. The same on an int8 and on an NF4 base
+   (``fused_linear_q`` in place of ``fused_linear``, the packed base
+   unchanged by every step, peak memory below the bf16 base's).
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``. Detailed per-shape kernel results go to
-``chiprun_out/chip_smoke_kernels.json``, the window's runs to
-``chiprun_out/window.json``. Exits non-zero without CUDA, and
+``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
+``chiprun_out/window*.json``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
-The training phases write ``train.json`` and ``train_profile.txt`` to the
-same directory.
+The training phases write ``train*.json`` and ``train*_profile.txt`` to
+the same directory.
 """
 
 from __future__ import annotations
@@ -66,14 +77,29 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.configs import PeftConfig, TrainConfig, get_config, reduced  # noqa: E402
 from repro_torch.core.adapt import init_adapters  # noqa: E402
 from repro_torch.data import TASKS, DataLoader  # noqa: E402
-from repro_torch.kernels import COUNTERS, SERVING, TRAINING, build, reset_counters  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    COUNTERS,
+    PACKED_BASE,
+    SERVING,
+    TRAINING,
+    build,
+    reset_counters,
+)
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import fused_linear as fl_mod  # noqa: E402
 from repro_torch.kernels import prefill_attention as pre_mod  # noqa: E402
+from repro_torch.kernels import quant_linear as ql_mod  # noqa: E402
 from repro_torch.kernels import sparse_delta as sd_mod  # noqa: E402
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
-from repro_torch.peft import export_adapter, get_peft, load_adapter, stats  # noqa: E402
+from repro_torch.peft import (  # noqa: E402
+    export_adapter,
+    get_peft,
+    load_adapter,
+    quantize_base,
+    stats,
+)
+from repro_torch.quant import QuantizedTensor, dequantize, quantize, tree_bytes  # noqa: E402
 from repro_torch.serve import AdapterStore, ServeEngine  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.tree import flatten, map_leaves  # noqa: E402
@@ -91,6 +117,8 @@ N_TENANTS, K_DELTA = 3, 2
 # full-width training step: batch x seq rows through every projection
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_LR = 4, 512, 1, 3e-3
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# the packed bases, with the launchers' default scale block
+PACKED, QUANT_BLOCK = ("int8", "nf4"), 64
 
 
 def log(msg: str) -> None:
@@ -366,6 +394,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, "
         f"bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
     train_kernels(gen, projections, dev, summary, detail, card)
+    packed_kernels(gen, projections, dev, summary, detail, card)
     return summary, detail
 
 
@@ -495,6 +524,120 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
             f"{lib}, bound {b_ms:.4f} by {b_by}) [{card}]")
 
 
+def packed_cost(x, qt, k, val, bias) -> tuple[float, float]:
+    """x read once, the packed codes and scales read once (never a dense
+    weight), idx/val/bias read once, y written once; 2·M·K·N flops of the
+    product plus 2·M·k·N of bypass."""
+    m, kd = x.shape
+    n = qt.shape[-1]
+    es = x.element_size()
+    nbytes = (m * kd + m * n) * es + qt.nbytes
+    if k:
+        nbytes += k * n * (4 + val.element_size())
+    if bias is not None:
+        nbytes += n * es
+    return nbytes, 2.0 * m * kd * n + 2.0 * m * k * n
+
+
+def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
+    """``fused_linear_q`` (int8 and NF4) against its plain version: ragged
+    shapes first (row, column and K tails, scale blocks that cross K tiles,
+    k 0-3), then every projection at the training rows (M = batch x seq,
+    bypass k = 1, qkv bias) and at the decode rows (M = slots, no bypass:
+    the serving base matmul), bf16 and fp32; the bf16 calls timed and
+    summed over the layer's 7 projections per (scheme, M)."""
+    for rm, rk, rn, kk, block in ((130, 78, 129, 2, 32), (7, 4500, 520, 3, 128),
+                                  (200, 1000, 264, 0, 6), (33, 96, 48, 1, 2)):
+        for qd in PACKED:
+            for dt in (torch.bfloat16, torch.float32):
+                w = torch.randn(rk, rn, generator=gen, device=dev) * rk**-0.5
+                qt = quantize(w.to(dt), qd, block)
+                x = torch.randn(rm, rk, generator=gen, device=dev).to(dt)
+                b = torch.randn(rn, generator=gen, device=dev).to(dt)
+                idx = torch.randint(0, rk, (kk, rn), generator=gen, device=dev,
+                                    dtype=torch.int32) if kk else None
+                for vdt in (torch.bfloat16, torch.float32):
+                    val = (torch.randn(kk, rn, generator=gen, device=dev) * 0.05).to(vdt) \
+                        if kk else None
+                    for bias in (b, None):
+                        args = (x, qt.data, qt.scales, idx, val, bias)
+                        got = ql_mod.fused_linear_q(*args, qdtype=qd, block=block)
+                        want = ql_mod.fused_linear_q_plain(*args, qdtype=qd, block=block)
+                        torch.cuda.synchronize()
+                        check_close(f"fused_linear_q {qd} ragged M={rm} K={rk} N={rn} k={kk} "
+                                    f"block={block}", got, want, dt)
+    log("[kernels] fused_linear_q ok on ragged shapes, int8 and NF4 (M 7/33/130/200, "
+        "K 78/96/1000/4500, N 48/129/264/520, blocks 2/6/32/128, k 0-3; bf16 2e-2, "
+        "fp32 2e-5)")
+    m_train, m_dec = TRAIN_BATCH * TRAIN_SEQ, SLOTS
+    cases = {}
+    for qd in PACKED:
+        for m in (m_train, m_dec):
+            acc = {"ms": 0.0, "plain_ms": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0,
+                   "err": 0.0}
+            for name, d_in, d_out in projections:
+                w = torch.randn(d_in, d_out, generator=gen, device=dev) * d_in**-0.5
+                for dt in (torch.bfloat16, torch.float32):
+                    wd = w.to(dt)
+                    qt = quantize(wd, qd, QUANT_BLOCK)
+                    x = torch.randn(m, d_in, generator=gen, device=dev).to(dt)
+                    k = TRAIN_K if m == m_train else 0
+                    idx = val = bias = None
+                    if k:
+                        idx = torch.randint(0, d_in, (k, d_out), generator=gen, device=dev,
+                                            dtype=torch.int32)
+                        val = (torch.randn(k, d_out, generator=gen, device=dev) * 0.05).to(
+                            torch.bfloat16)
+                        if name in ("wq", "wk", "wv"):
+                            bias = torch.randn(d_out, generator=gen, device=dev).to(dt)
+                    args = (x, qt.data, qt.scales, idx, val, bias)
+                    fn = lambda: ql_mod.fused_linear_q(*args, qdtype=qd, block=QUANT_BLOCK)  # noqa: E731
+                    plain = lambda: ql_mod.fused_linear_q_plain(*args, qdtype=qd,  # noqa: E731
+                                                                block=QUANT_BLOCK)
+                    got, want = fn(), plain()
+                    torch.cuda.synchronize()
+                    err = check_close(f"fused_linear_q {qd} {name} M={m}", got, want, dt)
+                    row = {"kernel": "fused_linear_q", "qdtype": qd, "proj": name, "M": m,
+                           "K": d_in, "N": d_out, "k": k, "bias": bias is not None,
+                           "dtype": str(dt), "max_abs_err": err}
+                    if dt == torch.bfloat16:
+                        cost = packed_cost(x, qt, k, val, bias)
+                        row["ms"] = cuda_ms(fn)
+                        row["plain_ms"] = cuda_ms(plain, iters=3)
+                        row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+                        # yardstick: the dense part on the dense bf16 weight
+                        # (no single PyTorch call dequantizes and multiplies)
+                        lib = ((lambda: torch.addmm(bias, x, wd)) if bias is not None
+                               else (lambda: torch.mm(x, wd)))
+                        row["library_ms"] = cuda_ms(lib)
+                        for key, v in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
+                                       ("lib", row["library_ms"]), ("bytes", cost[0]),
+                                       ("flops", cost[1])):
+                            acc[key] += v
+                        acc["err"] = max(acc["err"], err)
+                    detail.append(row)
+            b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
+            cases[f"{qd} M={m}"] = {"ms": acc["ms"], "plain_ms": acc["plain_ms"],
+                                    "library_ms": acc["lib"], "bound_ms": b_ms,
+                                    "bound_by": b_by, "max_abs_err": acc["err"]}
+            log(f"[kernels] fused_linear_q {qd} one layer at M={m} (k={TRAIN_K if m == m_train else 0}): "
+                f"{acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, torch.mm dense bf16 part "
+                f"{acc['lib']:.4f}, bound {b_ms:.4f} by {b_by}); max|err| bf16 "
+                f"{acc['err']:.3e} [{card}]")
+    head = cases[f"int8 M={m_train}"]
+    summary["fused_linear_q"] = {
+        "source": ql_mod.SOURCE, "replaces": ql_mod.REPLACES,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "shape": f"7 projections of one layer, int8 base (block {QUANT_BLOCK}), M={m_train} "
+                 f"bf16 rows, k={TRAIN_K}, qkv bias; other cases under 'cases'",
+        "cases": cases,
+    }
+    log(f"[kernels] fused_linear_q ok (bf16 2e-2, fp32 2e-5 at all 7 shapes, int8 and NF4, "
+        f"M={m_train} and M={m_dec}) [{card}]")
+
+
 # --------------------------------------------------------------- engine runs
 
 
@@ -521,7 +664,9 @@ def serve(model, params, tenants, prompts, max_new, device, **kw):
     return eng, eng.run_to_completion()
 
 
-def phase_reduced() -> None:
+def phase_reduced(base: str = "fp32") -> None:
+    """Greedy tokens card vs CPU; on a packed ``base`` each engine packs
+    the same fp32 params on its own device."""
     cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
     model = get_model(cfg)
     params_cpu = model.init(seed=0, device="cpu")
@@ -529,7 +674,7 @@ def phase_reduced() -> None:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (5, 37, 12, 70, 3)]
     kw = dict(slots=3, max_len=128, prefill_chunk=16, decode_chunk=4, page_size=PAGE,
-              eos_id=1 << 20)
+              eos_id=1 << 20, base_dtype=base, quant_block=QUANT_BLOCK)
     _, want = serve(model, params_cpu, tenants_cpu, prompts, 10, "cpu", **kw)
     to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
     tenants = [(to_cuda(i), to_cuda(v)) for i, v in tenants_cpu]
@@ -539,10 +684,16 @@ def phase_reduced() -> None:
         assert c.name not in SERVING or c.kernel > 0, \
             f"reduced run on the card never launched {c.name}"
         assert c.plain == 0, f"reduced run on the card called plain {c.name}"
+    forwards = COUNTERS["paged_decode_attention"].kernel + \
+        COUNTERS["paged_prefill_attention"].kernel  # one a layer-forward
+    n_q = COUNTERS["fused_linear_q"].kernel
+    assert n_q == (7 * forwards if base in PACKED else 0), (base, n_q, forwards)
+    assert isinstance(eng.params["blocks"]["wq"]["w"], QuantizedTensor) == (base in PACKED)
     for a, b in zip(want, got):
-        assert a.out == b.out, f"rid {a.rid}: cpu {a.out} != cuda {b.out}"
-    log(f"[reduced] greedy tokens identical on cpu (plain) and cuda (kernels): "
-        f"{len(got)} requests, {sum(len(r.out) for r in got)} tokens")
+        assert a.out == b.out, f"{base} base, rid {a.rid}: cpu {a.out} != cuda {b.out}"
+    log(f"[reduced-{base}] greedy tokens identical on cpu (plain) and cuda (kernels): "
+        f"{len(got)} requests, {sum(len(r.out) for r in got)} tokens; fused_linear_q "
+        f"{n_q} launches, {forwards} layer-forwards")
 
 
 def phase_full(card: str) -> dict:
@@ -592,7 +743,53 @@ def phase_full(card: str) -> dict:
     profile_run(lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
                 "profile", "full_profile.txt")
     phase_window(model, params, tenants, card, kw)
-    return launches
+    packed = {qd: phase_full_packed(model, params, tenants, prompts, max_new, kw, card, qd)
+              for qd in PACKED}
+    return launches, packed
+
+
+def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
+                      qd: str) -> int:
+    """Phase 5 on a packed base: ``ServeEngine(base_dtype=qd)`` packs the
+    base at init on the card; the same tenants, prompts and settings serve
+    the gate run (checked: every base matmul through ``fused_linear_q``,
+    7 per layer-forward, tenants' bypasses on top) and one window run.
+    Returns the gate run's ``fused_linear_q`` launches."""
+    t0 = time.perf_counter()
+    eng, _ = serve(model, params, tenants, prompts[:2], 2, "cuda", base_dtype=qd,
+                   quant_block=QUANT_BLOCK, **kw)  # warm-up, and the packed base
+    torch.cuda.synchronize()
+    packed = eng.params
+    assert isinstance(packed["blocks"]["wq"]["w"], QuantizedTensor)
+    base_bytes = tree_bytes(packed)
+    log(f"[full-{qd}] base packed on the card by ServeEngine(base_dtype={qd!r}): "
+        f"{tree_bytes(params):,} -> {base_bytes:,} bytes; warm-up "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del eng
+    reset_counters()
+    t0 = time.perf_counter()
+    eng, reqs = serve(model, packed, tenants, prompts, max_new, "cuda", base_dtype=qd,
+                      quant_block=QUANT_BLOCK, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {name: c.kernel for name, c in COUNTERS.items()}
+    for name, c in COUNTERS.items():
+        assert c.plain == 0, f"{qd} serving called the plain version of {name} {c.plain} times"
+    forwards = n["paged_decode_attention"] + n["paged_prefill_attention"]  # one a layer-forward
+    assert n["fused_linear_q"] == 7 * forwards > 0, (n, forwards)
+    assert n["sparse_delta_batched"] > 0 and n["fused_linear"] == 0, n
+    for r in reqs:
+        assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
+    assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+    assert eng.kv.drained(), "block pool not fully free after the run"
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"[full-{qd}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} "
+        f"tok/s; steps {eng.steps}; launches {json.dumps(n)} (fused_linear_q = 7 x "
+        f"{forwards} layer-forwards), plain 0 [{card}]")
+    phase_window(model, packed, tenants, card, dict(kw, base_dtype=qd, quant_block=QUANT_BLOCK),
+                 repeats=1, tag=f"window-{qd}", fname=f"window_{qd}.json",
+                 extra={"base_dtype": qd, "base_bytes": base_bytes})
+    return n["fused_linear_q"]
 
 
 # a longer, decode-dominated window, repeated: the run above is a smoke
@@ -600,12 +797,13 @@ def phase_full(card: str) -> dict:
 WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 128, 3
 
 
-def phase_window(model, params, tenants, card: str, kw: dict) -> None:
+def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WINDOW_REPEATS,
+                 tag: str = "window", fname: str = "window.json", extra=None) -> None:
     rng = np.random.default_rng(13)
     lens = rng.integers(40, 701, size=WINDOW_REQUESTS)
     prompts = [rng.integers(3, model.cfg.vocab_size, size=int(n)).tolist() for n in lens]
     runs = []
-    for i in range(WINDOW_REPEATS):
+    for i in range(repeats):
         t0 = time.perf_counter()
         eng, reqs = serve(model, params, tenants, prompts, WINDOW_NEW, "cuda", **kw)
         torch.cuda.synchronize()
@@ -619,19 +817,20 @@ def phase_window(model, params, tenants, card: str, kw: dict) -> None:
                      "mixed_ms": float(np.mean(st["mixed"])) * 1e3,
                      "decode_ms": float(np.mean(st["decode"])) * 1e3})
         r = runs[-1]
-        log(f"[window] run {i + 1}/{WINDOW_REPEATS}: {n_tok} tokens in {wall:.3f} s = "
+        log(f"[{tag}] run {i + 1}/{repeats}: {n_tok} tokens in {wall:.3f} s = "
             f"{r['tok_s']:.1f} tok/s; mixed {r['mixed_steps']} x {r['mixed_ms']:.2f} ms, "
             f"decode {r['decode_steps']} x {r['decode_ms']:.2f} ms [{card}]")
     stats = {}
     for key in ("tok_s", "mixed_ms", "decode_ms"):
         vals = [r[key] for r in runs]
         stats[key] = {"median": float(np.median(vals)), "min": min(vals), "max": max(vals)}
-    with open(os.path.join(OUT_DIR, "window.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         json.dump({"card": card, "requests": WINDOW_REQUESTS, "prompt_tokens": int(lens.sum()),
-                   "max_new": WINDOW_NEW, "runs": runs, "stats": stats}, f, indent=1)
+                   "max_new": WINDOW_NEW, "runs": runs, "stats": stats, **(extra or {})},
+                  f, indent=1)
     t, d, m = stats["tok_s"], stats["decode_ms"], stats["mixed_ms"]
-    log(f"[window] {WINDOW_REQUESTS} requests ({int(lens.sum())} prompt tokens) x "
-        f"{WINDOW_NEW} new, {WINDOW_REPEATS} runs: median {t['median']:.1f} tok/s "
+    log(f"[{tag}] {WINDOW_REQUESTS} requests ({int(lens.sum())} prompt tokens) x "
+        f"{WINDOW_NEW} new, {repeats} runs: median {t['median']:.1f} tok/s "
         f"(min {t['min']:.1f}, max {t['max']:.1f}); decode megastep median "
         f"{d['median']:.2f} ms ({d['median'] / DECODE_CHUNK:.2f} ms per token step; min "
         f"{d['min']:.2f}, max {d['max']:.2f}); mixed step median {m['median']:.2f} ms "
@@ -641,6 +840,7 @@ def phase_window(model, params, tenants, card: str, kw: dict) -> None:
 BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("paged_decode_attention", ("paged_decode",)),
            ("sparse_delta_batched", ("sparse_delta_batched",)),
+           ("fused_linear_q", ("fused_linear_q",)),
            ("fused_linear", ("fused_linear",)),
            ("sparse_delta_dval", ("dval_",)),
            ("index ops (index_add_, gathers)", ("index",)),
@@ -684,21 +884,41 @@ def train_run(model, params, pcfg, tcfg, batches):
     return [h["loss"] for h in hist], trainer.state.trainable
 
 
-def phase_reduced_train(card: str) -> None:
+def packed_fingerprint(params) -> list:
+    """Per packed leaf: its bytes summed (codes, and scales as int32 bits),
+    on the card — a change of any byte shows up with high odds."""
+    return [torch.stack([x.data.view(torch.uint8).sum(dtype=torch.int64),
+                         x.scales.view(torch.int32).sum(dtype=torch.int64)])
+            for _, x in flatten(params) if isinstance(x, QuantizedTensor)]
+
+
+def path_kernels(base: str) -> tuple[tuple, tuple]:
+    """(kernels a training step must launch, kernels it must not) on a base."""
+    if base == "bf16":
+        return TRAINING, PACKED_BASE
+    return PACKED_BASE + ("sparse_delta_dval",), ("fused_linear",)
+
+
+def phase_reduced_train(card: str, base: str = "bf16") -> None:
     """Reduced qwen2-1.5b in fp32 (fp32 values too), the same params and
-    three batches, trained on the card and on the CPU."""
+    three batches, trained on the card and on the CPU; on a packed base the
+    params are packed on the CPU and the same bytes move to the card."""
     cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
     model = get_model(cfg)
     params_cpu = model.init(seed=0, device="cpu")
+    if base != "bf16":
+        params_cpu = quantize_base(params_cpu, base, block=QUANT_BLOCK)
     pcfg = PeftConfig(k=2, delta_dtype="float32")
     tcfg = TrainConfig(steps=3, learning_rate=TRAIN_LR)
     batches = [TASKS["reasoning"](cfg.vocab_size, 4, 16, 0, i) for i in range(3)]
     want_loss, want_val = train_run(model, params_cpu, pcfg, tcfg, batches)
-    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
+    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.to("cuda"), t)  # noqa: E731
     reset_counters()
     got_loss, got_val = train_run(model, to_cuda(params_cpu), pcfg, tcfg, batches)
+    must, must_not = path_kernels(base)
     for name, c in COUNTERS.items():
-        assert name not in TRAINING or c.kernel > 0, f"reduced training never launched {name}"
+        assert name not in must or c.kernel > 0, f"reduced training never launched {name}"
+        assert name not in must_not or c.kernel == 0, f"reduced training launched {name}"
         assert c.plain == 0, f"reduced training on the card called plain {name}"
     for i, (a, b) in enumerate(zip(want_loss, got_loss)):
         assert abs(a - b) <= 1e-5, f"step {i}: loss cpu {a!r} != cuda {b!r}"
@@ -708,18 +928,26 @@ def phase_reduced_train(card: str) -> None:
     diff = sum(float((b - a).double().square().sum()) for a, b in pairs) ** 0.5
     norm = sum(float(a.double().square().sum()) for a, _ in pairs) ** 0.5
     assert diff <= 1e-5 * norm, f"values: ||cuda - cpu|| / ||cpu|| = {diff / norm:.3e}"
-    log(f"[reduced-train] 3 steps of reduced qwen2-1.5b fp32: losses cpu "
+    base_txt = "fp32 base" if base == "bf16" else f"{base} base"
+    log(f"[reduced-train] 3 steps of reduced qwen2-1.5b fp32, {base_txt}: losses cpu "
         f"{[f'{x:.7f}' for x in want_loss]} cuda {[f'{x:.7f}' for x in got_loss]} "
         f"(max |diff| {max(abs(a - b) for a, b in zip(want_loss, got_loss)):.2e}); values "
         f"||cuda - cpu|| / ||cpu|| = {diff / norm:.2e} [{card}]")
 
 
-def phase_train(card: str) -> dict:
-    """Full-width qwen2-1.5b NeuroAda training, then its adapter served."""
+def phase_train(card: str, base: str = "bf16") -> dict:
+    """Full-width qwen2-1.5b NeuroAda training on a bf16 base, or on one
+    packed to ``base`` (int8, NF4) after init and before selection, as the
+    launcher does; then its adapter served on the same base. Returns the
+    measured steps' launches and the step's figures."""
     cfg = get_config("qwen2-1.5b")
     model = get_model(cfg)
     params = model.init(seed=0, device="cuda")
+    if base != "bf16":
+        params = quantize_base(params, base, block=QUANT_BLOCK)  # the dense base is freed
+    base_bytes = tree_bytes(params)
     tcfg = TrainConfig(steps=TRAIN_WARMUP + TRAIN_STEPS + 1, learning_rate=TRAIN_LR)
+    tag = "train" if base == "bf16" else f"train-{base}"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)), tcfg, params)
@@ -729,56 +957,68 @@ def phase_train(card: str) -> dict:
     per_layer = 2 * cfg.d_model + cfg.num_heads * cfg.resolved_head_dim \
         + 2 * cfg.num_kv_heads * cfg.resolved_head_dim + 2 * cfg.d_ff
     assert st["trainable"] == cfg.num_layers * per_layer * TRAIN_K, st
-    log(f"[train] qwen2-1.5b bf16, NeuroAda k={TRAIN_K} magnitude: trainable "
-        f"{st['trainable']:,} of {st['total']:,} ({100 * st['fraction']:.4f} %), selection "
-        f"{select_s:.2f} s [{card}]")
+    log(f"[{tag}] qwen2-1.5b {base} base ({base_bytes:,} bytes), NeuroAda k={TRAIN_K} "
+        f"magnitude: trainable {st['trainable']:,} of {st['total']:,} "
+        f"({100 * st['fraction']:.4f} %), selection {select_s:.2f} s [{card}]")
+    must, must_not = path_kernels(base)
     data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     try:
         for _ in range(TRAIN_WARMUP):
             trainer.step(next(data))
+        fingerprint = packed_fingerprint(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
-        times, losses = [], []
+        times, losses, peak = [], [], 0
         for _ in range(TRAIN_STEPS):
             batch = next(data)
             t0 = time.perf_counter()
             m = trainer.step(batch)  # returns floats: waits for the device
             times.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated())
             losses.append(m["loss"])
             assert m["skipped"] == 0, m
-        peak = torch.cuda.max_memory_allocated()
-        launches = {n: COUNTERS[n].kernel for n in TRAINING}
+            # the packed base is the same, byte for byte, after every step
+            # (checked outside the step's time and peak memory)
+            assert tree_bytes(params) == base_bytes
+            assert all(torch.equal(a, b) for a, b in zip(fingerprint,
+                                                         packed_fingerprint(params)))
+            torch.cuda.reset_peak_memory_stats()
+        launches = {n: COUNTERS[n].kernel for n in must}
         for name, c in COUNTERS.items():
             assert c.plain == 0, f"training called the plain version of {name} {c.plain} times"
+            assert name not in must_not or c.kernel == 0, f"training launched {name}"
         per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
         want = 7 * cfg.num_layers
         assert all(v == want for v in per_step.values()), (per_step, want)
         assert all(np.isfinite(losses)), losses
-        busy = profile_run(lambda: trainer.step(next(data)), card, "train-profile",
-                           "train_profile.txt")
+        prof = "train_profile.txt" if base == "bf16" else f"train_{base}_profile.txt"
+        busy = profile_run(lambda: trainer.step(next(data)), card, f"{tag}-profile", prof)
     finally:
         data.close()
     med = float(np.median(times))
     tok = TRAIN_BATCH * TRAIN_SEQ
-    log(f"[train] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
-    log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: step time "
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
+    log(f"[{tag}] {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: step time "
         f"median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
-        f"{tok / med:.0f} training tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
-        f"per step {json.dumps(per_step)}, plain 0; device busy {busy:.1%} of a profiled "
-        f"step [{card}]")
-    with open(os.path.join(OUT_DIR, "train.json"), "w") as f:
-        json.dump({"card": card, "losses": losses, "step_s": times, "tokens_per_step": tok,
-                   "peak_bytes": peak, "launches_per_step": per_step, "busy_share": busy,
-                   "trainable": st["trainable"], "fraction": st["fraction"]}, f, indent=1)
-    serve_trained(model, params, trainer, card)
-    return launches
+        f"{tok / med:.0f} training tokens/s; peak memory {peak / 2**30:.2f} GiB; base "
+        f"{base_bytes:,} bytes; launches per step {json.dumps(per_step)}, plain 0; device "
+        f"busy {busy:.1%} of a profiled step [{card}]")
+    result = {"card": card, "base": base, "base_bytes": base_bytes, "losses": losses,
+              "step_s": times, "tokens_per_step": tok, "peak_bytes": peak,
+              "launches_per_step": per_step, "busy_share": busy,
+              "trainable": st["trainable"], "fraction": st["fraction"]}
+    fname = "train.json" if base == "bf16" else f"train_{base}.json"
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
+        json.dump(result, f, indent=1)
+    serve_trained(model, params, trainer, card, tag)
+    return {"launches": launches, "peak": peak, "median_s": med}
 
 
-def serve_trained(model, params, trainer, card: str) -> None:
+def serve_trained(model, params, trainer, card: str, tag: str) -> None:
     """Export the trained adapter, load it back and serve it as tenant 1
-    beside the base (id 0)."""
-    path = os.path.join(OUT_DIR, "trained_adapter.npz")
+    beside the base (id 0), on the base it was trained on."""
+    path = os.path.join(OUT_DIR, f"{tag}_adapter.npz")
     export_adapter(path, trainer.aux, trainer.state.trainable, {"arch": model.cfg.name})
     idx, val = load_adapter(path)
     rng = np.random.default_rng(17)
@@ -790,8 +1030,11 @@ def serve_trained(model, params, trainer, card: str) -> None:
     assert {r.adapter_id for r in reqs} == {0, 1}
     assert COUNTERS["sparse_delta_batched"].kernel > 0
     assert all(c.plain == 0 for c in COUNTERS.values())
-    log(f"[train] exported adapter ({os.path.getsize(path)} bytes) served as tenant 1 beside "
-        f"the base: {len(reqs)} requests, {sum(len(r.out) for r in reqs)} tokens [{card}]")
+    packed = any(isinstance(x, QuantizedTensor) for _, x in flatten(params))
+    assert (COUNTERS["fused_linear_q"].kernel > 0) == packed
+    log(f"[{tag}] exported adapter ({os.path.getsize(path)} bytes) served as tenant 1 beside "
+        f"the base{' on the packed base it was trained on' if packed else ''}: {len(reqs)} "
+        f"requests, {sum(len(r.out) for r in reqs)} tokens [{card}]")
 
 
 def main() -> int:
@@ -820,21 +1063,38 @@ def main() -> int:
     summary, detail = phase_kernels(torch.device("cuda"), card)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "rows": detail}, f, indent=1)
-    phase_reduced()
-    launches = phase_full(card)
-    phase_reduced_train(card)
-    launches.update(phase_train(card))
+    for base in ("fp32",) + PACKED:
+        phase_reduced(base)
+    launches, packed_serving = phase_full(card)
+    for base in ("bf16",) + PACKED:
+        phase_reduced_train(card, base)
+    train = {base: phase_train(card, base) for base in ("bf16",) + PACKED}
+    launches.update(train["bf16"]["launches"])
+    for base in PACKED:
+        peak, ref_peak = train[base]["peak"], train["bf16"]["peak"]
+        assert peak < ref_peak, f"{base} training peak {peak} >= bf16's {ref_peak}"
+        log(f"[train-{base}] peak memory {peak / 2**30:.2f} GiB < bf16 base's "
+            f"{ref_peak / 2**30:.2f} GiB; step median {train[base]['median_s'] * 1e3:.2f} ms "
+            f"against {train['bf16']['median_s'] * 1e3:.2f} ms [{card}]")
+    # fused_linear_q's launches on its paths: the packed training runs' measured
+    # steps and the packed serving gate runs
+    by_phase = {f"train-{b}": train[b]["launches"]["fused_linear_q"] for b in PACKED}
+    by_phase.update({f"serve-{b}": n for b, n in packed_serving.items()})
+    launches["fused_linear_q"] = sum(by_phase.values())
 
     kernels = []
     for name, s in summary.items():
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": s["source"],
             "replaces": s["replaces"], "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "kernel_ms": s["ms"],
             "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "shape": s["shape"],
-        })
+        }
+        if name == "fused_linear_q":
+            row.update(launches_by_phase=by_phase, cases=s["cases"])
+        kernels.append(row)
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

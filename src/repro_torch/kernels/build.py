@@ -47,6 +47,9 @@ SIGNATURES = {
     # x, idx, dy, partials, dval | M, d_in, d_out, k, rows_per_split, n_split,
     # dtype | stream
     "rt_sparse_delta_dval": [_P] * 5 + [_I] * 7 + [_P],
+    # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
+    # block, qdtype, x_dtype, v_dtype | stream
+    "rt_fused_linear_q": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 

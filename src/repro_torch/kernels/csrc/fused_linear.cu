@@ -28,50 +28,14 @@
 //   bias, casts once and stores.
 #include <mma.h>
 
-#include "common.cuh"
+#include "linear.cuh"
 
 namespace {
 
 using namespace nvcuda;
-
-// ------------------------------------------------------------------ helpers
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// y = acc + bypass (+ bias), one cast; the same epilogue for both kernels.
-template <typename TX, typename TV>
-__device__ __forceinline__ void finish(float acc, const TX* __restrict__ x,
-                                       const int32_t* __restrict__ idx,
-                                       const TV* __restrict__ val, const TX* __restrict__ bias,
-                                       TX* __restrict__ y, int m, int n, int K, int N, int k) {
-  const TX* xr = x + static_cast<size_t>(m) * K;
-  for (int j = 0; j < k; ++j) {
-    const size_t e = static_cast<size_t>(j) * N + n;
-    // indices come from selection; clamp so a bad one can never read
-    // outside the row
-    const int i = min(max(idx[e], 0), K - 1);
-    acc += rt::to_f(val[e]) * rt::to_f(xr[i]);
-  }
-  if (bias != nullptr) acc += rt::to_f(bias[n]);
-  y[static_cast<size_t>(m) * N + n] = rt::from_f<TX>(acc);
-}
+using namespace rt;
 
 // ------------------------------------------------------------- bf16, WMMA
-
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WM = 64, WN = 32;          // warp sub-tile: 2 x 4 warps
-constexpr int A_LD = BK + 8;             // padded rows keep fragments 32-byte aligned
-constexpr int B_LD = BN + 8;
-constexpr int kThreadsTC = 256;
 
 template <bool VEC>
 __device__ __forceinline__ void load_tiles(__nv_bfloat16 (*As)[A_LD],
@@ -80,16 +44,9 @@ __device__ __forceinline__ void load_tiles(__nv_bfloat16 (*As)[A_LD],
                                            const __nv_bfloat16* __restrict__ w, int m0,
                                            int n0, int k0, int M, int N, int K) {
   const int tid = threadIdx.x;
+  load_x_tile<VEC>(As, x, m0, k0, M, K);
   if (VEC) {
-    // A: 128 rows x 4 chunks of 8; B: 32 rows x 16 chunks of 8 — 2 each
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = tid + t * kThreadsTC;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gm = m0 + r, gk = k0 + kc;
-      const bool ok = gm < M && gk < K;
-      cp_async16(&As[r][kc], ok ? x + static_cast<size_t>(gm) * K + gk : x, ok);
-    }
+    // W: 32 rows x 16 chunks of 8, 2 a thread
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int c = tid + t * kThreadsTC;
@@ -100,11 +57,6 @@ __device__ __forceinline__ void load_tiles(__nv_bfloat16 (*As)[A_LD],
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    for (int e = tid; e < BM * BK; e += kThreadsTC) {
-      const int r = e / BK, kc = e % BK;
-      const int gm = m0 + r, gk = k0 + kc;
-      As[r][kc] = (gm < M && gk < K) ? x[static_cast<size_t>(gm) * K + gk] : zero;
-    }
     for (int e = tid; e < BK * BN; e += kThreadsTC) {
       const int r = e / BN, nc = e % BN;
       const int gk = k0 + r, gn = n0 + nc;
@@ -179,8 +131,6 @@ __global__ void __launch_bounds__(kThreadsTC)
 }
 
 // ---------------------------------------------------------- float32, FMA
-
-constexpr int FM = 64, FN = 64, FK = 16, kThreadsF = 256;
 
 template <typename TV>
 __global__ void __launch_bounds__(kThreadsF)

@@ -5,9 +5,10 @@ Each reshapes and broadcasts its arguments to the kernel's contract and
 calls the kernel module's wrapper, which launches the CUDA kernel for a
 CUDA tensor and the plain PyTorch version for a CPU tensor. There is no
 backend switch: the tensor's device decides. Offsets and lengths are (B,)
-int32 tensors, as the engine builds them. :func:`fused_linear` carries the
-training gradient (the reference's ``custom_vjp``) as a
-``torch.autograd.Function``.
+int32 tensors, as the engine builds them. :func:`fused_linear` and
+:func:`fused_linear_q` carry the training gradient (the reference's
+``custom_vjp``) as ``torch.autograd.Function`` classes; :func:`matmul_q`
+is the base matmul of a plain or packed weight.
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import fused_linear as _fl
+from repro_torch.kernels import quant_linear as _ql
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention as _decode
 from repro_torch.kernels.prefill_attention import paged_prefill_attention as _prefill
 from repro_torch.kernels.sparse_delta import sparse_delta_batched, sparse_delta_dval
+from repro_torch.quant.qtensor import QuantizedTensor, dequantize
 
 
 def delta_apply_batched(x, idx, val, aid):
@@ -86,4 +89,74 @@ def fused_linear(x, w, idx, val, bias=None, *, w_frozen: bool = False):
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
     y = _FusedLinear.apply(x2d, w, idx, val, bias, w_frozen)
+    return y.reshape(*lead, w.shape[-1])
+
+
+class _FusedLinearQ(torch.autograd.Function):
+    """Forward: the fused dequant kernel. Backward, as the reference's
+    ``_fused_q_bwd``: no gradient for the packed codes or scales (the base is
+    frozen by construction); ``dx = dy @ dequant(W)ᵀ`` with a plain
+    dequantize and a plain matmul (the reference leaves it to XLA) plus the
+    sparse scatter of the bypass; ``dval`` from the value-gradient kernel;
+    ``dbias = Σ_m dy``.
+
+    Only the packed ``data`` and ``scales`` are saved, never a dense weight:
+    ``dx``'s weight is dequantized transiently, in the weight's logical dtype
+    (``dtype_name``), and the product runs in the promotion of that dtype and
+    dy's. In float32 that is exactly the reference's float32 product; on a
+    bf16 base it is a bf16 × bf16 matmul with float32 accumulation where the
+    reference multiplies by the float32 dequantized weight — the weight
+    rounds once more, to bf16 (relative 2⁻⁹ per element), which bf16
+    training tolerances (2e-2) cover, and it spares the card a float32 GEMM
+    of 2048 × 8960 × 1536 per projection."""
+
+    @staticmethod
+    def forward(ctx, x2d, data, scales, idx, val, bias, qdtype, block, dtype_name):
+        ctx.save_for_backward(x2d, data, scales, idx, val)
+        ctx.meta = (qdtype, block, dtype_name)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _ql.fused_linear_q(x2d, data, scales, idx, val, bias, qdtype=qdtype,
+                                  block=block)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, data, scales, idx, val = ctx.saved_tensors
+        dy = dy.contiguous()
+        need_x, _, _, _, need_val, need_b = ctx.needs_input_grad[:6]
+        dx = dval = dbias = None
+        if need_x:
+            w = dequantize(QuantizedTensor(data, scales, *ctx.meta))
+            ct = torch.promote_types(dy.dtype, w.dtype)
+            dx = (dy.to(ct) @ w.to(ct).T).to(x2d.dtype)
+            if idx is not None:
+                dx = dx + ref.sparse_delta_dx_ref(idx, val, dy, x2d.shape[1]).to(x2d.dtype)
+        if need_val:
+            dval = sparse_delta_dval(x2d, idx, dy).to(val.dtype)
+        if need_b:
+            dbias = dy.sum(dim=0).to(ctx.bias_dtype)
+        return dx, None, None, None, dval, dbias, None, None, None
+
+
+def fused_linear_q(x, qw: QuantizedTensor, idx, val, bias=None):
+    """y = x @ dequant(Wq) (+ bias) + bypass through the fused dequant
+    kernel, differentiable in x, the values and the bias; the packed base
+    never gets a gradient. x is (..., K); idx/val (k, N) -> (..., N)."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    y = _FusedLinearQ.apply(x2d, qw.data, qw.scales, idx, val, bias, qw.qdtype, qw.block,
+                            qw.dtype_name)
+    return y.reshape(*lead, qw.shape[-1])
+
+
+def matmul_q(x, w):
+    """x @ W for a plain or packed W, with no bypass: the base matmul of a
+    serving step. A packed W runs the fused dequant kernel with ``k = 0``
+    (the reference's zero bypass), differentiable in x; a plain W goes to
+    ``x @ w``."""
+    if not isinstance(w, QuantizedTensor):
+        return x @ w
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    y = _FusedLinearQ.apply(x2d, w.data, w.scales, None, None, None, w.qdtype, w.block,
+                            w.dtype_name)
     return y.reshape(*lead, w.shape[-1])

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.quant.qtensor import dequantize_f32
+
 
 def sparse_delta_batched_ref(x, idx, val, aid):
     """y[m, o] = Σ_j val[aid[m], j, o] · x[m, idx[aid[m], j, o]].
@@ -36,6 +38,22 @@ def fused_linear_ref(x, w, idx, val, bias=None):
     """y = x @ W + bypass (+ bias): float32 product, bypass and bias, one
     cast to x's dtype (the Pallas kernel's accumulator and flush)."""
     acc = x.float() @ w.float() + sparse_delta_f32(x, idx, val)
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(x.dtype)
+
+
+def fused_linear_q_ref(x, data, scales, idx=None, val=None, bias=None, *, qdtype: str,
+                       block: int):
+    """y = x @ dequant(data, scales) + bypass (+ bias): the packed codes
+    dequantized to float32 (code × scale), cast to x's dtype, then the
+    float32 product, the bypass (none when ``idx`` is None) and the bias,
+    one cast to x's dtype — the reference's jnp path (``ops.fused_linear_q``)
+    with the kernel's float32 accumulator."""
+    w = dequantize_f32(data, scales, qdtype, block).to(x.dtype)
+    acc = x.float() @ w.float()
+    if idx is not None:
+        acc = acc + sparse_delta_f32(x, idx, val)
     if bias is not None:
         acc = acc + bias.float()
     return acc.to(x.dtype)

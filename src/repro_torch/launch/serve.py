@@ -6,6 +6,9 @@ multi-tenant batched serving on the GPU.
 
 Adapters are npz files from either package's ``export_adapter``; requests
 cycle through the tenants unless ``--adapter-ids`` pins them (0 = base).
+``--base-dtype int8|nf4`` serves every tenant off one packed base (every
+base matmul through the fused dequant kernel); ``--quant-block`` must match
+the block the adapters were trained against.
 The weights are random from seed 0 (weight files are not loaded yet).
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
@@ -18,7 +21,8 @@ import argparse
 from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS, get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
-from repro_torch.peft import load_adapter
+from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
+from repro_torch.quant import tree_bytes
 from repro_torch.serve import AdapterStore, ServeEngine
 
 
@@ -46,6 +50,8 @@ def validate_args(args) -> None:
     for p in prompts:
         if not any(t.strip() for t in p.split(",")):
             raise SystemExit(f"--prompts entry {p!r} holds no token ids")
+    if args.quant_block < 2 or args.quant_block % 2:
+        raise SystemExit(f"--quant-block must be even and >= 2, got {args.quant_block}")
     page = args.page_size
     if page < 1 or page & (page - 1):
         raise SystemExit(f"--page-size must be a power of two, got {page}")
@@ -87,6 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
+    ap.add_argument("--base-dtype", default="fp32", choices=BASE_DTYPES,
+                    help="serve every tenant off one packed (int8/nf4) frozen base")
+    ap.add_argument("--quant-block", type=int, default=64,
+                    help="rows per scale block; must match the --quant-block the "
+                         "adapters were trained against")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain versions)")
     return ap
@@ -101,6 +112,11 @@ def main(argv=None):
         cfg = reduced(cfg)
     model = get_model(cfg)
     params = model.init(seed=0, device=device)
+    if args.base_dtype != "fp32":
+        before = tree_bytes(params)
+        params = quantize_base(params, args.base_dtype, block=args.quant_block)
+        print(f"base quantized to {args.base_dtype}: "
+              f"{before / 2**20:.1f} MB -> {tree_bytes(params) / 2**20:.1f} MB")
     store = None
     if args.adapters:
         store = AdapterStore(base_params=params)

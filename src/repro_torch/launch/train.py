@@ -4,9 +4,12 @@ bypass values only, adapter export).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --task lm --steps 200 --batch 4 --seq 512 --k 1 \\
-      [--export-adapter tenant.npz]
+      [--base-dtype int8|nf4 [--quant-block 64]] [--export-adapter tenant.npz]
 
 The weights are random from ``--seed`` (weight files are not loaded yet).
+``--base-dtype int8|nf4`` packs the frozen base after init and before
+selection (QLoRA-style): every adapted projection then runs the fused
+dequant kernel, and the base never changes a byte.
 The exported adapter serves as a tenant in either package's engine.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
@@ -30,7 +33,8 @@ from repro_torch.configs import (
 from repro_torch.data import DataLoader
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
-from repro_torch.peft import export_adapter, get_peft, stats
+from repro_torch.peft import BASE_DTYPES, export_adapter, get_peft, quantize_base, stats
+from repro_torch.quant import tree_bytes
 from repro_torch.train import Trainer
 
 log = logging.getLogger("repro_torch.launch.train")
@@ -39,7 +43,6 @@ log = logging.getLogger("repro_torch.launch.train")
 NOT_YET = {
     "peft": ("neuroada", "§1 item 9, remaining PEFT methods"),
     "strategy": ("magnitude", "§1 item 9, remaining selection strategies"),
-    "base_dtype": ("fp32", "§1 item 5, quantized base"),
     "remat": ("none", "§1, remat"),
     "ckpt": ("", "§1, checkpoint/resume"),
     "resume": (False, "§1, checkpoint/resume"),
@@ -53,7 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", help="CPU-sized config")
     ap.add_argument("--peft", default="neuroada",
                     choices=("neuroada", "lora", "bitfit", "masked", "full"))
-    ap.add_argument("--base-dtype", default="fp32", choices=("fp32", "int8", "nf4"))
+    ap.add_argument("--base-dtype", default="fp32", choices=BASE_DTYPES,
+                    help="pack the frozen base (QLoRA-style) before adapting")
+    ap.add_argument("--quant-block", type=int, default=64,
+                    help="rows per quantization scale block (d_in axis; even, >= 2)")
     ap.add_argument("--k", type=int, default=1)
     ap.add_argument("--strategy", default="magnitude")
     ap.add_argument("--task", default="reasoning", choices=("lm", "reasoning", "arithmetic"))
@@ -87,6 +93,8 @@ def validate_args(args) -> None:
             raise SystemExit(f"--{flag} must be >= 1, got {getattr(args, flag)}")
     if args.seq < 2:
         raise SystemExit(f"--seq must be >= 2, got {args.seq}")
+    if args.quant_block < 2 or args.quant_block % 2:
+        raise SystemExit(f"--quant-block must be even and >= 2, got {args.quant_block}")
     if args.batch % args.microbatches:
         raise SystemExit(f"--batch {args.batch} does not split into "
                          f"{args.microbatches} microbatches")
@@ -102,6 +110,11 @@ def main(argv=None):
         cfg = reduced(cfg)
     model = get_model(cfg)
     params = model.init(seed=args.seed, device=device)
+    if args.base_dtype != "fp32":
+        before = tree_bytes(params)
+        params = quantize_base(params, args.base_dtype, block=args.quant_block)
+        log.info("base quantized to %s: %.1f MB -> %.1f MB (%.2fx)", args.base_dtype,
+                 before / 2**20, tree_bytes(params) / 2**20, before / tree_bytes(params))
     peft = get_peft(PeftConfig(method=args.peft, k=args.k, strategy=args.strategy))
     tcfg = TrainConfig(learning_rate=args.lr, steps=args.steps, seed=args.seed,
                        microbatches=args.microbatches, remat=args.remat)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.delta import Delta
 from repro_torch.kernels import ops
+from repro_torch.quant.qtensor import QuantizedTensor
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -34,18 +35,25 @@ def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
     :class:`~repro_torch.core.delta.BatchedDelta` (serving: every row's
     tenant), to a :class:`~repro_torch.core.delta.Delta` — or an adapter
     leaf ``{"w": Delta, ...}`` beside the bias slot — (training: the fused
-    kernel, W frozen), or is ``None``."""
+    kernel, W frozen), or is ``None``.
+
+    W may be a :class:`~repro_torch.quant.QuantizedTensor` (an int8 or NF4
+    frozen base): the matmul then runs the fused dequant kernel
+    (``ops.fused_linear_q`` with a Delta, ``ops.matmul_q`` otherwise) and
+    the dense weight never exists."""
     leaf = p[name]
+    w, b = leaf["w"], leaf.get("b")
     d = a.get(name) if a else None
     if isinstance(d, dict):
         d = d.get("w")
     if isinstance(d, Delta):
+        if isinstance(w, QuantizedTensor):
+            return ops.fused_linear_q(x, w, d.idx, d.val, b)
         # a Delta bypass implies the NeuroAda contract: W is frozen
-        return ops.fused_linear(x, leaf["w"], d.idx, d.val, leaf.get("b"), w_frozen=True)
-    y = x @ leaf["w"]
+        return ops.fused_linear(x, w, d.idx, d.val, b, w_frozen=True)
+    y = ops.matmul_q(x, w)
     if d is not None:
         y = y + ops.delta_apply_batched(x, d.idx, d.val, d.aid)
-    b = leaf.get("b")
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -109,7 +109,9 @@ def init_paged_cache(cfg, num_blocks: int, page_size: int, device) -> dict:
 
 
 def layer_views(params) -> list[dict]:
-    """Per-layer dicts of views into the stacked ``blocks`` leaves."""
+    """Per-layer dicts of views into the stacked ``blocks`` leaves. A packed
+    leaf (:class:`~repro_torch.quant.QuantizedTensor`, not a tuple) slices
+    its codes and scales on the layer axis with the same ``node[i]``."""
     blocks = params["blocks"]
     n = blocks["attn_norm"].shape[0]
 
@@ -163,7 +165,7 @@ def _head_logits(cfg, params, adapters, h):
     bypass, when the adapters carry one."""
     if cfg.tie_embeddings:
         return h @ params["embed"]["w"].T
-    logits = h @ params["head"]["w"]
+    logits = ops.matmul_q(h, params["head"]["w"])
     d = adapters.get("head") if adapters else None
     if d is not None:
         logits = logits + ops.delta_apply_batched(h, d.idx, d.val, d.aid)
@@ -278,7 +280,7 @@ def _train_head(cfg, params, adapters, h):
             "a NeuroAda delta on an untied head needs the single-tenant bypass "
             "kernel (sparse_delta_pallas), which the port does not have yet "
             "(ROADMAP.md §2)")
-    return h @ params["head"]["w"]
+    return ops.matmul_q(h, params["head"]["w"])
 
 
 def forward_train(cfg, params, adapters, batch, layers=None):

@@ -1,6 +1,8 @@
-"""Port of ``repro.peft``: NeuroAda for the trainer, adapter export/load."""
+"""Port of ``repro.peft``: NeuroAda for the trainer, adapter export/load,
+the quantized base."""
 
 from repro_torch.peft.api import (
+    BASE_DTYPES,
     METHODS,
     Peft,
     count_params,
@@ -8,8 +10,9 @@ from repro_torch.peft.api import (
     get_peft,
     load_adapter,
     neuroada,
+    quantize_base,
     stats,
 )
 
-__all__ = ["METHODS", "Peft", "count_params", "export_adapter", "get_peft",
-           "load_adapter", "neuroada", "stats"]
+__all__ = ["BASE_DTYPES", "METHODS", "Peft", "count_params", "export_adapter", "get_peft",
+           "load_adapter", "neuroada", "quantize_base", "stats"]

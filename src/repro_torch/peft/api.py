@@ -12,6 +12,10 @@ does not know the method:
 * ``post_grad(grads, aux) -> grads``;
 * ``merge(params, trainable, aux) -> params`` (Alg. 1 phase 3).
 
+:func:`quantize_base` drops the frozen base to int8 or NF4 before adapting
+or serving (QLoRA-style): only the bypass values train, so the packed base
+changes nothing that is optimised.
+
 Adapter files are the unmerged multi-tenant serving artifact, in the same
 npz format as the reference, so an adapter written by either package
 loads in the other.
@@ -27,14 +31,28 @@ from repro_torch.core.adapt import (
     count_total,
     count_trainable,
     init_adapters,
+    is_adaptable,
     merge_adapters,
     trainable_fraction,
     zip_adapters,
 )
 from repro_torch.models.transformer import DTYPES
-from repro_torch.tree import flatten
+from repro_torch.quant.qtensor import quantize_tree, tree_bytes
 
 METHODS = ("neuroada",)
+BASE_DTYPES = ("fp32", "int8", "nf4")  # "fp32": leave the config's dtype
+
+
+def quantize_base(params, qdtype: str = "int8", *, block: int = 64):
+    """The frozen base with every adaptable matrix packed to ``qdtype``, on
+    the matrices' devices; embeddings, routers, norms and biases stay in
+    the compute dtype. ``"fp32"`` returns ``params`` unchanged, so a
+    launcher's ``--base-dtype`` passes through; packed leaves pass through."""
+    if qdtype == "fp32":
+        return params
+    if qdtype not in BASE_DTYPES:
+        raise ValueError(f"base dtype {qdtype!r} not in {BASE_DTYPES}")
+    return quantize_tree(params, qdtype, block, is_adaptable)
 
 
 class Peft(NamedTuple):
@@ -76,9 +94,11 @@ count_params = count_total
 
 
 def stats(params, trainable) -> dict:
-    base = sum(x.numel() * x.element_size() for _, x in flatten(params) if x is not None)
+    """Trainable and total (logical) parameter counts, and the base's
+    storage bytes — packed bytes for a quantized base."""
     return {"trainable": count_trainable(trainable), "total": count_total(params),
-            "fraction": trainable_fraction(params, trainable), "base_bytes": base}
+            "fraction": trainable_fraction(params, trainable),
+            "base_bytes": tree_bytes(params)}
 
 
 def export_adapter(path: str, indices, values, metadata: dict | None = None) -> None:

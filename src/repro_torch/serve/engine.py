@@ -17,9 +17,14 @@ masking on the device. Either way a step costs exactly one device-to-host
 transfer (``transfers`` counts them): inside a step there is no ``.item()``,
 no boolean-mask indexing and no branch on device values.
 
-Out of the port so far: the dense slot cache, int8 KV, a quantized base,
-speculative decoding, tensor parallelism, metrics and tracing, deadlines,
-fairness policies and cancellation (the reference's engine has them).
+``base_dtype="int8"|"nf4"`` packs the frozen base once, at init, on the
+engine's device (blocks of ``quant_block`` rows): every base matmul of a
+step then runs the fused dequant kernel and the tenants' bypasses apply on
+top, so N tenants share one packed base.
+
+Out of the port so far: the dense slot cache, int8 KV, speculative
+decoding, tensor parallelism, metrics and tracing, deadlines, fairness
+policies and cancellation (the reference's engine has them).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 import repro_torch.obs.clock as _clock
 from repro_torch.core.delta import BatchedDelta
 from repro_torch.device import resolve_device
+from repro_torch.peft import BASE_DTYPES, quantize_base
 from repro_torch.serve.adapters import AdapterStore
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.sampler import Sampler
@@ -59,6 +65,8 @@ class ServeEngine:
         prefill_chunk: int = 256,
         page_size: int = 16,
         num_blocks: int | None = None,
+        base_dtype: str = "fp32",
+        quant_block: int = 64,
         device=None,
     ):
         if decode_chunk < 1:
@@ -67,9 +75,13 @@ class ServeEngine:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if page_size < 1 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got {page_size}")
+        if base_dtype not in BASE_DTYPES:
+            raise ValueError(f"base_dtype {base_dtype!r} not in {BASE_DTYPES}")
         self.device = resolve_device(device)
         self.model = model
         self.params = map_leaves(lambda t: None if t is None else t.to(self.device), params)
+        # quant_block must match the base the adapters were trained against
+        self.params = quantize_base(self.params, base_dtype, block=quant_block)
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id

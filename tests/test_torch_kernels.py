@@ -1,8 +1,10 @@
 """Kernel modules of the PyTorch port against the JAX reference.
 
-Serving kernels (sparse_delta_batched, paged decode and prefill attention)
-and training kernels (fused_linear, sparse_delta_dval, and the gradient of
-``ops.fused_linear`` against ``jax.vjp`` of the reference's).
+Serving kernels (sparse_delta_batched, paged decode and prefill attention),
+training kernels (fused_linear, sparse_delta_dval, and the gradient of
+``ops.fused_linear`` against ``jax.vjp`` of the reference's) and the
+packed-base kernel (fused_linear_q, int8 and NF4, and the gradient of
+``ops.fused_linear_q`` against the reference's custom VJP).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version. Those are
 held against the reference's jnp oracles in fp32 and against its Pallas
@@ -26,13 +28,25 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import paged_decode_attention_pallas
 from repro.kernels.fused_linear import fused_linear_pallas
 from repro.kernels.prefill_attention import paged_prefill_attention_pallas
+from repro.kernels.quant_linear import fused_linear_q_pallas
 from repro.kernels.sparse_delta import sparse_delta_batched_pallas, sparse_delta_dval_pallas
+from repro.quant import quantize as j_quantize
 from repro_torch.convert import to_tensor
-from repro_torch.kernels import COUNTERS, SERVING, TRAINING, build, ops, reset_counters
+from repro_torch.kernels import (
+    COUNTERS,
+    PACKED_BASE,
+    SERVING,
+    TRAINING,
+    build,
+    ops,
+    reset_counters,
+)
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import prefill_attention as pre
+from repro_torch.kernels import quant_linear as ql
 from repro_torch.kernels import sparse_delta as sd
+from repro_torch.quant import QuantizedTensor
 
 torch.set_num_threads(2)
 TOL = {jnp.float32: 2e-5, jnp.bfloat16: 2e-2}
@@ -269,6 +283,119 @@ def test_dval_split_fills_the_card_and_covers_every_row(m, d_out, sms, want):
     assert rows * n_split >= m > rows * (n_split - 1)
 
 
+# ------------------------------------------------------ packed base
+
+
+def packed_inputs(rng, qdtype, dtype, block=32, m=24, kd=64, n=48, k=3):
+    """Linear inputs with W packed by the reference's quantizer: the JAX
+    packed tensor and the port's, the same bytes."""
+    x, w, idx, val, b = linear_inputs(rng, m, kd, n, k)
+    jq = j_quantize(jnp.asarray(w, dtype), qdtype, block)
+    tq = QuantizedTensor(to_tensor(np.asarray(jq.data)), to_tensor(np.asarray(jq.scales)),
+                         qdtype, block, jq.dtype_name)
+    return (x, idx, val, b), jq, tq
+
+
+def rel_err(got, want) -> float:
+    """The reference quant-kernel tests' measure: max |diff| / max |want|."""
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6))
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("qdtype", ["int8", "nf4"])
+def test_fused_linear_q_plain_matches_jnp_oracle(qdtype, bias):
+    (x, idx, val, b), jq, tq = packed_inputs(np.random.default_rng(30), qdtype, jnp.float32)
+    jb, tb = (jnp.asarray(b), torch.from_numpy(b)) if bias else (None, None)
+    want = jops.fused_linear_q(jnp.asarray(x), jq, jnp.asarray(idx), jnp.asarray(val), jb)
+    got = ql.fused_linear_q(torch.from_numpy(x), tq.data, tq.scales, torch.from_numpy(idx),
+                            torch.from_numpy(val), tb, qdtype=qdtype, block=32)
+    assert got.dtype == torch.float32 and got.shape == (24, 48)
+    close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("qdtype", ["int8", "nf4"])
+def test_fused_linear_q_plain_matches_pallas_interpret(qdtype, dtype):
+    """Against the Pallas kernel in interpret mode, with and without a
+    bypass (``matmul_q``'s k = 0 is the reference's zero bypass): the
+    reference kernel test's 1e-2 relative bound. The Pallas kernel
+    multiplies by the float32 dequantized tile; the port rounds it to x's
+    dtype first, as the reference's jnp path does."""
+    (x, idx, val, b), jq, tq = packed_inputs(np.random.default_rng(31), qdtype, dtype)
+    (jx, tx), (jv, tv), (jb, tb) = (both(a, dtype) for a in (x, val, b))
+    want = fused_linear_q_pallas(jx, jq.data, jq.scales, jnp.asarray(idx), jv, jb,
+                                 qdtype=qdtype, block=32, interpret=True)
+    got = ql.fused_linear_q(tx, tq.data, tq.scales, torch.from_numpy(idx), tv, tb,
+                            qdtype=qdtype, block=32)
+    assert got.dtype == tx.dtype
+    assert rel_err(got, want) <= 1e-2
+    zero = jnp.zeros((1, 48), jnp.int32), jnp.zeros((1, 48), dtype)
+    want = fused_linear_q_pallas(jx, jq.data, jq.scales, *zero, None, qdtype=qdtype,
+                                 block=32, interpret=True)
+    got = ops.matmul_q(tx, tq)
+    assert rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("qdtype", ["int8", "nf4"])
+def test_fused_linear_q_gradient_matches_reference_vjp(qdtype):
+    """dx, dval and dbias of ``ops.fused_linear_q`` against ``jax.vjp`` of
+    the reference's custom VJP under its Pallas kernels (interpret mode),
+    fp32, rtol 1e-4; the packed codes and scales get no gradient."""
+    rng = np.random.default_rng(32)
+    (x, idx, val, b), jq, tq = packed_inputs(rng, qdtype, jnp.float32)
+    x = x.reshape(2, 12, 64)
+    dy = rng.normal(size=(2, 12, 48)).astype(np.float32)
+    jidx, tidx = jnp.asarray(idx), torch.from_numpy(idx)
+    with jops.use_backend("pallas_interpret"):
+        jy, vjp = jax.vjp(lambda a, v, c: jops.fused_linear_q(a, jq, jidx, v, c),
+                          jnp.asarray(x), jnp.asarray(val), jnp.asarray(b))
+        want_dx, want_dval, want_db = vjp(jnp.asarray(dy))
+    tx, tv, tb = (torch.from_numpy(a).requires_grad_() for a in (x, val, b))
+    reset_counters()
+    y = ops.fused_linear_q(tx, tq, tidx, tv, tb)
+    close(y.detach(), jy, 1e-4)
+    y.backward(torch.from_numpy(dy))
+    assert not tq.data.requires_grad and not tq.scales.requires_grad
+    assert (COUNTERS["fused_linear_q"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
+    for got, want in ((tx.grad, want_dx), (tv.grad, want_dval), (tb.grad, want_db)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4 * np.abs(np.asarray(want)).max())
+
+
+def test_matmul_q_takes_plain_and_packed_weights():
+    (x, _, _, _), _, tq = packed_inputs(np.random.default_rng(33), "nf4", jnp.float32)
+    tx = torch.from_numpy(x).reshape(2, 12, 64).requires_grad_()
+    w = torch.randn(64, 48)
+    assert torch.equal(ops.matmul_q(tx, w), tx @ w)
+    y = ops.matmul_q(tx, tq)
+    assert y.shape == (2, 12, 48)
+    y.sum().backward()  # differentiable in x, as the reference's zero bypass
+    want = torch.ones(2, 12, 48) @ ql.ref.dequantize_f32(tq.data, tq.scales, "nf4", 32).T
+    close(tx.grad, want.numpy(), 1e-5)
+
+
+def test_fused_linear_q_checks_reject_bad_inputs():
+    (x, idx, val, b), _, tq = packed_inputs(np.random.default_rng(34), "nf4", jnp.float32)
+    x, idx, val, b = map(torch.from_numpy, (x, idx, val, b))
+    ql._check(x, tq.data, tq.scales, idx, val, b, "nf4", 32)
+    ql._check(x, tq.data, tq.scales, None, None, None, "nf4", 32)
+    bad = [
+        ((x[:, :-2], tq.data, tq.scales, idx, val, b, "nf4", 32), ValueError),  # K
+        ((x, tq.data, tq.scales, idx, val, b, "nf4", 16), ValueError),  # scale rows
+        ((x, tq.data, tq.scales, idx, val, b, "nf4", 3), ValueError),  # odd block
+        ((x, tq.data, tq.scales, idx, None, b, "nf4", 32), ValueError),  # idx alone
+        ((x, tq.data, tq.scales, idx, val, b, "int8", 32), ValueError),  # rows for int8
+        ((x, tq.data.view(torch.int8), tq.scales, idx, val, b, "nf4", 32), TypeError),
+        ((x, tq.data, tq.scales, idx.long(), val, b, "nf4", 32), TypeError),
+        ((x, tq.data, tq.scales, idx, val, b.bfloat16(), "nf4", 32), TypeError),
+        ((x, tq.data, tq.scales, idx, val, b, "int4", 32), ValueError),
+    ]
+    for args, err in bad:
+        with pytest.raises(err):
+            ql._check(*args)
+
+
 # ------------------------------------------------- wrappers and counters
 
 
@@ -284,7 +411,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     fl.fused_linear(x, w, idx, val, b)
     sd.sparse_delta_dval(x, idx, torch.ones(24, 48))
     assert (COUNTERS["fused_linear"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
-    assert set(COUNTERS) == set(SERVING) | set(TRAINING)
+    assert set(COUNTERS) == set(SERVING) | set(TRAINING) | set(PACKED_BASE)
     reset_counters()
     assert all(c.plain == c.kernel == 0 for c in COUNTERS.values())
 
@@ -385,6 +512,30 @@ def test_cuda_training_kernels_match_plain_versions(cuda, dtype):
         assert torch.equal(got, sd.sparse_delta_dval(tx, tidx, tdy))  # no atomics
     torch.cuda.synchronize()
     assert all(COUNTERS[name].kernel > 0 for name in TRAINING)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("qdtype", ["int8", "nf4"])
+def test_cuda_fused_linear_q_matches_plain_version(cuda, qdtype, dtype):
+    """The packed-base kernel on ragged shapes (row, column and K tails,
+    scale blocks crossing tiles, k 0-3)."""
+    rng = np.random.default_rng(62)
+    tol = TOL[dtype]
+    reset_counters()
+    for m, kd, n, k, block in ((130, 78, 129, 2, 32), (7, 4500, 520, 3, 128),
+                               (200, 1000, 264, 0, 6), (33, 96, 48, 1, 2)):
+        (x, idx, val, b), _, tq = packed_inputs(rng, qdtype, dtype, block, m, kd, n, max(k, 1))
+        tq = tq.to(cuda)
+        tx, tb = (both(a, dtype)[1].to(cuda) for a in (x, b))
+        tidx, tv = torch.from_numpy(idx).to(cuda), both(val, jnp.bfloat16)[1].to(cuda)
+        if k == 0:
+            tidx = tv = None
+        args = (tx, tq.data, tq.scales, tidx, tv, tb)
+        close(ql.fused_linear_q(*args, qdtype=qdtype, block=block).cpu(),
+              ql.fused_linear_q_plain(*args, qdtype=qdtype, block=block).cpu(), tol)
+    torch.cuda.synchronize()
+    assert COUNTERS["fused_linear_q"].kernel == 4
 
 
 def test_jax_stays_on_cpu():

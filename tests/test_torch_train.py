@@ -257,7 +257,7 @@ def test_launcher_needs_cuda_unless_asked_for_cpu(monkeypatch):
 @pytest.mark.parametrize("argv,err", [
     (["--peft", "lora"], NotImplementedError),
     (["--strategy", "random"], NotImplementedError),
-    (["--base-dtype", "int8"], NotImplementedError),
+    (["--batch", "1", "--seq", "2048"], NotImplementedError),  # flash scan
     (["--remat", "full"], NotImplementedError),
     (["--ckpt", "/nonexistent/run"], NotImplementedError),
     (["--resume"], NotImplementedError),
