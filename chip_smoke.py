@@ -6,12 +6,15 @@
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the six hand-written CUDA kernels from
+2. build: compile the hand-written CUDA kernels from the seven sources in
    ``src/repro_torch/kernels/csrc`` (timed);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
-   pages), ``fused_linear`` and ``sparse_delta_dval`` on ragged shapes
+   pages), the int8 bodies of the paged decode and prefill (int8 pools,
+   an all-zero page) at the same shapes, the dense decode over an (8,
+   Smax, 2, 128) slot cache with bf16 and int8 KV (frontiers 0, 1 and
+   Smax, an fp Smax of 1000), ``fused_linear`` and ``sparse_delta_dval`` on ragged shapes
    (row, column and K tails) and at every projection of a training step
    (M = 4 x 512 rows; wdown's K = 8960 included), ``fused_linear_q`` (int8
    and NF4) on ragged shapes (scale blocks 2-128 crossing K tiles, k 0-3)
@@ -23,7 +26,10 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    multi-tenant engine on the card (kernels) and on the CPU (plain
    versions): greedy tokens must be identical; then the same on an int8
    and on an NF4 base (each engine packs its own copy; every base matmul
-   through ``fused_linear_q``, 7 a layer-forward);
+   through ``fused_linear_q``, 7 a layer-forward); then with int8 KV on the
+   paged pool (also on an int8 base) and with bf16 and int8 KV on the dense
+   slot cache, each run launching only its own attention bodies; the paged
+   and dense int8 runs' tokens must be identical;
 5. full serving: qwen2-1.5b at full published width in bf16, random
    weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
    ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
@@ -31,10 +37,15 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    device-to-host transfer per step, the block pool fully free at the end;
    the same run again under ``torch.profiler`` (device time by kernel);
    then a longer, decode-dominated window (16 requests x 128 new tokens)
-   served three times, for the median and spread of tokens/s; then the
+   served twice, for the median and spread of tokens/s; then the
    same tenants, prompts and settings on an int8 and on an NF4 base
    (``ServeEngine(base_dtype=...)``): the gate run (every base matmul
    through ``fused_linear_q``, 7 a layer-forward) and one window run;
+   between them, the same tenants, prompts and settings on the paged pool
+   with int8 KV and on the dense slot cache with bf16 and int8 KV: the
+   gate run (its attention kernels launched and no other, pool bytes as
+   reckoned: 234,881,024 bf16, 117,669,888 int8), the same run profiled
+   (busy share, launches per layer-forward) and one window run;
 6. reduced training: reduced qwen2-1.5b in fp32, the same params and three
    batches trained on the card (kernels) and on the CPU (plain versions),
    on the fp32, an int8 and an NF4 base: losses within 1e-5, final values
@@ -49,7 +60,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    unchanged by every step, peak memory below the bf16 base's).
 
 The second-to-last line of output is the kernels JSON line, the last line
-``{"ok": true, "device": {...}}``. Detailed per-shape kernel results go to
+``{"ok": true, "device": {...}}``; the kernels line has a row for each of
+the ten kernels. Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
 ``chiprun_out/window*.json``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
@@ -78,6 +90,7 @@ from repro_torch.configs import PeftConfig, TrainConfig, get_config, reduced  # 
 from repro_torch.core.adapt import init_adapters  # noqa: E402
 from repro_torch.data import TASKS, DataLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
+    ATTENTION,
     COUNTERS,
     PACKED_BASE,
     SERVING,
@@ -86,12 +99,14 @@ from repro_torch.kernels import (  # noqa: E402
     reset_counters,
 )
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import dense_decode_attention as dd_mod  # noqa: E402
 from repro_torch.kernels import fused_linear as fl_mod  # noqa: E402
 from repro_torch.kernels import prefill_attention as pre_mod  # noqa: E402
 from repro_torch.kernels import quant_linear as ql_mod  # noqa: E402
 from repro_torch.kernels import sparse_delta as sd_mod  # noqa: E402
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.layers import quant_kv_page  # noqa: E402
 from repro_torch.peft import (  # noqa: E402
     export_adapter,
     get_peft,
@@ -393,9 +408,154 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     log(f"[kernels] paged_prefill_attention ok: max|err| bf16 {r['max_abs_err']:.3e}, "
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, "
         f"bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
+    kv_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     train_kernels(gen, projections, dev, summary, detail, card)
     packed_kernels(gen, projections, dev, summary, detail, card)
     return summary, detail
+
+
+def quantized(gen, shape, dev, zero_group=None):
+    """Random float32 rows quantized per (leading index, kv-head) by the
+    port's writer arithmetic (``quant_kv_page``): (codes int8, scales f32).
+    ``zero_group`` names a leading index whose rows are all zero (scale 0)."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    if zero_group is not None:
+        x[zero_group] = 0.0
+    return quant_kv_page(x)
+
+
+def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pre_off,
+               pre_len) -> None:
+    """The int8 bodies of the two paged kernels (int8 pools with one scale
+    per (block, kv-head), one page all zero) at the serving shapes of the
+    fp rows above, and the dense decode over a (8, Smax, 2, 128) slot cache,
+    fp and int8 (16-row scale groups, one group all zero), with frontiers 0,
+    1 and Smax and an fp Smax of 1000 (no multiple of the 16-row tile);
+    bf16 within 2e-2, fp32 within 2e-5; the bf16 calls at Smax 1024 timed.
+    The int8 bodies have no one-call PyTorch yardstick; the fp dense decode
+    has SDPA's on the head-expanded cache."""
+    cfg = get_config("qwen2-1.5b")
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def visible(table, vl):
+        tab, lens = table.cpu().tolist(), vl.cpu().tolist()
+        positions = {(tab[s][t // PAGE], t % PAGE) for s, n in enumerate(lens) for t in range(n)}
+        pages = {tab[s][t // PAGE] for s, n in enumerate(lens) for t in range(n)}
+        return len(positions), len(pages), 4 * sum(-(-n // PAGE) for n in lens)
+
+    # -- paged decode and prefill, int8 pools
+    for kind, (q_off, q_len, c) in (("decode", ([0] * SLOTS, dec_vl, 1)),
+                                    ("prefill", (pre_off, pre_len, PREFILL_CHUNK))):
+        mod = dec_mod if kind == "decode" else pre_mod
+        name = f"paged_{kind}_attention_q"
+        for dt in (torch.bfloat16, torch.float32):
+            q, _, _, table, qoff, vl = paged_case(gen, q_off, q_len, c, dt, dev, num_blocks)
+            kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev, zero_group=int(table[4, 1]))
+            vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
+            if kind == "decode":
+                args = (q, kc, vc, table, vl, ks, vs)
+                fn, plain = mod.paged_decode_attention, mod.paged_decode_attention_plain
+            else:
+                args = (q, kc, vc, table, qoff, vl, ks, vs)
+                fn, plain = mod.paged_prefill_attention, mod.paged_prefill_attention_plain
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = check_close(name, got, want, dt)
+            idle = 5 if kind == "decode" else 3
+            assert float(got[idle].float().abs().max()) == 0.0, "idle slot must give zeros"
+            row = {"kernel": name, "dtype": str(dt), "q_offset": q_off, "q_len": q_len,
+                   "max_abs_err": err}
+            if dt == torch.bfloat16:
+                row["ms"] = cuda_ms(lambda: fn(*args))
+                row["plain_ms"] = cuda_ms(lambda: plain(*args), iters=3)
+                n_pos, n_pages, idx_bytes = visible(table, vl)
+                if kind == "decode":
+                    n_vis = float(vl.sum())
+                    q_rows = int((vl > 0).sum())
+                else:
+                    col = torch.arange(table.shape[1] * PAGE, device=dev)[None, None, :]
+                    qpos = qoff[:, None, None] + torch.arange(c, device=dev)[None, :, None]
+                    mask = (col <= qpos) & (col < vl[:, None, None])
+                    n_vis = float(mask.sum())
+                    q_rows = int(mask.any(-1).sum())
+                nbytes = (q_rows * h * hd * q.element_size() + 2 * n_pos * hkv * hd
+                          + 2 * n_pages * hkv * 4 + idx_bytes
+                          + (1 if kind == "decode" else 2) * 4 * q.shape[0]
+                          + q.numel() * q.element_size())
+                row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * n_vis * h * hd, dt)
+                summary[name] = dict(
+                    source=mod.SOURCE, replaces=mod.Q_REPLACES, max_abs_err=err, ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=None,
+                    shape=f"q ({SLOTS},{c},12,128) bf16, int8 pools ({num_blocks},16,2,128) "
+                          f"+ f32 scales ({num_blocks},2), q_offset {q_off}, q_len {q_len}")
+            detail.append(row)
+        r = summary[name]
+        log(f"[kernels] {name} ok: max|err| bf16 {r['max_abs_err']:.3e}, {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']}; no "
+            f"one-call yardstick) [{card}]")
+
+    # -- dense decode over a slot cache, fp and int8
+    for quant, smaxes in ((False, (1000, MAX_LEN)), (True, (MAX_LEN,))):
+        name = "decode_attention_q" if quant else "decode_attention"
+        for smax in smaxes:
+            vl = torch.tensor([0, 1, smax, 300, 17, smax - 1, 640, 33], dtype=torch.int32,
+                              device=dev)
+            for dt in (torch.bfloat16, torch.float32):
+                q = torch.randn(SLOTS, 1, h, hd, generator=gen, device=dev).to(dt)
+                if quant:
+                    g = smax // dd_mod.TILE
+                    kc, ks = quantized(gen, (SLOTS, g, dd_mod.TILE, hkv, hd), dev,
+                                       zero_group=(1, 0))
+                    vc, vs = quantized(gen, (SLOTS, g, dd_mod.TILE, hkv, hd), dev)
+                    args = (q, kc.reshape(SLOTS, smax, hkv, hd), vc.reshape(SLOTS, smax, hkv, hd),
+                            vl, ks, vs)
+                else:
+                    k = torch.randn(SLOTS, smax, hkv, hd, generator=gen, device=dev).to(dt)
+                    v = torch.randn(SLOTS, smax, hkv, hd, generator=gen, device=dev).to(dt)
+                    args = (q, k, v, vl)
+                got = dd_mod.decode_attention(*args)
+                want = dd_mod.decode_attention_plain(*args)
+                torch.cuda.synchronize()
+                err = check_close(f"{name} Smax={smax}", got, want, dt)
+                assert float(got[0].float().abs().max()) == 0.0, "kv_valid_len 0 must give zeros"
+                row = {"kernel": name, "dtype": str(dt), "smax": smax,
+                       "kv_valid_len": vl.tolist(), "max_abs_err": err}
+                if dt == torch.bfloat16 and smax == MAX_LEN:
+                    row["ms"] = cuda_ms(lambda: dd_mod.decode_attention(*args))
+                    row["plain_ms"] = cuda_ms(lambda: dd_mod.decode_attention_plain(*args),
+                                              iters=3)
+                    rows = int(vl.sum())
+                    tiles = sum(-(-n // dd_mod.TILE) for n in vl.tolist())
+                    es = 1 if quant else q.element_size()
+                    nbytes = (int((vl > 0).sum()) * h * hd * q.element_size()
+                              + 2 * rows * hkv * hd * es + (2 * tiles * hkv * 4 if quant else 0)
+                              + 4 * SLOTS + q.numel() * q.element_size())
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * rows * h * hd, dt)
+                    lib = None
+                    if not quant:
+                        mask = (torch.arange(smax, device=dev)[None, :] < vl[:, None])
+                        kt = args[1].repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+                        vt = args[2].repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+                        qt = q.transpose(1, 2).contiguous()
+                        m4 = mask[:, None, None, :]
+                        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                             attn_mask=m4))
+                    row["library_ms"] = lib
+                    summary[name] = dict(
+                        source=dd_mod.SOURCE, replaces=dd_mod.Q_REPLACES if quant
+                        else dd_mod.REPLACES, max_abs_err=err, ms=row["ms"],
+                        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                        bound_by=row["bound_by"], library_ms=lib,
+                        shape=f"q ({SLOTS},1,12,128) bf16, cache ({SLOTS},{smax},2,128) "
+                              + ("int8 + f32 scales (8,64,2)" if quant else "bf16")
+                              + f", kv_valid_len {vl.tolist()}")
+                detail.append(row)
+        r = summary[name]
+        lib = f", sdpa {r['library_ms']:.4f}" if r["library_ms"] is not None else ""
+        log(f"[kernels] {name} ok (Smax {', '.join(map(str, smaxes))}): max|err| bf16 "
+            f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}{lib}, bound "
+            f"{r['bound_ms']:.5f} by {r['bound_by']}) [{card}]")
 
 
 def linear_cost(x, w, idx, val, bias) -> tuple[float, float]:
@@ -664,36 +824,58 @@ def serve(model, params, tenants, prompts, max_new, device, **kw):
     return eng, eng.run_to_completion()
 
 
-def phase_reduced(base: str = "fp32") -> None:
+def attention_names(paged: bool, kv_dtype: str) -> tuple[tuple, set]:
+    """(attention kernels a serving run of this layout and KV dtype must
+    launch, the other attention kernels, which it must not)."""
+    mine = ATTENTION[(paged, kv_dtype)]
+    return mine, {n for names in ATTENTION.values() for n in names} - set(mine)
+
+
+def phase_reduced(base: str = "fp32", paged: bool = True, kv_dtype: str = "fp32") -> list:
     """Greedy tokens card vs CPU; on a packed ``base`` each engine packs
-    the same fp32 params on its own device."""
+    the same fp32 params on its own device; ``paged``/``kv_dtype`` pick the
+    KV cache. Returns the card's tokens."""
     cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
     model = get_model(cfg)
     params_cpu = model.init(seed=0, device="cpu")
     tenants_cpu = random_tenants(params_cpu, 2, seed=5, dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (5, 37, 12, 70, 3)]
-    kw = dict(slots=3, max_len=128, prefill_chunk=16, decode_chunk=4, page_size=PAGE,
-              eos_id=1 << 20, base_dtype=base, quant_block=QUANT_BLOCK)
+    kw = dict(slots=3, max_len=128, prefill_chunk=16, decode_chunk=4, eos_id=1 << 20,
+              base_dtype=base, quant_block=QUANT_BLOCK, paged=paged, kv_dtype=kv_dtype)
+    if paged:
+        kw["page_size"] = PAGE
     _, want = serve(model, params_cpu, tenants_cpu, prompts, 10, "cpu", **kw)
     to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
     tenants = [(to_cuda(i), to_cuda(v)) for i, v in tenants_cpu]
     reset_counters()
     eng, got = serve(model, to_cuda(params_cpu), tenants, prompts, 10, "cuda", **kw)
+    mine, others = attention_names(paged, kv_dtype)
     for c in COUNTERS.values():
-        assert c.name not in SERVING or c.kernel > 0, \
+        assert c.name not in mine + ("sparse_delta_batched",) or c.kernel > 0, \
             f"reduced run on the card never launched {c.name}"
+        assert c.name not in others or c.kernel == 0, f"reduced {kv_dtype} run launched {c.name}"
         assert c.plain == 0, f"reduced run on the card called plain {c.name}"
-    forwards = COUNTERS["paged_decode_attention"].kernel + \
-        COUNTERS["paged_prefill_attention"].kernel  # one a layer-forward
+    forwards = forwards_of(eng)
     n_q = COUNTERS["fused_linear_q"].kernel
     assert n_q == (7 * forwards if base in PACKED else 0), (base, n_q, forwards)
     assert isinstance(eng.params["blocks"]["wq"]["w"], QuantizedTensor) == (base in PACKED)
     for a, b in zip(want, got):
-        assert a.out == b.out, f"{base} base, rid {a.rid}: cpu {a.out} != cuda {b.out}"
-    log(f"[reduced-{base}] greedy tokens identical on cpu (plain) and cuda (kernels): "
-        f"{len(got)} requests, {sum(len(r.out) for r in got)} tokens; fused_linear_q "
-        f"{n_q} launches, {forwards} layer-forwards")
+        assert a.out == b.out, (f"{base} base, {'paged' if paged else 'dense'} {kv_dtype} KV, "
+                                f"rid {a.rid}: cpu {a.out} != cuda {b.out}")
+    log(f"[reduced-{base}-{'paged' if paged else 'dense'}-{kv_dtype}] greedy tokens identical "
+        f"on cpu (plain) and cuda (kernels): {len(got)} requests, "
+        f"{sum(len(r.out) for r in got)} tokens; attention kernels "
+        f"{ {n: COUNTERS[n].kernel for n in mine} }, fused_linear_q {n_q} launches, "
+        f"{forwards} layer-forwards")
+    return [r.out for r in got]
+
+
+def forwards_of(eng) -> int:
+    """Layer-forwards an engine ran: every mixed step is one forward, every
+    decode megastep ``decode_chunk`` of them, each through every layer."""
+    st = eng.step_times
+    return eng.model.cfg.num_layers * (len(st["mixed"]) + eng.decode_chunk * len(st["decode"]))
 
 
 def phase_full(card: str) -> dict:
@@ -740,12 +922,84 @@ def phase_full(card: str) -> dict:
         f"{times['decode'] * 1e3:.2f} ms; peak memory {peak:.2f} GiB; "
         f"preemptions {eng.preemptions} [{card}]")
     log(f"[full] launches on the serving path: {json.dumps(launches)}")
-    profile_run(lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
-                "profile", "full_profile.txt")
+    busy, n_launch, (peng, _) = profile_run(
+        lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
+        "profile", "full_profile.txt")
+    log(f"[full] {n_launch / forwards_of(peng):.1f} kernel launches per layer-forward "
+        f"(profiled gate run, paged bf16 KV) [{card}]")
     phase_window(model, params, tenants, card, kw)
+    for paged, kv_dtype in KV_CONFIGS:
+        launches.update(phase_full_kv(model, params, tenants, prompts, max_new, kw, card, paged,
+                                      kv_dtype))
     packed = {qd: phase_full_packed(model, params, tenants, prompts, max_new, kw, card, qd)
               for qd in PACKED}
     return launches, packed
+
+
+# the KV caches beside the paged bf16 one: (paged, kv_dtype), and the cache
+# bytes of full-width qwen2-1.5b at SLOTS x MAX_LEN, reckoned by hand (the
+# same for both layouts): bf16 k/v, or int8 codes 117,440,512 + scales 229,376
+KV_CONFIGS = ((True, "int8"), (False, "fp32"), (False, "int8"))
+POOL_BYTES = {"fp32": 234_881_024, "int8": 117_669_888}
+
+
+def reckoned_pool_bytes(cfg, kv_dtype: str) -> int:
+    """k and v for SLOTS x MAX_LEN tokens (bf16, or int8 codes plus one
+    float32 scale per 16 tokens and kv-head): the same for both layouts."""
+    elems = cfg.num_layers * SLOTS * MAX_LEN * cfg.num_kv_heads * cfg.resolved_head_dim
+    if kv_dtype == "fp32":
+        return 2 * elems * 2
+    return 2 * elems + 2 * cfg.num_layers * (SLOTS * MAX_LEN // 16) * cfg.num_kv_heads * 4
+
+
+def phase_full_kv(model, params, tenants, prompts, max_new, kw, card: str, paged: bool,
+                  kv_dtype: str) -> dict:
+    """Phase 5 on another KV cache: the paged pool with int8 KV, the dense
+    slot cache with bf16 or int8 KV. The gate run (checked: every request
+    ends, one transfer per step, the cache drains, this cache's attention
+    kernels launched and no other attention kernel, no plain version, pool
+    bytes exactly as reckoned), the same run profiled (busy share, launches
+    per layer-forward), one window run. Returns the gate run's attention
+    launches."""
+    name = f"{'paged' if paged else 'dense'}-{kv_dtype}"
+    kw = dict(kw, paged=paged, kv_dtype=kv_dtype)
+    if not paged:
+        kw.pop("page_size")
+    mine, others = attention_names(paged, kv_dtype)
+    serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {c.name: c.kernel for c in COUNTERS.values()}
+    for c in COUNTERS.values():
+        assert c.plain == 0, f"{name} serving called the plain version of {c.name}"
+        assert c.name not in others or c.kernel == 0, f"{name} serving launched {c.name}"
+    assert all(n[m] > 0 for m in mine + ("sparse_delta_batched",)), n
+    for r in reqs:
+        assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
+    assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+    assert eng.kv.drained(), f"{name} cache not drained after the run"
+    pool = eng.kv.pool_bytes()
+    want = reckoned_pool_bytes(model.cfg, kv_dtype)
+    assert pool == want == POOL_BYTES[kv_dtype], (pool, want)
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"[full-{name}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tok/s; steps {eng.steps}; pool {pool:,} bytes (as reckoned); "
+        f"attention launches {json.dumps({m: n[m] for m in mine})}, plain 0 [{card}]")
+    busy, n_launch, (peng, _) = profile_run(
+        lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
+        f"profile-{name}", f"full_profile_{name.replace('-', '_')}.txt")
+    per_fwd = n_launch / forwards_of(peng)
+    log(f"[full-{name}] {per_fwd:.1f} kernel launches per layer-forward (profiled gate run) "
+        f"[{card}]")
+    phase_window(model, params, tenants, card, kw, repeats=1, tag=f"window-{name}",
+                 fname=f"window_{name.replace('-', '_')}.json",
+                 extra={"paged": paged, "kv_dtype": kv_dtype, "pool_bytes": pool,
+                        "busy_share": busy, "launches_per_layer_forward": per_fwd})
+    return {m: n[m] for m in mine}
 
 
 def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
@@ -794,7 +1048,7 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
 
 # a longer, decode-dominated window, repeated: the run above is a smoke
 # figure (20 steps); tokens/s and step times are taken here, with spread
-WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 128, 3
+WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 128, 2
 
 
 def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WINDOW_REPEATS,
@@ -847,13 +1101,16 @@ BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")))
 
 
-def profile_run(run, card: str, tag: str, fname: str) -> float:
+def profile_run(run, card: str, tag: str, fname: str) -> tuple[float, int, object]:
     """``run`` under ``torch.profiler``: device time by kernel (a table in
-    the output directory's ``fname``), by bucket, and the device's busy
-    share of the run's wall time (returned)."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    the output directory's ``fname``), by bucket; returns the device's busy
+    share of the run's wall time, the number of kernels launched and what
+    ``run`` returned. Only the device is traced: nothing here reads the
+    host's op trace, and with 10^5 kernels a run its post-processing takes
+    minutes."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = self_device_us
@@ -869,9 +1126,11 @@ def profile_run(run, card: str, tag: str, fname: str) -> float:
         name = next((n for n, pats in BUCKETS if any(p in key for p in pats)), "other")
         buckets[name] = buckets.get(name, 0.0) + dev(e)
     shares = ", ".join(f"{k} {v / total:.1%}" for k, v in buckets.items() if v)
+    n_launch = sum(e.count for e in rows)
     log(f"[{tag}] device busy {total / wall_us:.1%} of {wall_us / 1e3:.1f} ms wall "
-        f"(profiled run; device {total / 1e3:.1f} ms); device time: {shares} [{card}]")
-    return total / wall_us
+        f"(profiled run; device {total / 1e3:.1f} ms, {n_launch} kernels); device time: "
+        f"{shares} [{card}]")
+    return total / wall_us, n_launch, out
 
 
 # ---------------------------------------------------------------- training
@@ -993,7 +1252,8 @@ def phase_train(card: str, base: str = "bf16") -> dict:
         assert all(v == want for v in per_step.values()), (per_step, want)
         assert all(np.isfinite(losses)), losses
         prof = "train_profile.txt" if base == "bf16" else f"train_{base}_profile.txt"
-        busy = profile_run(lambda: trainer.step(next(data)), card, f"{tag}-profile", prof)
+        busy, _, _ = profile_run(lambda: trainer.step(next(data)), card, f"{tag}-profile",
+                                 prof)
     finally:
         data.close()
     med = float(np.median(times))
@@ -1060,15 +1320,31 @@ def main() -> int:
         if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
             log("[build] " + line.strip())
 
+    stamps = [("build", time.perf_counter())]
+    stamp = lambda name: stamps.append((name, time.perf_counter()))  # noqa: E731
     summary, detail = phase_kernels(torch.device("cuda"), card)
+    stamp("kernels")
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"card": card, "rows": detail}, f, indent=1)
     for base in ("fp32",) + PACKED:
         phase_reduced(base)
+    # int8 KV on the paged pool (also on an int8 base) and the dense cache
+    int8_paged = phase_reduced("fp32", True, "int8")
+    phase_reduced("int8", True, "int8")
+    phase_reduced("fp32", False, "fp32")
+    int8_dense = phase_reduced("fp32", False, "int8")
+    assert int8_paged == int8_dense, "paged and dense int8 KV gave different tokens on the card"
+    log("[reduced] paged and dense int8 KV: identical greedy tokens on the card")
+    stamp("reduced serving")
     launches, packed_serving = phase_full(card)
+    stamp("full serving")
     for base in ("bf16",) + PACKED:
         phase_reduced_train(card, base)
+    stamp("reduced training")
     train = {base: phase_train(card, base) for base in ("bf16",) + PACKED}
+    stamp("full training")
+    log("[timing] seconds by phase: " + ", ".join(
+        f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
     for base in PACKED:
         peak, ref_peak = train[base]["peak"], train["bf16"]["peak"]

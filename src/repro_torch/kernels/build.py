@@ -39,9 +39,21 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, kv_valid_len, out, partials | B, n_blocks, page, hkv,
     # hd, g, n_pages, pages_per_split, n_split, dtype | stream
     "rt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
+    # q, k_pool, v_pool, k_scale, v_scale, table, kv_valid_len, out, partials |
+    # the same ints | stream (int8 pools, float32 scales)
+    "rt_paged_decode_attention_q": [_P] * 9 + [_I] * 10 + [_P],
     # q, k_pool, v_pool, table, q_offset, kv_valid_len, out | B, C, n_blocks, page,
     # hkv, hd, g, n_pages, dtype | stream
     "rt_paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_P],
+    # q, k_pool, v_pool, k_scale, v_scale, table, q_offset, kv_valid_len, out |
+    # the same ints | stream (int8 pools, float32 scales)
+    "rt_paged_prefill_attention_q": [_P] * 9 + [_I] * 9 + [_P],
+    # q, k, v, kv_valid_len, out, partials | B, smax, tile, hkv, hd, g,
+    # tiles_per_split, n_split, dtype | stream
+    "rt_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
+    # q, k, v, k_scale, v_scale, kv_valid_len, out, partials | the same ints |
+    # stream (int8 cache, float32 scales)
+    "rt_decode_attention_q": [_P] * 8 + [_I] * 9 + [_P],
     # x, w, idx, val, bias (may be null), y | M, N, K, k, x_dtype, v_dtype | stream
     "rt_fused_linear": [_P] * 6 + [_I] * 6 + [_P],
     # x, idx, dy, partials, dval | M, d_in, d_out, k, rows_per_split, n_split,

@@ -3,15 +3,20 @@
 // slot b sits at logical position q_offset[b] + i and sees column c iff
 //   c <= q_offset[b] + i  and  c < kv_valid_len[b]
 // (intra-chunk causality and the slot's post-write frontier). Rows with no
-// visible column (idle slots) return zeros.
+// visible column (idle slots) return zeros. The pools hold q's element type
+// (rt_paged_prefill_attention) or int8 codes with one float32 scale per
+// (block, kv-head) per pool (rt_paged_prefill_attention_q).
 //
 // Replaces the TPU kernel src/repro/kernels/prefill_attention.py
-// paged_prefill_attention_pallas (body _paged_prefill_attn_kernel). That
+// paged_prefill_attention_pallas, both of its bodies:
+// _paged_prefill_attn_kernel (fp pools) and _paged_prefill_attn_q_kernel
+// (int8 pools, each page dequantized against its block's scale). That
 // kernel holds all C*G rows of a (slot, kv-head) in one VMEM tile (1536
 // rows at C = 256, G = 6), far more than one Hopper block's registers, and
 // sweeps every page of the table. Here the rows split across blocks —
 // grid (slot, kv-head, row tile), one warp per row — and each block sweeps
-// the pages only up to its own rows' causal frontier.
+// the pages only up to its own rows' causal frontier; an int8 page is
+// staged as code * scale (rt::sweep_pages), the rest is the fp kernel.
 //
 // Bound: at the serving shapes, memory on paper (the K/V bytes up to each
 // slot's frontier, plus q and the output); the warp-per-row design re-reads
@@ -23,9 +28,11 @@ namespace {
 
 constexpr int kWarps = 8;  // query rows per block
 
-template <typename T, int E>
-__global__ void paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                                     const T* __restrict__ v_pool,
+template <typename T, typename C, int E>
+__global__ void paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_pool,
+                                     const C* __restrict__ v_pool,
+                                     const float* __restrict__ k_scale,
+                                     const float* __restrict__ v_scale,
                                      const int32_t* __restrict__ table,
                                      const int32_t* __restrict__ q_offset,
                                      const int32_t* __restrict__ kv_valid_len,
@@ -52,36 +59,41 @@ __global__ void paged_prefill_kernel(const T* __restrict__ q, const T* __restric
   float qr[E];
   rt::load_row<T, E>(q + off, hd, active, qr);
   rt::SoftmaxState<E> st;
-  rt::sweep_pages<T, E>(qr, k_pool, v_pool, table + static_cast<size_t>(b) * n_pages,
-                        n_blocks, page, hkv, hd, h, 0, used, row_end, active, scale, smem,
-                        smem + page * hd, st);
+  const rt::TableBlocks blocks{table + static_cast<size_t>(b) * n_pages, n_blocks, page};
+  rt::sweep_pages(qr, k_pool, v_pool, k_scale, v_scale, blocks, page, hkv, hd, h, 0, used,
+                  block_end, row_end, active, scale, smem, smem + page * hd, st);
   if (active) rt::store_row<T, E>(st, hd, out + off);
 }
 
-template <typename T, int E>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-                   const void* qoff, const void* vl, void* out, int B, int C, int n_blocks,
-                   int page, int hkv, int hd, int g, int n_pages, cudaStream_t stream) {
+template <typename T, bool Q, int E>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                   const void* v_scale, const void* table, const void* qoff, const void* vl,
+                   void* out, int B, int C, int n_blocks, int page, int hkv, int hd, int g,
+                   int n_pages, cudaStream_t stream) {
+  using Code = rt::code_t<T, Q>;
+  if (Q && (k_scale == nullptr || v_scale == nullptr)) return cudaErrorInvalidValue;
   const size_t smem = 2 * static_cast<size_t>(page) * hd * sizeof(float);
-  auto kernel = paged_prefill_kernel<T, E>;
+  auto kernel = paged_prefill_kernel<T, Code, E>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int rows = C * g;
   dim3 grid(B, hkv, (rows + kWarps - 1) / kWarps);
   kernel<<<grid, 32 * kWarps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(qoff),
-      static_cast<const int32_t*>(vl), static_cast<T*>(out), n_blocks, page, hkv, hd, g, C,
-      n_pages, 1.0f / sqrtf(static_cast<float>(hd)));
+      static_cast<const T*>(q), static_cast<const Code*>(k_pool),
+      static_cast<const Code*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(qoff), static_cast<const int32_t*>(vl), static_cast<T*>(out),
+      n_blocks, page, hkv, hd, g, C, n_pages, 1.0f / sqrtf(static_cast<float>(hd)));
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-                     const void* qoff, const void* vl, void* out, int B, int C, int n_blocks,
-                     int page, int hkv, int hd, int g, int n_pages, int dtype,
-                     cudaStream_t stream) {
-  RT_DISPATCH_ATTENTION(launch, dtype, hd, q, k_pool, v_pool, table, qoff, vl, out, B, C,
-                        n_blocks, page, hkv, hd, g, n_pages, stream);
+template <bool Q>
+cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                     const void* v_scale, const void* table, const void* qoff, const void* vl,
+                     void* out, int B, int C, int n_blocks, int page, int hkv, int hd, int g,
+                     int n_pages, int dtype, cudaStream_t stream) {
+  RT_DISPATCH_ATTENTION(launch, Q, dtype, hd, q, k_pool, v_pool, k_scale, v_scale, table, qoff,
+                        vl, out, B, C, n_blocks, page, hkv, hd, g, n_pages, stream);
 }
 
 }  // namespace
@@ -92,7 +104,20 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
                                           void* out, int B, int C, int n_blocks, int page,
                                           int hkv, int hd, int g, int n_pages, int dtype,
                                           void* stream) {
-  return static_cast<int>(dispatch(q, k_pool, v_pool, table, q_offset, kv_valid_len, out, B,
-                                   C, n_blocks, page, hkv, hd, g, n_pages, dtype,
-                                   static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch<false>(q, k_pool, v_pool, nullptr, nullptr, table,
+                                          q_offset, kv_valid_len, out, B, C, n_blocks, page,
+                                          hkv, hd, g, n_pages, dtype,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int rt_paged_prefill_attention_q(const void* q, const void* k_pool,
+                                            const void* v_pool, const void* k_scale,
+                                            const void* v_scale, const void* table,
+                                            const void* q_offset, const void* kv_valid_len,
+                                            void* out, int B, int C, int n_blocks, int page,
+                                            int hkv, int hd, int g, int n_pages, int dtype,
+                                            void* stream) {
+  return static_cast<int>(dispatch<true>(q, k_pool, v_pool, k_scale, v_scale, table, q_offset,
+                                         kv_valid_len, out, B, C, n_blocks, page, hkv, hd, g,
+                                         n_pages, dtype, static_cast<cudaStream_t>(stream)));
 }

@@ -19,6 +19,7 @@ from repro_torch.kernels import fused_linear as _fl
 from repro_torch.kernels import quant_linear as _ql
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention as _decode
+from repro_torch.kernels.dense_decode_attention import decode_attention as _dense_decode
 from repro_torch.kernels.prefill_attention import paged_prefill_attention as _prefill
 from repro_torch.kernels.sparse_delta import sparse_delta_batched, sparse_delta_dval
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize
@@ -35,17 +36,29 @@ def delta_apply_batched(x, idx, val, aid):
     return y.reshape(*lead, idx.shape[-1])
 
 
-def paged_decode_attention(q, k_pool, v_pool, table, kv_valid_len):
+def decode_attention(q, k, v, kv_valid_len, k_scale=None, v_scale=None):
+    """q (B, 1, H, hd) against a dense (B, Smax, Hkv, hd) slot cache;
+    ``kv_valid_len`` (B,) int32. With ``k_scale``/``v_scale`` (B, Smax // 16,
+    Hkv) the cache is int8."""
+    return _dense_decode(q.contiguous(), k, v, kv_valid_len, k_scale, v_scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, kv_valid_len, k_scale=None,
+                           v_scale=None):
     """q (B, 1, H, hd) against (N, P, Hkv, hd) pools through a (B, n_pages)
-    table; ``kv_valid_len`` (B,) int32."""
-    return _decode(q.contiguous(), k_pool, v_pool, table.contiguous(), kv_valid_len)
+    table; ``kv_valid_len`` (B,) int32. With ``k_scale``/``v_scale`` (N, Hkv)
+    the pools are int8."""
+    return _decode(q.contiguous(), k_pool, v_pool, table.contiguous(), kv_valid_len,
+                   k_scale, v_scale)
 
 
-def prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len):
+def prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_scale=None,
+                      v_scale=None):
     """Query chunk q (B, C, H, hd) against the paged pools with the
-    two-sided (causal × frontier) mask; offsets and lengths (B,) int32."""
+    two-sided (causal × frontier) mask; offsets and lengths (B,) int32. With
+    ``k_scale``/``v_scale`` (N, Hkv) the pools are int8."""
     return _prefill(q.contiguous(), k_pool, v_pool, table.contiguous(), q_offset,
-                    kv_valid_len)
+                    kv_valid_len, k_scale, v_scale)
 
 
 class _FusedLinear(torch.autograd.Function):

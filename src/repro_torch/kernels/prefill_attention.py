@@ -9,7 +9,12 @@ no visible column (idle slots) return zeros. Softmax in float32, output
 in q's dtype. Pad rows past a slot's real chunk are well-defined and
 discarded by the caller.
 
-Replaces ``src/repro/kernels/prefill_attention.py::paged_prefill_attention_pallas``.
+With ``k_scale``/``v_scale`` (N, Hkv) float32 the pools are int8 codes
+(the int8 KV cache), each page dequantized in float32 before the softmax;
+that body counts on ``paged_prefill_attention_q``.
+
+Replaces ``src/repro/kernels/prefill_attention.py::paged_prefill_attention_pallas``
+(fp body ``_paged_prefill_attn_kernel``, int8 body ``_paged_prefill_attn_q_kernel``).
 The CUDA source (``csrc/prefill_attention.cu``) carries the design note:
 the C·G query rows of a (slot, kv-head) split across blocks, one warp per
 row, each block sweeping pages only up to its rows' causal frontier.
@@ -21,23 +26,30 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.counters import LaunchCounter
+from repro_torch.kernels.decode_attention import DTYPES, check_kv
 
 counter = LaunchCounter("paged_prefill_attention")
+q_counter = LaunchCounter("paged_prefill_attention_q")
 REPLACES = "src/repro/kernels/prefill_attention.py:150"
+Q_REPLACES = "src/repro/kernels/prefill_attention.py:101"
 SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, table, q_offset, kv_valid_len,
+                                  k_scale=None, v_scale=None):
+    """Plain PyTorch version: gather (and dequantize) pages, two-sided
+    masked float32 softmax."""
+    if k_scale is None:
+        counter.plain += 1
+        return ref.paged_prefill_attention_ref(
+            q, k_pool, v_pool, table, q_offset, kv_valid_len
+        )
+    q_counter.plain += 1
+    return ref.paged_prefill_attention_q_ref(q, k_pool, v_pool, k_scale, v_scale, table,
+                                             q_offset, kv_valid_len)
 
 
-def paged_prefill_attention_plain(q, k_pool, v_pool, table, q_offset, kv_valid_len):
-    """Plain PyTorch version: gather pages, two-sided masked float32 softmax."""
-    counter.plain += 1
-    return ref.paged_prefill_attention_ref(
-        q, k_pool, v_pool, table, q_offset, kv_valid_len
-    )
-
-
-def _check(q, k_pool, v_pool, table, qoff, vl) -> None:
+def _check(q, k_pool, v_pool, table, qoff, vl, k_scale=None, v_scale=None) -> None:
     if q.ndim != 4:
         raise ValueError(f"prefill attention needs q (B, C, H, hd), got {tuple(q.shape)}")
     b, c, h, hd = q.shape
@@ -50,9 +62,7 @@ def _check(q, k_pool, v_pool, table, qoff, vl) -> None:
         raise ValueError(f"head dim {hd} > 256")
     if table.shape[0] != b or qoff.shape != (b,) or vl.shape != (b,):
         raise ValueError("table / q_offset / kv_valid_len must have B rows")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
-                        f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    check_kv(q, k_pool, v_pool, k_scale, v_scale, (k_pool.shape[0], hkv))
     if table.dtype != torch.int32 or qoff.dtype != torch.int32 or vl.dtype != torch.int32:
         raise TypeError("table, q_offset and kv_valid_len must be int32")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("table", table),
@@ -63,22 +73,33 @@ def _check(q, k_pool, v_pool, table, qoff, vl) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def paged_prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len):
-    """-> (B, C, H, hd). ``q_offset``/``kv_valid_len`` are (B,) int32 tensors."""
+def paged_prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_scale=None,
+                            v_scale=None):
+    """-> (B, C, H, hd). ``q_offset``/``kv_valid_len`` are (B,) int32 tensors;
+    with ``k_scale``/``v_scale`` the pools are int8."""
     if not q.is_cuda:
-        return paged_prefill_attention_plain(q, k_pool, v_pool, table, q_offset, kv_valid_len)
-    _check(q, k_pool, v_pool, table, q_offset, kv_valid_len)
+        return paged_prefill_attention_plain(q, k_pool, v_pool, table, q_offset, kv_valid_len,
+                                             k_scale, v_scale)
+    _check(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_scale, v_scale)
     b, c, h, hd = q.shape
     n, page, hkv, _ = k_pool.shape
     out = torch.empty_like(q)
     if b == 0 or c == 0:
         return out
-    rc = build.library().rt_paged_prefill_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        q_offset.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(),
-        b, c, n, page, hkv, hd, h // hkv, table.shape[1], _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "paged_prefill_attention")
-    counter.kernel += 1
+    ints = (b, c, n, page, hkv, hd, h // hkv, table.shape[1], DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    lib = build.library()
+    if k_scale is None:
+        rc = lib.rt_paged_prefill_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+            q_offset.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(), *ints)
+        build.check(rc, "paged_prefill_attention")
+        counter.kernel += 1
+        return out
+    rc = lib.rt_paged_prefill_attention_q(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), table.data_ptr(), q_offset.data_ptr(), kv_valid_len.data_ptr(),
+        out.data_ptr(), *ints)
+    build.check(rc, "paged_prefill_attention_q")
+    q_counter.kernel += 1
     return out

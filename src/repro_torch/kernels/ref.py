@@ -83,18 +83,34 @@ def gather_paged_kv(pool, table):
     return pool[tbl].reshape(b, n_pages * pool.shape[1], *pool.shape[2:])
 
 
+def dequant_dense_kv(data, scale):
+    """Dense int8 slot cache (B, S, KV, hd) with (B, S // group, KV) scales
+    -> float32 values ``code.float() * scale`` (``group`` from the shapes)."""
+    sg = scale.float().repeat_interleave(data.shape[-3] // scale.shape[-2], dim=-2)
+    return data.float() * sg[..., None]
+
+
+def gather_paged_kv_q(pool, scale, table):
+    """int8 twin of :func:`gather_paged_kv`: pages and their (N, KV)
+    per-(block, kv-head) scales through the table, dequantized to a float32
+    (B, n_pages·P, KV, hd) view; sentinel entries clamp into the pool."""
+    b, n_pages = table.shape
+    tbl = table.long().clamp(0, pool.shape[0] - 1)
+    pages = pool[tbl].float() * scale[tbl].float()[:, :, None, :, None]
+    return pages.reshape(b, n_pages * pool.shape[1], *pool.shape[2:])
+
+
 def _masked_softmax(s, mask):
     s = s.masked_fill(~mask, -1e30)
     return torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
 
 
-def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_valid_len):
-    """q (B, 1, H, hd) against the paged pool; columns ``>= kv_valid_len[b]``
-    masked; fully masked rows give zeros."""
+def decode_attention_ref(q, k, v, kv_valid_len):
+    """q (B, 1, H, hd) against a contiguous (B, S, Hkv, hd) cache; columns
+    ``>= kv_valid_len[b]`` masked; fully masked rows give zeros."""
     b, _, h, hd = q.shape
-    hkv = k_pool.shape[2]
-    k = gather_paged_kv(k_pool, table).float()
-    v = gather_paged_kv(v_pool, table).float()
+    hkv = k.shape[2]
+    k, v = k.float(), v.float()
     qg = q.reshape(b, hkv, h // hkv, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qg, k) * hd**-0.5
     col = torch.arange(k.shape[1], device=q.device)
@@ -104,14 +120,20 @@ def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_valid_len):
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
 
-def paged_prefill_attention_ref(q, k_pool, v_pool, table, q_offset, kv_valid_len):
-    """q (B, C, H, hd) against the paged pool. Query ``i`` sees column ``c``
-    iff ``c <= q_offset[b] + i`` and ``c < kv_valid_len[b]``; fully masked
-    rows give zeros."""
+def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_valid_len):
+    """q (B, 1, H, hd) against the paged pool: gather, then
+    :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, gather_paged_kv(k_pool, table),
+                                gather_paged_kv(v_pool, table), kv_valid_len)
+
+
+def prefill_attention_ref(q, k, v, q_offset, kv_valid_len):
+    """q (B, C, H, hd) against a contiguous (B, S, Hkv, hd) cache. Query
+    ``i`` sees column ``c`` iff ``c <= q_offset[b] + i`` and ``c <
+    kv_valid_len[b]``; fully masked rows give zeros."""
     b, c, h, hd = q.shape
-    hkv = k_pool.shape[2]
-    k = gather_paged_kv(k_pool, table).float()
-    v = gather_paged_kv(v_pool, table).float()
+    hkv = k.shape[2]
+    k, v = k.float(), v.float()
     qg = q.reshape(b, c, hkv, h // hkv, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * hd**-0.5
     dev = q.device
@@ -121,3 +143,34 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, table, q_offset, kv_valid_len
     p = _masked_softmax(s, mask[:, None, None])
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v)
     return o.reshape(b, c, h, hd).to(q.dtype)
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, table, q_offset, kv_valid_len):
+    """Chunk q (B, C, H, hd) against the paged pool: gather, then
+    :func:`prefill_attention_ref`."""
+    return prefill_attention_ref(q, gather_paged_kv(k_pool, table),
+                                 gather_paged_kv(v_pool, table), q_offset, kv_valid_len)
+
+
+# int8 caches: codes dequantized in float32 (``code.float() * scale``, as the
+# Pallas bodies do), never rounded to q's dtype before the softmax
+
+
+def decode_attention_q_ref(q, k, v, k_scale, v_scale, kv_valid_len):
+    """Dense int8 slot cache: dequantize, then :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, dequant_dense_kv(k, k_scale),
+                                dequant_dense_kv(v, v_scale), kv_valid_len)
+
+
+def paged_decode_attention_q_ref(q, k_pool, v_pool, k_scale, v_scale, table, kv_valid_len):
+    """int8 pools: gather and dequantize, then :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, gather_paged_kv_q(k_pool, k_scale, table),
+                                gather_paged_kv_q(v_pool, v_scale, table), kv_valid_len)
+
+
+def paged_prefill_attention_q_ref(q, k_pool, v_pool, k_scale, v_scale, table, q_offset,
+                                  kv_valid_len):
+    """int8 pools: gather and dequantize, then :func:`prefill_attention_ref`."""
+    return prefill_attention_ref(q, gather_paged_kv_q(k_pool, k_scale, table),
+                                 gather_paged_kv_q(v_pool, v_scale, table), q_offset,
+                                 kv_valid_len)

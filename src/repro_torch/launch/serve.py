@@ -1,5 +1,5 @@
-"""Serving launcher of the port: one base model, N tenants, paged
-multi-tenant batched serving on the GPU.
+"""Serving launcher of the port: one base model, N tenants, multi-tenant
+batched serving on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --prompts "1,17,25;1,40,41" --max-new 16 [--adapters a.npz,b.npz]
@@ -8,7 +8,9 @@ Adapters are npz files from either package's ``export_adapter``; requests
 cycle through the tenants unless ``--adapter-ids`` pins them (0 = base).
 ``--base-dtype int8|nf4`` serves every tenant off one packed base (every
 base matmul through the fused dequant kernel); ``--quant-block`` must match
-the block the adapters were trained against.
+the block the adapters were trained against. The engine runs on the paged
+KV pool (``--paged``, the default) or, with ``--dense``, on the dense slot
+cache; ``--kv-dtype int8`` stores either as int8 codes with float32 scales.
 The weights are random from seed 0 (weight files are not loaded yet).
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
@@ -23,7 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
 from repro_torch.quant import tree_bytes
-from repro_torch.serve import AdapterStore, ServeEngine
+from repro_torch.serve import KV_DTYPES, AdapterStore, ServeEngine
 
 
 def validate_args(args) -> None:
@@ -52,7 +54,18 @@ def validate_args(args) -> None:
             raise SystemExit(f"--prompts entry {p!r} holds no token ids")
     if args.quant_block < 2 or args.quant_block % 2:
         raise SystemExit(f"--quant-block must be even and >= 2, got {args.quant_block}")
-    page = args.page_size
+    if args.kv_dtype not in KV_DTYPES:
+        raise SystemExit(f"--kv-dtype {args.kv_dtype!r} must be one of {', '.join(KV_DTYPES)}")
+    _validate_adapter_ids(args, prompts)
+    if args.dense:
+        if args.paged:
+            raise SystemExit("--paged and --dense are mutually exclusive")
+        if args.page_size is not None:
+            raise SystemExit("--page-size is a paged-engine flag; drop --dense")
+        if args.num_blocks is not None:
+            raise SystemExit("--num-blocks is a paged-engine flag; drop --dense")
+        return
+    page = 16 if args.page_size is None else args.page_size
     if page < 1 or page & (page - 1):
         raise SystemExit(f"--page-size must be a power of two, got {page}")
     min_blocks = -(-args.max_len // page)
@@ -60,6 +73,9 @@ def validate_args(args) -> None:
         raise SystemExit(
             f"--num-blocks {args.num_blocks} cannot hold one max-length request: "
             f"--max-len {args.max_len} needs {min_blocks} pages of {page}")
+
+
+def _validate_adapter_ids(args, prompts) -> None:
     if args.adapter_ids:
         n_ids = len(args.adapter_ids.split(","))
         if n_ids != len(prompts):
@@ -83,9 +99,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokens per slot per decode megastep")
     ap.add_argument("--prefill-chunk", type=int, default=256,
                     help="prompt tokens per mixed step across all slots")
-    ap.add_argument("--page-size", type=int, default=16, help="tokens per KV block")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool: block pool + block tables + shared-prefix "
+                         "reuse (the default; conflicts with --dense)")
+    ap.add_argument("--dense", action="store_true",
+                    help="dense slots x max_len KV cache")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens per KV block (paged; default 16)")
     ap.add_argument("--num-blocks", type=int, default=None,
-                    help="KV pool size in blocks (default slots × max pages)")
+                    help="KV pool size in blocks (paged; default slots × max pages)")
+    ap.add_argument("--kv-dtype", default="fp32", choices=KV_DTYPES,
+                    help="KV cache storage: fp32 (the model's dtype) or int8 codes with "
+                         "per-page (paged) or per-16-row-group (dense) float32 scales")
     ap.add_argument("--adapters", default="",
                     help="comma-separated adapter npz files, tenants 1..N")
     ap.add_argument("--adapter-ids", default="",
@@ -126,8 +151,10 @@ def main(argv=None):
         model, params, slots=args.slots, max_len=args.max_len,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         adapter_store=store, decode_chunk=args.decode_chunk,
-        prefill_chunk=args.prefill_chunk, page_size=args.page_size,
-        num_blocks=args.num_blocks, device=device,
+        prefill_chunk=args.prefill_chunk,
+        page_size=16 if args.page_size is None else args.page_size,
+        num_blocks=args.num_blocks, paged=not args.dense, kv_dtype=args.kv_dtype,
+        device=device,
     )
     prompts = [p for p in args.prompts.split(";") if p]
     n_tenants = store.num_adapters if store is not None else 0
@@ -141,8 +168,10 @@ def main(argv=None):
     for req in engine.run_to_completion():
         tenant = "base" if req.adapter_id == 0 else f"tenant{req.adapter_id}"
         print(f"req{req.rid} [{tenant}]: prompt={req.prompt} -> {req.out}")
+    layout = "paged" if engine.paged else "dense"
     print(f"steps={engine.steps} transfers={engine.transfers} "
-          f"preemptions={engine.preemptions} device={device}")
+          f"preemptions={engine.preemptions} kv={layout}/{engine.kv_dtype} "
+          f"pool_bytes={engine.kv.pool_bytes()} device={device}")
 
 
 if __name__ == "__main__":

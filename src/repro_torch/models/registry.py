@@ -28,8 +28,13 @@ class Model(nn.Module):
         """Random weights from ``seed`` on ``device`` (default ``cuda``)."""
         return transformer.init_params(self.cfg, seed=seed, device=resolve_device(device))
 
-    def init_paged_cache(self, num_blocks: int, page_size: int, device) -> dict:
-        return transformer.init_paged_cache(self.cfg, num_blocks, page_size, device)
+    def init_paged_cache(self, num_blocks: int, page_size: int, device,
+                         kv_dtype: str = "fp32") -> dict:
+        return transformer.init_paged_cache(self.cfg, num_blocks, page_size, device,
+                                            kv_dtype)
+
+    def init_cache(self, slots: int, max_len: int, device, kv_dtype: str = "fp32") -> dict:
+        return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype)
 
     def _layers(self, params) -> list[dict]:
         if self._views[0] is not params["blocks"]:

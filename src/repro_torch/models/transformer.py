@@ -9,8 +9,13 @@ shape ``(k, d_out)`` means the same thing in both packages.
 
 The layer stack is a Python loop over per-layer views (the reference's
 ``lax.scan``). The paged KV cache is ``{"k", "v"}`` pools of shape
-``(L, num_blocks + 1, page, KV, hd)``, updated in place: the extra block
-absorbs sentinel writes (see :mod:`repro_torch.models.layers`).
+``(L, num_blocks + 1, page, KV, hd)``, the dense slot cache ``{"k", "v"}``
+of shape ``(L, slots + 1, Smax, KV, hd)``, both updated in place: the extra
+block or slot absorbs sentinel writes (see :mod:`repro_torch.models.layers`).
+An int8 cache (``kv_dtype="int8"``) holds int8 codes under ``"k"``/``"v"``
+and float32 scales under ``"k_scale"``/``"v_scale"``, per (block, kv-head)
+or per (slot, 16-row group, kv-head), with the same extra row. A forward
+without ``block_table`` in its batch runs on the dense cache.
 
 Serving adapters, when given, are ``{"blocks": {name: BatchedDelta}}``
 with ``(L, N, k, d_out)`` stacks and a ``(B,)`` adapter id per slot, plus
@@ -27,20 +32,26 @@ import torch
 from repro_torch.core.delta import BatchedDelta, Delta
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (
+    attention,
+    chunk_attention,
     paged_attention,
     paged_prefill_attention,
     train_attention,
 )
 from repro_torch.models.layers import (
+    KV_QUANT_GROUP,
     alinear,
     apply_rope,
     chunk_slots,
     decode_positions,
-    decode_slots,
-    paged_write,
+    dense_chunk_slots,
+    dense_quant_write,
+    paged_quant_write,
+    quant_write,
     rms_norm,
     rope_angles,
     rope_freqs,
+    scatter_write,
     silu_mlp,
     softmax_cross_entropy,
 )
@@ -98,14 +109,42 @@ def init_params(cfg, *, seed: int, device) -> dict:
     return params
 
 
-def init_paged_cache(cfg, num_blocks: int, page_size: int, device) -> dict:
-    """Zeroed ``(L, num_blocks + 1, page, KV, hd)`` k/v pools; block
-    ``num_blocks`` is the trash block for sentinel writes."""
-    shape = (cfg.num_layers, num_blocks + 1, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+def _zeros_kv(cfg, shape: tuple, scale_shape: tuple, device, kv_dtype: str) -> dict:
+    """Zeroed k/v of ``shape`` in the compute dtype or, for ``kv_dtype="int8"``,
+    int8 codes with float32 scales of ``scale_shape``."""
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device)}
+    if kv_dtype != "fp32":
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
     dt = compute_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_paged_cache(cfg, num_blocks: int, page_size: int, device,
+                     kv_dtype: str = "fp32") -> dict:
+    """Zeroed ``(L, num_blocks + 1, page, KV, hd)`` k/v pools (int8 with
+    ``(L, num_blocks + 1, KV)`` scales for ``kv_dtype="int8"``); block
+    ``num_blocks`` is the trash block for sentinel writes."""
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    return _zeros_kv(cfg, (L, num_blocks + 1, page_size, KV, hd), (L, num_blocks + 1, KV),
+                     device, kv_dtype)
+
+
+def init_cache(cfg, batch: int, max_len: int, device, kv_dtype: str = "fp32") -> dict:
+    """Zeroed dense slot cache ``(L, batch + 1, max_len, KV, hd)``; slot
+    ``batch`` is the trash slot. ``kv_dtype="int8"`` rounds the sequence
+    axis up to whole groups of :data:`KV_QUANT_GROUP` rows, with ``(L,
+    batch + 1, groups, KV)`` scales (attention masks the pad rows as it
+    masks unwritten ones)."""
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = KV_QUANT_GROUP
+    rows = -(-max_len // g) * g if kv_dtype == "int8" else max_len
+    return _zeros_kv(cfg, (L, batch + 1, rows, KV, hd), (L, batch + 1, rows // g, KV),
+                     device, kv_dtype)
 
 
 def layer_views(params) -> list[dict]:
@@ -179,39 +218,86 @@ def _embed(cfg, params, tokens):
 # ------------------------------------------------------------------- serve
 
 
+def _layer_cache(cache, i: int) -> dict:
+    """Layer ``i``'s views of every cache leaf (k, v and any scales)."""
+    return {name: t[i] for name, t in cache.items()}
+
+
+def _read(c: dict, n: int):
+    """(k, v, k_scale, v_scale) of a layer's cache without the trash row:
+    the first ``n`` blocks or slots; the scales are None for an fp cache."""
+    ks, vs = c.get("k_scale"), c.get("v_scale")
+    return (c["k"][:n], c["v"][:n], None if ks is None else ks[:n],
+            None if vs is None else vs[:n])
+
+
+def _write_plan(cache, table, q_offset, q_len, c: int):
+    """Where this forward's k/v land, computed once for every layer and for
+    k and v: the ``*_chunk_slots`` coordinates of an fp cache, or the
+    :class:`~repro_torch.models.layers.QuantWrite` of an int8 one, for a
+    chunk of ``c`` columns (a decode token is the chunk ``c = 1``, ``q_len =
+    1``). ``table`` is the (write) block table of the paged pool, None for
+    the dense cache."""
+    k = cache["k"]
+    n, rows = k.shape[1] - 1, k.shape[2]  # real blocks or slots; page or Smax
+    if "k_scale" in cache:
+        if table is not None:
+            return paged_quant_write(table, q_offset, q_len, n, rows, c)
+        groups = cache["k_scale"].shape[2]
+        return dense_quant_write(q_offset, q_len, n, groups, rows // groups, c)
+    if table is None:
+        return dense_chunk_slots(q_offset, q_len, rows, n, c)
+    return chunk_slots(table, q_offset, q_len, rows, n, c)
+
+
+def _write(c: dict, k, v, plan) -> None:
+    """Write k/v into one layer's cache at ``plan`` (:func:`_write_plan`)."""
+    if "k_scale" in c:
+        quant_write(c["k"], c["k_scale"], k, plan)
+        quant_write(c["v"], c["v_scale"], v, plan)
+    else:
+        scatter_write(c["k"], k, plan)
+        scatter_write(c["v"], v, plan)
+
+
 def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None):
-    """Mixed prefill+decode chunk step against the paged pool.
+    """Mixed prefill+decode chunk step against the KV cache.
 
     ``batch``: ``tokens`` (B, C), ``q_offset``/``q_len``/``last_idx`` (B,)
-    int32, ``block_table``/``write_table`` (B, n_pages) int32. Each layer
-    writes the chunk's k/v through the write table first (pads, idle slots
-    and shared pages land in the trash block), then attends with the
-    two-sided mask (intra-chunk causal from ``q_offset``, frontier
-    ``q_offset + q_len``). Positions are ``q_offset + arange(C)`` for every
-    column, pads included. Returns the (B, V) logits at ``last_idx``.
-    ``layers``/``a_views`` are cached :func:`layer_views`/:func:`adapter_views`.
+    int32 and, for the paged pool, ``block_table``/``write_table`` (B,
+    n_pages) int32; without them the cache is the dense slot cache. Each
+    layer writes the chunk's k/v first (pads, idle slots and shared pages
+    land in the trash block or slot), then attends with the two-sided mask
+    (intra-chunk causal from ``q_offset``, frontier ``q_offset + q_len``).
+    Positions are ``q_offset + arange(C)`` for every column, pads included.
+    Returns the (B, V) logits at ``last_idx``. ``layers``/``a_views`` are
+    cached :func:`layer_views`/:func:`adapter_views`.
     """
     layers = layer_views(params) if layers is None else layers
     tokens, q_offset, q_len = batch["tokens"], batch["q_offset"], batch["q_len"]
-    table, wtable = batch["block_table"], batch["write_table"]
+    table, wtable = batch.get("block_table"), batch.get("write_table")
     b, c = tokens.shape
     h = _embed(cfg, params, tokens)
     positions = q_offset[:, None] + torch.arange(c, device=h.device)[None, :]
     cos, sin = rope_angles(positions, rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
                                                  device=h.device))
     vl = q_offset + q_len
-    nb = cache["k"].shape[1] - 1
-    slots = chunk_slots(wtable, q_offset, q_len, cache["k"].shape[2], nb, c)
+    n = cache["k"].shape[1] - 1  # real blocks (paged) or slots (dense)
+    plan = _write_plan(cache, wtable, q_offset, q_len, c)
     bound = _bind_adapters(adapters, a_views, b, c)
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
-        ck, cv = cache["k"][i], cache["v"][i]
+        lc = _layer_cache(cache, i)
         x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, p, a, x, cos, sin)
-        paged_write(ck, k, slots)
-        paged_write(cv, v, slots)
-        o = paged_prefill_attention(q, ck[:nb], cv[:nb], table,
-                                    q_offset=q_offset, kv_valid_len=vl)
+        _write(lc, k, v, plan)
+        ck, cv, ks, vs = _read(lc, n)
+        if table is None:
+            o = chunk_attention(q, ck, cv, q_offset=q_offset, kv_valid_len=vl, k_scale=ks,
+                                v_scale=vs)
+        else:
+            o = paged_prefill_attention(q, ck, cv, table, q_offset=q_offset, kv_valid_len=vl,
+                                        k_scale=ks, v_scale=vs)
         h = h + alinear(p, a, "wo", o.reshape(b, c, -1))
         h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     last = batch["last_idx"].long()[:, None, None].expand(-1, 1, h.shape[-1])
@@ -220,31 +306,35 @@ def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None
 
 
 def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
-    """One new token per slot against the paged pool: ``batch`` holds
-    ``token`` (B,), ``pos`` (B,) int32 (the write index) and
-    ``block_table`` (B, n_pages), and optionally ``active`` (B,) bool. Each
-    layer writes at ``pos`` and attends with ``kv_valid_len = pos + 1``, or
-    0 where ``active`` is False: an idle slot reads no page (its output is
-    zeros and discarded). Returns (B, V) logits."""
+    """One new token per slot: ``batch`` holds ``token`` (B,), ``pos`` (B,)
+    int32 (the write index), for the paged pool ``block_table`` (B, n_pages)
+    (without it the cache is the dense slot cache), and optionally
+    ``active`` (B,) bool. Each layer writes at ``pos`` and attends with
+    ``kv_valid_len = pos + 1``, or 0 where ``active`` is False: an idle slot
+    reads no cache row (its output is zeros and discarded). Returns (B, V)
+    logits."""
     layers = layer_views(params) if layers is None else layers
-    pos, table = batch["pos"], batch["block_table"]
+    pos, table = batch["pos"], batch.get("block_table")
     h = _embed(cfg, params, batch["token"])[:, None]
     cos, sin = rope_angles(decode_positions(pos),
                            rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, device=h.device))
     vl = pos + 1
     if "active" in batch:
         vl = torch.where(batch["active"], vl, 0)
-    nb = cache["k"].shape[1] - 1
-    slots = decode_slots(table, pos, cache["k"].shape[2])
+    n = cache["k"].shape[1] - 1
+    plan = _write_plan(cache, table, pos, torch.ones_like(pos), 1)
     bound = _bind_adapters(adapters, a_views, h.shape[0], 1)
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
-        ck, cv = cache["k"][i], cache["v"][i]
+        lc = _layer_cache(cache, i)
         x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, p, a, x, cos, sin)
-        paged_write(ck, k, slots)
-        paged_write(cv, v, slots)
-        o = paged_attention(q, ck[:nb], cv[:nb], table, kv_valid_len=vl)
+        _write(lc, k, v, plan)
+        ck, cv, ks, vs = _read(lc, n)
+        if table is None:
+            o = attention(q, ck, cv, kv_valid_len=vl, k_scale=ks, v_scale=vs)
+        else:
+            o = paged_attention(q, ck, cv, table, kv_valid_len=vl, k_scale=ks, v_scale=vs)
         h = h + alinear(p, a, "wo", o.reshape(h.shape[0], 1, -1))
         h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)

@@ -1,12 +1,17 @@
-"""Paged multi-tenant serving engine (port of the paged path of
-``repro.serve.engine``).
+"""Multi-tenant serving engine (port of ``repro.serve.engine``, paged and
+dense layouts).
 
 One frozen base model serves every tenant: each step applies each slot's
 NeuroAda ``(k, d_out)`` bypass in flight (``BatchedDelta``, the
-``sparse_delta_batched`` kernel) instead of merging weights. The KV cache
-is the shared block pool of :class:`~repro_torch.serve.kv_cache.PagedKVCache`
-with block-aware admission, same-tenant prefix sharing and preemption of the
-youngest request when the pool runs short.
+``sparse_delta_batched`` kernel) instead of merging weights. With
+``paged=True`` (the default here) the KV cache is the shared block pool of
+:class:`~repro_torch.serve.kv_cache.PagedKVCache` with block-aware
+admission, same-tenant prefix sharing and preemption of the youngest
+request when the pool runs short; with ``paged=False`` it is the dense slot
+cache of :class:`~repro_torch.serve.kv_cache.KVCache`, every slot holding
+``max_len`` rows (admission needs only a free slot, nothing is preempted).
+``kv_dtype="int8"`` stores either layout as int8 codes with float32 scales
+(DESIGN §15); the attention kernels then run their int8 bodies.
 
 While any admitted prompt owes chunks, a step is one *mixed* chunk step:
 prefilling slots consume up to ``prefill_chunk`` prompt tokens in all,
@@ -22,9 +27,9 @@ engine's device (blocks of ``quant_block`` rows): every base matmul of a
 step then runs the fused dequant kernel and the tenants' bypasses apply on
 top, so N tenants share one packed base.
 
-Out of the port so far: the dense slot cache, int8 KV, speculative
-decoding, tensor parallelism, metrics and tracing, deadlines, fairness
-policies and cancellation (the reference's engine has them).
+Out of the port so far: speculative decoding, tensor parallelism, metrics
+and tracing, deadlines, fairness policies and cancellation (the reference's
+engine has them).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from repro_torch.core.delta import BatchedDelta
 from repro_torch.device import resolve_device
 from repro_torch.peft import BASE_DTYPES, quantize_base
 from repro_torch.serve.adapters import AdapterStore
-from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.kv_cache import KV_DTYPES, KVCache, PagedKVCache
 from repro_torch.serve.sampler import Sampler
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.tree import map_leaves
@@ -48,6 +53,12 @@ __all__ = ["Request", "ServeEngine"]
 
 
 class ServeEngine:
+    """The serving engine. ``paged=True`` is its default, as it is the
+    reference launcher's and every caller of the port assumes; the
+    reference *engine* (``repro.serve.ServeEngine``) defaults to
+    ``paged=False``, so a comparison passes ``paged`` to both explicitly.
+    ``page_size`` and ``num_blocks`` apply to the paged pool only."""
+
     def __init__(
         self,
         model,
@@ -67,16 +78,20 @@ class ServeEngine:
         num_blocks: int | None = None,
         base_dtype: str = "fp32",
         quant_block: int = 64,
+        paged: bool = True,
+        kv_dtype: str = "fp32",
         device=None,
     ):
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        if page_size < 1 or page_size & (page_size - 1):
+        if paged and (page_size < 1 or page_size & (page_size - 1)):
             raise ValueError(f"page_size must be a power of two, got {page_size}")
         if base_dtype not in BASE_DTYPES:
             raise ValueError(f"base_dtype {base_dtype!r} not in {BASE_DTYPES}")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
         self.device = resolve_device(device)
         self.model = model
         self.params = map_leaves(lambda t: None if t is None else t.to(self.device), params)
@@ -90,14 +105,21 @@ class ServeEngine:
         self.decode_chunk = decode_chunk
         self.prefill_chunk = min(prefill_chunk, max_len)
         self.scheduler = Scheduler(slots)
-        if num_blocks is None:
-            num_blocks = slots * -(-max_len // page_size)
-        self.kv = PagedKVCache(model, slots, max_len, page_size, num_blocks, self.device)
+        self.paged = paged
+        self.kv_dtype = kv_dtype
+        if paged:
+            if num_blocks is None:
+                num_blocks = slots * -(-max_len // page_size)
+            self.kv = PagedKVCache(model, slots, max_len, page_size, num_blocks, self.device,
+                                   kv_dtype=kv_dtype)
+        else:
+            self.kv = KVCache(model, slots, max_len, self.device, kv_dtype=kv_dtype)
         self.sampler = Sampler(model.cfg.vocab_size, top_k=top_k, top_p=top_p)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.transfers = 0  # device-to-host fetches: one per step
         self.steps = 0
         self.preemptions = 0
+        self.preemptions_mid_prefill = 0  # of them, victims still owing prompt chunks
         self.step_times: dict[str, list[float]] = {"mixed": [], "decode": []}
 
     # ------------------------------------------------------------- intake
@@ -159,7 +181,7 @@ class ServeEngine:
         """One mixed chunk step or one decode megastep over all active
         slots; False when nothing is admitted or queued."""
         self._check_adapter_ids()
-        self.scheduler.admissible(self._try_place)
+        self.scheduler.admissible(self._try_place if self.paged else None)
         if not self.scheduler.has_active():
             return False
         t0 = _clock.now()
@@ -210,16 +232,18 @@ class ServeEngine:
 
     def _chunk_step(self) -> None:
         """Mixed prefill+decode step: carve the chunk plan, pre-reserve the
-        decode slots' next position, run the chunk forward, sample."""
-        self._reserve(1)
+        decode slots' next position (paged), run the chunk forward, sample."""
+        if self.paged:
+            self._reserve(1)
         plan = self.scheduler.chunk_plan(self.prefill_chunk, self.kv.pos_host)
         q_offset, q_len = self._tensor(plan["q_offset"]), self._tensor(plan["q_len"])
         batch = {
             "tokens": self._tensor(plan["tokens"]), "q_offset": q_offset, "q_len": q_len,
             "last_idx": self._tensor(plan["last_idx"]),
-            "block_table": self.kv.table_device(),
-            "write_table": self.kv.write_table_device(),
         }
+        if self.paged:
+            batch["block_table"] = self.kv.table_device()
+            batch["write_table"] = self.kv.write_table_device()
         logits = self.model.prefill_chunk(self.params, self._adapters(plan["aid"]),
                                           self.kv.data, batch)
         toks = self._fetch(self.sampler(logits, self._tensor(plan["temps"]), self.generator))
@@ -231,7 +255,8 @@ class ServeEngine:
             take = int(plan["q_len"][s])
             if take and req.mid_prefill:
                 req.prefilled += take
-                self.kv.mark_prefilled(s, req.prefilled)
+                if self.paged:
+                    self.kv.mark_prefilled(s, req.prefilled)
             if plan["emit"][s]:
                 req.out.append(int(toks[s]))
                 self._maybe_finish(s, req)
@@ -259,24 +284,26 @@ class ServeEngine:
             raise RuntimeError("paged KV pool cannot hold a single request's chunk")
         req = self.scheduler.active[victim]
         self.preemptions += 1
+        self.preemptions_mid_prefill += req.mid_prefill
         self.scheduler.preempt(victim)
         self.kv.evict(victim)
 
     def _decode_step(self) -> None:
         """Decode megastep: up to ``decode_chunk`` tokens per slot with the
         token, position, budget and active mask carried on the device."""
-        self._reserve(self.decode_chunk)
+        if self.paged:
+            self._reserve(self.decode_chunk)
         st = self.scheduler.slot_arrays()
         tok, active = self._tensor(st["tokens"]), self._tensor(st["active"])
         remaining, temps = self._tensor(st["remaining"]), self._tensor(st["temps"])
         pos = self.kv.pos
         adapters = self._adapters(st["aid"])
-        table = self.kv.table_device()
+        table = {"block_table": self.kv.table_device()} if self.paged else {}
         toks, emits = [], []
         for _ in range(self.decode_chunk):
             logits = self.model.decode_step(
                 self.params, adapters, self.kv.data,
-                {"token": tok, "pos": pos, "block_table": table, "active": active})
+                {"token": tok, "pos": pos, "active": active, **table})
             nxt = self.sampler(logits, temps, self.generator)
             emits.append(active)
             tok = torch.where(active, nxt, tok)

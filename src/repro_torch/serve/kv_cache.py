@@ -1,17 +1,27 @@
-"""The paged KV block pool (port of ``repro.serve.kv_cache.PagedKVCache``).
+"""KV cache managers (port of ``repro.serve.kv_cache``): the dense slot
+cache and the paged block pool.
 
-Host bookkeeping is the reference's, unchanged: per-slot read and write
-block tables (logical page -> physical block), a free list with per-block
-refcounts, and a prefix map that lets same-tenant requests whose prompts
-share page-aligned prefixes point at the same refcounted blocks. Unallocated
-table entries (and, in the write table, shared pages) hold the sentinel
-``num_blocks``.
+:class:`KVCache` is the dense layout: ``(L, slots + 1, max_len, KV, hd)``
+k/v where every slot reserves ``max_len`` rows; the extra slot absorbs the
+chunk writer's pads (the reference drops them). Positions are device state
+(a step hands its final vector back through :meth:`sync`); the host
+``pos_host`` mirror serves admission bookkeeping.
 
-Device state: the ``(L, num_blocks + 1, page, KV, hd)`` k/v pools, whose
-extra block at index ``num_blocks`` absorbs every sentinel write (the
-reference drops them with ``mode="drop"``; attention never reads the trash
-block), and the per-slot position vector the compiled steps carry. All
-cache writes happen inside the model's forward; this class only places.
+:class:`PagedKVCache` is the shared block pool. Host bookkeeping is the
+reference's, unchanged: per-slot read and write block tables (logical page
+-> physical block), a free list with per-block refcounts, and a prefix map
+that lets same-tenant requests whose prompts share page-aligned prefixes
+point at the same refcounted blocks. Unallocated table entries (and, in the
+write table, shared pages) hold the sentinel ``num_blocks``. Device state:
+the ``(L, num_blocks + 1, page, KV, hd)`` k/v pools, whose extra block at
+index ``num_blocks`` absorbs every sentinel write (the reference drops them
+with ``mode="drop"``; attention never reads the trash block), and the
+per-slot position vector the steps carry.
+
+``kv_dtype="int8"`` (DESIGN §15) stores k/v as int8 codes with float32
+scales beside them: one per (block, kv-head) in the pool, one per (slot,
+16-row group, kv-head) in the dense cache. All cache writes happen inside
+the model's forward; these classes only place.
 """
 
 from __future__ import annotations
@@ -19,10 +29,63 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+#: cache storage dtypes the engines accept: "fp32" keeps the model's
+#: compute dtype, "int8" packs symmetric-absmax codes with float32 scales
+KV_DTYPES = ("fp32", "int8")
+
+
+def _check_kv_dtype(kv_dtype: str) -> None:
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+
+
+def _pool_bytes(data: dict) -> int:
+    """Bytes of every cache leaf without its trash row (axis 1)."""
+    return sum(t.element_size() * t[:, :-1].numel() for t in data.values())
+
+
+class KVCache:
+    def __init__(self, model, slots: int, max_len: int, device, kv_dtype: str = "fp32"):
+        _check_kv_dtype(kv_dtype)
+        self.slots = slots
+        self.max_len = max_len
+        self.kv_dtype = kv_dtype
+        self.device = torch.device(device)
+        self.data = model.init_cache(slots, max_len, self.device, kv_dtype=kv_dtype)
+        self.pos = torch.zeros((slots,), dtype=torch.int32, device=self.device)
+        self.pos_host = np.zeros((slots,), np.int32)  # admission mirror
+
+    def pool_bytes(self) -> int:
+        """Cache bytes as the reference counts them: codes plus scales (or
+        the fp k/v) of the ``slots`` real slots — the trash slot is not
+        counted."""
+        return _pool_bytes(self.data)
+
+    def full(self, slot: int) -> bool:
+        return self.pos_host[slot] >= self.max_len - 1
+
+    def sync(self, pos_dev: torch.Tensor, pos_np: np.ndarray) -> None:
+        """Adopt a step's final positions (device tensor and host mirror)."""
+        self.pos = pos_dev
+        self.pos_host[:] = pos_np
+
+    def evict(self, slot: int) -> None:
+        """Free a slot: zero its position on the host and on the device (a
+        device write, no transfer). Its rows stay stale: the next owner's
+        chunks overwrite them before any frontier reaches them."""
+        self.pos_host[slot] = 0
+        self.pos[slot] = 0
+
+    def drained(self) -> bool:
+        """Every slot idle (the dense twin of :meth:`PagedKVCache.drained`)."""
+        return not self.pos_host.any()
+
 
 class PagedKVCache:
     def __init__(self, model, slots: int, max_len: int, page_size: int,
-                 num_blocks: int, device):
+                 num_blocks: int, device, kv_dtype: str = "fp32"):
+        _check_kv_dtype(kv_dtype)
+        self.kv_dtype = kv_dtype
         self.slots = slots
         self.max_len = max_len
         self.page_size = page_size
@@ -34,7 +97,8 @@ class PagedKVCache:
                 f"num_blocks {num_blocks} cannot hold one max_len={max_len} "
                 f"request ({self.max_pages} pages of {page_size})"
             )
-        self.data = model.init_paged_cache(num_blocks, page_size, self.device)
+        self.data = model.init_paged_cache(num_blocks, page_size, self.device,
+                                           kv_dtype=kv_dtype)
         self.pos = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.pos_host = np.zeros((slots,), np.int32)  # admission mirror
         self.table = np.full((slots, self.max_pages), num_blocks, np.int32)
@@ -52,6 +116,12 @@ class PagedKVCache:
         self.prefix_page_hits = 0  # full prompt pages shared at admission
 
     # ------------------------------------------------------------- queries
+
+    def pool_bytes(self) -> int:
+        """Pool bytes as the reference counts them: codes plus scales (or
+        the fp k/v) of the ``num_blocks`` real blocks — the trash block is
+        not counted."""
+        return _pool_bytes(self.data)
 
     def blocks_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)

@@ -33,6 +33,7 @@ from repro.kernels.sparse_delta import sparse_delta_batched_pallas, sparse_delta
 from repro.quant import quantize as j_quantize
 from repro_torch.convert import to_tensor
 from repro_torch.kernels import (
+    ATTENTION,
     COUNTERS,
     PACKED_BASE,
     SERVING,
@@ -411,7 +412,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     fl.fused_linear(x, w, idx, val, b)
     sd.sparse_delta_dval(x, idx, torch.ones(24, 48))
     assert (COUNTERS["fused_linear"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
-    assert set(COUNTERS) == set(SERVING) | set(TRAINING) | set(PACKED_BASE)
+    attention = {name for names in ATTENTION.values() for name in names}
+    assert set(COUNTERS) == set(SERVING) | attention | set(TRAINING) | set(PACKED_BASE)
     reset_counters()
     assert all(c.plain == c.kernel == 0 for c in COUNTERS.values())
 

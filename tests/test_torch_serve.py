@@ -175,9 +175,9 @@ def test_idle_slot_decode_frontier_is_zero(world, monkeypatch):
     frontiers = []
     real = ops.paged_decode_attention
 
-    def recording(q, k_pool, v_pool, table, kv_valid_len):
+    def recording(q, k_pool, v_pool, table, kv_valid_len, *scales):
         frontiers.append(kv_valid_len.clone())
-        return real(q, k_pool, v_pool, table, kv_valid_len)
+        return real(q, k_pool, v_pool, table, kv_valid_len, *scales)
 
     monkeypatch.setattr(ops, "paged_decode_attention", recording)
     eng = ServeEngine(world["tm"], world["tp"], device="cpu", slots=2, max_len=64,
