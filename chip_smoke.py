@@ -7,7 +7,7 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile the hand-written CUDA kernels from the seven sources in
-   ``src/repro_torch/kernels/csrc`` (timed);
+   ``src/repro_torch/kernels/csrc`` (timed; eleven entry points);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
@@ -19,9 +19,15 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    (M = 4 x 512 rows; wdown's K = 8960 included), ``fused_linear_q`` (int8
    and NF4) on ragged shapes (scale blocks 2-128 crossing K tiles, k 0-3)
    and at every projection at M = 2048 (training, bypass k = 1) and M = 8
-   (decode rows, no bypass) — then timed beside its plain version, its
-   bound and a one-call PyTorch yardstick where there is one (the port
-   never calls it);
+   (decode rows, no bypass); ``sparse_delta`` and the batched
+   ``sparse_delta_dval`` on ragged shapes (B 1, 3 and 64) and at the
+   olmoe-1b-7b training shapes (three expert linears over (64, 320, ·)
+   buffers, the untied head over 2048 rows; dval's 2-D call equal to its
+   B = 1 call bit for bit), and the earlier kernels at olmoe's shapes
+   (paged attention with 16/16 heads, ``fused_linear`` 2048², the batched
+   apply over 256 stacked (tenant, expert) adapters) — then timed beside
+   its plain version, its bound and a one-call PyTorch yardstick where
+   there is one (the port never calls it);
 4. reduced serving: reduced qwen2-1.5b in fp32 through the paged
    multi-tenant engine on the card (kernels) and on the CPU (plain
    versions): greedy tokens must be identical; then the same on an int8
@@ -34,7 +40,9 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
    ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
    three serving kernels launched, no plain version called, one
-   device-to-host transfer per step, the block pool fully free at the end;
+   device-to-host transfer per step (every forward and token draw under
+   ``torch.cuda.set_sync_debug_mode("error")``, so no hidden one), the
+   block pool fully free at the end;
    the same run again under ``torch.profiler`` (device time by kernel);
    then a longer, decode-dominated window (16 requests x 128 new tokens)
    served twice, for the median and spread of tokens/s; then the
@@ -57,20 +65,35 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    busy share); then the trained adapter is exported and served as a
    tenant beside the base. The same on an int8 and on an NF4 base
    (``fused_linear_q`` in place of ``fused_linear``, the packed base
-   unchanged by every step, peak memory below the bf16 base's).
+   unchanged by every step, peak memory below the bf16 base's);
+8. MoE: reduced olmoe-1b-7b in fp32 trained three steps on the card and
+   on the CPU (losses within 1e-5, values within 1e-4 relative) and served
+   with 2 tenants (greedy tokens identical); then full-width olmoe-1b-7b
+   in bf16, random weights from a seed: selection at k = 1 over the
+   expert stacks and the untied head, 2 warm-up + 10 measured steps at
+   batch 4 x seq 512 (64 ``fused_linear``, 49 ``sparse_delta`` and 113
+   ``sparse_delta_dval`` launches a step, no plain call, finite losses),
+   one profiled step; its adapter served beside 2 random tenants and the
+   base with phase 5's settings (every request ends, one transfer a step
+   and no hidden one, as in phase 5, the pool drains, pool bytes
+   1,073,741,824 as reckoned), profiled, and one window run.
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
-the ten kernels. Detailed per-shape kernel results go to
+the eleven kernels; the rows of kernels olmoe also runs carry an ``olmoe``
+entry (ms, plain ms and bound at olmoe's shapes, launches in its training
+steps or serving gate run). Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
 ``chiprun_out/window*.json``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
 The training phases write ``train*.json`` and ``train*_profile.txt`` to
-the same directory.
+the same directory, the MoE serving ``full_profile_olmoe.txt`` and
+``window_olmoe.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -94,6 +117,7 @@ from repro_torch.kernels import (  # noqa: E402
     COUNTERS,
     PACKED_BASE,
     SERVING,
+    SINGLE_TENANT,
     TRAINING,
     build,
     reset_counters,
@@ -106,6 +130,7 @@ from repro_torch.kernels import quant_linear as ql_mod  # noqa: E402
 from repro_torch.kernels import sparse_delta as sd_mod  # noqa: E402
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import quant_kv_page  # noqa: E402
 from repro_torch.peft import (  # noqa: E402
     export_adapter,
@@ -116,6 +141,7 @@ from repro_torch.peft import (  # noqa: E402
 )
 from repro_torch.quant import QuantizedTensor, dequantize, quantize, tree_bytes  # noqa: E402
 from repro_torch.serve import AdapterStore, ServeEngine  # noqa: E402
+from repro_torch.serve.sampler import Sampler  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.tree import flatten, map_leaves  # noqa: E402
 
@@ -225,12 +251,13 @@ def delta_cost(x, idx, val, aid, d_out) -> tuple[float, float]:
     return nbytes, 2.0 * x.shape[0] * k * d_out
 
 
-def paged_case(gen, q_off, q_len, c, dtype, dev, num_blocks, share_pages=3):
-    """q (B, c, 12, 128) against a pool of ``num_blocks`` pages through a
-    table with ragged frontiers ``q_off + q_len``; slots 0 and 1 share their
-    leading pages, pages past each frontier hold the sentinel
-    ``num_blocks``."""
-    cfg = get_config("qwen2-1.5b")
+def paged_case(gen, q_off, q_len, c, dtype, dev, num_blocks, share_pages=3,
+               arch="qwen2-1.5b"):
+    """q (B, c, H, hd) of ``arch`` (12 and 128 for qwen2-1.5b) against a
+    pool of ``num_blocks`` pages through a table with ragged frontiers
+    ``q_off + q_len``; slots 0 and 1 share their leading pages, pages past
+    each frontier hold the sentinel ``num_blocks``."""
+    cfg = get_config(arch)
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     b = len(q_off)
     n_pages = -(-MAX_LEN // PAGE)
@@ -264,6 +291,24 @@ def attention_bytes(q, kp, table, vl, q_rows: int, n_lengths: int) -> float:
     pages = sum(-(-n // PAGE) for n in lens)
     return (q_rows * h * hd * es + 2 * len(positions) * hkv * hd * es + pages * 4
             + n_lengths * 4 * q.shape[0] + q.numel() * es)
+
+
+def prefill_mask(qoff, vl, table, dev):
+    """(B, 1, C, S) columns each chunk row sees: causal, below its slot's
+    frontier."""
+    col = torch.arange(table.shape[1] * PAGE, device=dev)[None, None, :]
+    qpos = qoff[:, None, None] + torch.arange(PREFILL_CHUNK, device=dev)[None, :, None]
+    return ((col <= qpos) & (col < vl[:, None, None]))[:, None]
+
+
+def decode_cost(q, kp, table, vl) -> tuple[float, float]:
+    return (attention_bytes(q, kp, table, vl, int((vl > 0).sum()), 1),
+            4.0 * float(vl.sum()) * q.shape[2] * q.shape[3])
+
+
+def prefill_cost(q, kp, table, qoff, vl, mask) -> tuple[float, float]:
+    return (attention_bytes(q, kp, table, vl, int(mask[:, 0].any(-1).sum()), 2),
+            4.0 * float(mask[:, 0].sum()) * q.shape[2] * q.shape[3])
 
 
 def sdpa_yardstick(q, kp, vp, table, mask):
@@ -351,10 +396,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
             s = table.shape[1] * PAGE
             mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None, None, :]
             row["library_ms"] = cuda_ms(sdpa_yardstick(q, kp, vp, table, mask))
-            flops = 4.0 * float(vl.sum()) * q.shape[2] * q.shape[3]
-            q_rows = int((vl > 0).sum())
-            row["bound_ms"], row["bound_by"] = bound(
-                attention_bytes(q, kp, table, vl, q_rows, 1), flops, dt)
+            row["bound_ms"], row["bound_by"] = bound(*decode_cost(q, kp, table, vl), dt)
             summary["paged_decode_attention"] = dict(
                 source=dec_mod.SOURCE, replaces=dec_mod.REPLACES, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -387,16 +429,10 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
             row["plain_ms"] = cuda_ms(
                 lambda: pre_mod.paged_prefill_attention_plain(q, kp, vp, table, qoff, vl),
                 iters=3)
-            s = table.shape[1] * PAGE
-            col = torch.arange(s, device=dev)[None, None, :]
-            qpos = qoff[:, None, None] + torch.arange(PREFILL_CHUNK, device=dev)[None, :, None]
-            mask = ((col <= qpos) & (col < vl[:, None, None]))[:, None]
+            mask = prefill_mask(qoff, vl, table, dev)
             row["library_ms"] = cuda_ms(sdpa_yardstick(q, kp, vp, table, mask))
-            visible = mask[:, 0].sum().item()
-            flops = 4.0 * visible * q.shape[2] * q.shape[3]
-            q_rows = int(mask[:, 0].any(-1).sum())
             row["bound_ms"], row["bound_by"] = bound(
-                attention_bytes(q, kp, table, vl, q_rows, 2), flops, dt)
+                *prefill_cost(q, kp, table, qoff, vl, mask), dt)
             summary["paged_prefill_attention"] = dict(
                 source=pre_mod.SOURCE, replaces=pre_mod.REPLACES, max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -411,6 +447,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     kv_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     train_kernels(gen, projections, dev, summary, detail, card)
     packed_kernels(gen, projections, dev, summary, detail, card)
+    moe_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     return summary, detail
 
 
@@ -556,6 +593,229 @@ def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pr
         log(f"[kernels] {name} ok (Smax {', '.join(map(str, smaxes))}): max|err| bf16 "
             f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}{lib}, bound "
             f"{r['bound_ms']:.5f} by {r['bound_by']}) [{card}]")
+
+
+# ------------------------------------------------------------------- MoE
+# full-width olmoe-1b-7b (configs/olmoe_1b_7b.py): 64 experts top-8, d_ff
+# 1024 per expert, an untied head of 50304; a training step routes its
+# batch x seq = 2048 tokens in 32 groups of 64 with capacity 10, so every
+# expert buffer holds 32 x 10 = 320 rows
+MOE_ARCH = "olmoe-1b-7b"
+# the paged pool of full-width olmoe at SLOTS x MAX_LEN, reckoned by hand:
+# 2 (k, v) x 16 layers x 512 blocks x 16 rows x 16 kv heads x 128 x 2 bytes
+MOE_POOL_BYTES = 1_073_741_824
+
+
+def distinct_cols(idx) -> torch.Tensor:
+    """(B,) number of distinct indices in each batch's (k, d_out) matrix."""
+    s = idx.reshape(idx.shape[0], -1).sort(dim=1).values
+    return 1 + (s[:, 1:] != s[:, :-1]).sum(dim=1)
+
+
+def single_cost(x, idx, val) -> tuple[float, float]:
+    """Bytes and flops of the single-tenant apply on this data: of each row
+    of batch b only the columns its indices name, idx/val read once, y
+    written once; 2·B·M·k·d_out flops."""
+    b, m, _ = x.shape
+    k, d_out = idx.shape[1:]
+    es = x.element_size()
+    nbytes = (float(distinct_cols(idx).sum()) * m * es + b * k * d_out * (4 + val.element_size())
+              + b * m * d_out * es)
+    return nbytes, 2.0 * b * m * k * d_out
+
+
+def batched_dval_cost(x, idx, dy) -> tuple[float, float]:
+    """dy read once, of x only the columns each batch's idx names, idx read
+    once, the float32 (B, k, d_out) output written once."""
+    b, m, _ = x.shape
+    k, d_out = idx.shape[1:]
+    nbytes = ((dy.numel() + float(distinct_cols(idx).sum()) * m) * x.element_size()
+              + b * k * d_out * 8)
+    return nbytes, 2.0 * b * m * k * d_out
+
+
+def moe_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pre_off,
+                pre_len) -> None:
+    """``sparse_delta`` and the batched ``sparse_delta_dval`` against their
+    plain versions: ragged shapes first (rows and columns off every tile,
+    B = 1, 3 and 64, k 1-3, both value dtypes; each batch of dval also as
+    its own 2-D call), then the shapes of an olmoe training step — the
+    three expert linears over (64, 320, ·) buffers and the untied head over
+    2048 rows, k = 1 — in bf16 and fp32, the bf16 calls timed. dval repeats
+    bit for bit, and its 2-D call equals the B = 1 call bit for bit. Then
+    the earlier slices' kernels at olmoe's own shapes: paged decode and
+    prefill with 16 query and 16 kv heads (group 1), ``fused_linear`` 2048
+    x 2048 without bias, ``sparse_delta_batched`` over 256 stacked (tenant,
+    expert) adapters."""
+    cfg = get_config(MOE_ARCH)
+    d, f, e, v = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.padded_vocab
+    m_tok = TRAIN_BATCH * TRAIN_SEQ
+    g = moe_mod.num_groups(m_tok, cfg.experts_per_token)
+    rows = g * moe_mod.capacity(cfg, m_tok // g)
+    assert rows == 320, rows
+
+    def rand_case(b, m, d_in, d_out, kk, dt, vdt):
+        x = torch.randn(b, m, d_in, generator=gen, device=dev).to(dt)
+        idx = torch.randint(0, d_in, (b, kk, d_out), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = (torch.randn(b, kk, d_out, generator=gen, device=dev) * 0.05).to(vdt)
+        # the gradient of a mean over the rows: dval stays O(1)
+        dy = (torch.randn(b, m, d_out, generator=gen, device=dev) * m**-0.5).to(dt)
+        return x, idx, val, dy
+
+    def check_dval(tag, x, idx, dy, dt, per_batch=False):
+        got = sd_mod.sparse_delta_dval(x, idx, dy)
+        err = check_close(f"sparse_delta_dval {tag}", got,
+                          sd_mod.sparse_delta_dval_plain(x, idx, dy), dt)
+        assert torch.equal(got, sd_mod.sparse_delta_dval(x, idx, dy)), \
+            f"sparse_delta_dval {tag}: two launches on the same inputs differ"
+        assert torch.equal(sd_mod.sparse_delta_dval(x[0], idx[0], dy[0]),
+                           sd_mod.sparse_delta_dval(x[:1], idx[:1], dy[:1])[0]), \
+            f"sparse_delta_dval {tag}: the 2-D call differs from the B = 1 call"
+        for i in range(x.shape[0] if per_batch else 0):
+            check_close(f"sparse_delta_dval {tag} batch {i} alone", got[i],
+                        sd_mod.sparse_delta_dval(x[i], idx[i], dy[i]), dt)
+        return err
+
+    for b, m, d_in, d_out, kk in ((1, 130, 77, 129, 1), (64, 7, 300, 260, 2),
+                                  (3, 33, 1000, 5, 3)):
+        for dt in (torch.bfloat16, torch.float32):
+            for vdt in (torch.bfloat16, torch.float32):
+                x, idx, val, dy = rand_case(b, m, d_in, d_out, kk, dt, vdt)
+                got = sd_mod.sparse_delta(x, idx, val)
+                want = sd_mod.sparse_delta_plain(x, idx, val)
+                torch.cuda.synchronize()
+                check_close(f"sparse_delta ragged B={b} M={m} d_in={d_in} d_out={d_out}", got,
+                            want, dt)
+            check_dval(f"ragged B={b} M={m} d_in={d_in} d_out={d_out}", x, idx, dy, dt,
+                       per_batch=True)
+    log("[kernels] sparse_delta and batched sparse_delta_dval ok on ragged shapes (B 1/3/64, "
+        "M 7/33/130, d_in 77/300/1000, d_out 5/129/260, k 1-3; dval per batch = its 2-D "
+        "call; bf16 2e-2, fp32 2e-5)")
+
+    shapes = (("wgate", e, rows, d, f), ("wup", e, rows, d, f), ("wdown", e, rows, f, d),
+              ("head", 1, m_tok, d, v))
+    acc = {n: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+           for n in ("sparse_delta", "sparse_delta_dval")}
+    for name, b, m, d_in, d_out in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            x, idx, val, dy = rand_case(b, m, d_in, d_out, TRAIN_K, dt, torch.bfloat16)
+            got = sd_mod.sparse_delta(x, idx, val)
+            want = sd_mod.sparse_delta_plain(x, idx, val)
+            torch.cuda.synchronize()
+            err = check_close(f"sparse_delta {name} B={b} M={m}", got, want, dt)
+            e_dv = check_dval(f"{name} B={b} M={m}", x, idx, dy, dt)
+            del got, want
+            rows_out = [{"kernel": "sparse_delta", "proj": name, "B": b, "M": m, "d_in": d_in,
+                         "d_out": d_out, "dtype": str(dt), "max_abs_err": err},
+                        {"kernel": "sparse_delta_dval", "proj": name, "B": b, "M": m,
+                         "d_in": d_in, "d_out": d_out, "dtype": str(dt), "max_abs_err": e_dv}]
+            if dt == torch.bfloat16:
+                for row, fn, plain, cost in (
+                        (rows_out[0], lambda: sd_mod.sparse_delta(x, idx, val),
+                         lambda: sd_mod.sparse_delta_plain(x, idx, val),
+                         single_cost(x, idx, val)),
+                        (rows_out[1], lambda: sd_mod.sparse_delta_dval(x, idx, dy),
+                         lambda: sd_mod.sparse_delta_dval_plain(x, idx, dy),
+                         batched_dval_cost(x, idx, dy))):
+                    row["ms"] = cuda_ms(fn)
+                    row["plain_ms"] = cuda_ms(plain, iters=3)
+                    row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+                    a = acc[row["kernel"]]
+                    for key, val_ in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
+                                      ("bytes", cost[0]), ("flops", cost[1])):
+                        a[key] += val_
+                    a["err"] = max(a["err"], row["max_abs_err"])
+                r0, r1 = rows_out
+                log(f"[kernels] olmoe {name} ({b}, {m}, {d_in}) -> {d_out}: sparse_delta "
+                    f"{r0['ms']:.4f} ms (plain {r0['plain_ms']:.4f}, bound {r0['bound_ms']:.4f} "
+                    f"by {r0['bound_by']}); sparse_delta_dval {r1['ms']:.4f} ms (plain "
+                    f"{r1['plain_ms']:.4f}, bound {r1['bound_ms']:.4f} by {r1['bound_by']}) "
+                    f"[{card}]")
+            detail.extend(rows_out)
+    shape = (f"the three expert linears of one olmoe-1b-7b layer ({e} experts x {rows} rows: "
+             f"{d}->{f}, {d}->{f}, {f}->{d}) and the untied head ({m_tok} rows, {d}->{v}), "
+             f"bf16, k={TRAIN_K}")
+    a = acc["sparse_delta"]
+    b_ms, b_by = bound(a["bytes"], a["flops"], torch.bfloat16)
+    summary["sparse_delta"] = {
+        "source": sd_mod.SOURCE, "replaces": sd_mod.DELTA_REPLACES,
+        "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "shape": shape}
+    a = acc["sparse_delta_dval"]
+    d_ms, d_by = bound(a["bytes"], a["flops"], torch.bfloat16)
+    summary["sparse_delta_dval"]["olmoe"] = {
+        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": d_ms, "bound_by": d_by,
+        "max_abs_err": a["err"], "shape": shape}
+    log(f"[kernels] sparse_delta ok (bf16 2e-2, fp32 2e-5 at the 4 olmoe shapes): max|err| "
+        f"bf16 {summary['sparse_delta']['max_abs_err']:.3e}; 3 expert linears + head "
+        f"{summary['sparse_delta']['ms']:.4f} ms (plain {summary['sparse_delta']['plain_ms']:.4f}, "
+        f"bound {b_ms:.4f} by {b_by}; no one-call yardstick); batched sparse_delta_dval "
+        f"{a['ms']:.4f} ms (plain {a['plain_ms']:.4f}, bound {d_ms:.4f} by {d_by}) [{card}]")
+
+    # -- the earlier slices' kernels at olmoe's shapes (checked; timed, with
+    #    their bound, in bf16 into the kernel's "olmoe" entry)
+    out = {}
+
+    def timed(kernel, tag, fn, plain, dt, cost):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        row = {"kernel": kernel, "arch": MOE_ARCH, "case": tag, "dtype": str(dt),
+               "max_abs_err": check_close(f"{kernel} olmoe {tag}", got, want, dt)}
+        if dt == torch.bfloat16:
+            row["ms"] = cuda_ms(fn)
+            row["plain_ms"] = cuda_ms(plain, iters=3)
+            row["bound_ms"], row["bound_by"] = bound(*cost(), dt)
+            out[kernel] = row
+            summary[kernel]["olmoe"] = {key: row[key] for key in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        detail.append(row)
+
+    for dt in (torch.bfloat16, torch.float32):
+        q, kp, vp, table, _, vl = paged_case(gen, [0] * SLOTS, dec_vl, 1, dt, dev, num_blocks,
+                                             arch=MOE_ARCH)
+        timed(
+            "paged_decode_attention", "q (8,1,16,128), group 1",
+            lambda: dec_mod.paged_decode_attention(q, kp, vp, table, vl),
+            lambda: dec_mod.paged_decode_attention_plain(q, kp, vp, table, vl), dt,
+            lambda: decode_cost(q, kp, table, vl))
+        q, kp, vp, table, qoff, vl = paged_case(gen, pre_off, pre_len, PREFILL_CHUNK, dt, dev,
+                                                num_blocks, arch=MOE_ARCH)
+        timed(
+            "paged_prefill_attention", "q (8,256,16,128), group 1",
+            lambda: pre_mod.paged_prefill_attention(q, kp, vp, table, qoff, vl),
+            lambda: pre_mod.paged_prefill_attention_plain(q, kp, vp, table, qoff, vl), dt,
+            lambda: prefill_cost(q, kp, table, qoff, vl, prefill_mask(qoff, vl, table, dev)))
+        x = torch.randn(m_tok, d, generator=gen, device=dev).to(dt)
+        w = (torch.randn(d, d, generator=gen, device=dev) * d**-0.5).to(dt)
+        idx = torch.randint(0, d, (TRAIN_K, d), generator=gen, device=dev, dtype=torch.int32)
+        val = (torch.randn(TRAIN_K, d, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        timed(
+            "fused_linear", "2048 x 2048 x 2048, no bias, k=1",
+            lambda: fl_mod.fused_linear(x, w, idx, val, None),
+            lambda: fl_mod.fused_linear_plain(x, w, idx, val, None), dt,
+            lambda: linear_cost(x, w, idx, val, None))
+        # a mixed step's expert buffers: 64 experts x 320 rows, each row's
+        # adapter the stacked (tenant, expert) pair tenant * 64 + expert
+        n_ad = (N_TENANTS + 1) * e
+        xb = torch.randn(e * rows, d, generator=gen, device=dev).to(dt)
+        bidx = torch.randint(0, d, (n_ad, K_DELTA, f), generator=gen, device=dev,
+                             dtype=torch.int32)
+        bval = (torch.randn(n_ad, K_DELTA, f, generator=gen, device=dev) * 0.05).to(
+            torch.bfloat16)
+        bval[:e] = 0  # tenant 0 is the base
+        tenant = torch.randint(0, N_TENANTS + 1, (e, rows), generator=gen, device=dev)
+        aid = (tenant * e + torch.arange(e, device=dev)[:, None]).reshape(-1).to(
+            torch.int32).contiguous()
+        timed(
+            "sparse_delta_batched", f"expert buffers ({e * rows}, {d}) -> {f}, N*E={n_ad}",
+            lambda: sd_mod.sparse_delta_batched(xb, bidx, bval, aid),
+            lambda: sd_mod.sparse_delta_batched_plain(xb, bidx, bval, aid), dt,
+            lambda: delta_cost(xb, bidx, bval, aid, f))
+    log("[kernels] the earlier kernels at olmoe shapes ok (bf16 2e-2, fp32 2e-5): " + "; ".join(
+        f"{k} {r['case']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f} by {r['bound_by']})"
+        for k, r in out.items()) + f" [{card}]")
 
 
 def linear_cost(x, w, idx, val, bias) -> tuple[float, float]:
@@ -801,17 +1061,51 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
 # --------------------------------------------------------------- engine runs
 
 
-def random_tenants(params, n, seed, dtype, device):
-    """``n`` NeuroAda tenants: magnitude top-k indices, random values."""
+def random_tenants(params, n, seed, dtype, device, idx=None):
+    """``n`` NeuroAda tenants: magnitude top-k indices (or the given
+    indices tree), random values."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    idx, val0 = init_adapters(params, K_DELTA)
+    if idx is None:
+        idx, _ = init_adapters(params, K_DELTA)
     out = []
     for _ in range(n):
         val = map_leaves(
             lambda v: None if v is None else
-            (torch.randn(v.shape, generator=gen, device=device) * 0.05).to(dtype), val0)
+            (torch.randn(v.shape, generator=gen, device=device) * 0.05).to(dtype), idx)
         out.append((idx, val))
     return out
+
+
+@contextlib.contextmanager
+def forwards_never_wait(model):
+    """Every forward of ``model`` and every token draw inside runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: one that waits for the
+    device (``.item()``, a device-to-host copy, ``bincount``'s range read)
+    raises, so the engine's fetch stays a step's only transfer."""
+    def guarded(fn):
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    try:  # the mode must catch what it is here for
+        guarded(torch.bincount)(torch.zeros(1, dtype=torch.int64, device="cuda"))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("sync debug mode let bincount's host read through")
+    draw = Sampler.__call__
+    model.prefill_chunk = guarded(model.prefill_chunk)
+    model.decode_step = guarded(model.decode_step)
+    Sampler.__call__ = guarded(draw)
+    try:
+        yield
+    finally:
+        del model.prefill_chunk, model.decode_step
+        Sampler.__call__ = draw
 
 
 def serve(model, params, tenants, prompts, max_new, device, **kw):
@@ -831,11 +1125,13 @@ def attention_names(paged: bool, kv_dtype: str) -> tuple[tuple, set]:
     return mine, {n for names in ATTENTION.values() for n in names} - set(mine)
 
 
-def phase_reduced(base: str = "fp32", paged: bool = True, kv_dtype: str = "fp32") -> list:
-    """Greedy tokens card vs CPU; on a packed ``base`` each engine packs
-    the same fp32 params on its own device; ``paged``/``kv_dtype`` pick the
-    KV cache. Returns the card's tokens."""
-    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+def phase_reduced(base: str = "fp32", paged: bool = True, kv_dtype: str = "fp32",
+                  arch: str = "qwen2-1.5b") -> list:
+    """Greedy tokens card vs CPU of reduced ``arch``; on a packed ``base``
+    each engine packs the same fp32 params on its own device;
+    ``paged``/``kv_dtype`` pick the KV cache. No training kernel launches.
+    Returns the card's tokens."""
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
     model = get_model(cfg)
     params_cpu = model.init(seed=0, device="cpu")
     tenants_cpu = random_tenants(params_cpu, 2, seed=5, dtype=torch.float32, device="cpu")
@@ -855,6 +1151,8 @@ def phase_reduced(base: str = "fp32", paged: bool = True, kv_dtype: str = "fp32"
         assert c.name not in mine + ("sparse_delta_batched",) or c.kernel > 0, \
             f"reduced run on the card never launched {c.name}"
         assert c.name not in others or c.kernel == 0, f"reduced {kv_dtype} run launched {c.name}"
+        assert c.name not in TRAINING + SINGLE_TENANT or c.kernel == 0, \
+            f"reduced serving launched the training kernel {c.name}"
         assert c.plain == 0, f"reduced run on the card called plain {c.name}"
     forwards = forwards_of(eng)
     n_q = COUNTERS["fused_linear_q"].kernel
@@ -863,7 +1161,8 @@ def phase_reduced(base: str = "fp32", paged: bool = True, kv_dtype: str = "fp32"
     for a, b in zip(want, got):
         assert a.out == b.out, (f"{base} base, {'paged' if paged else 'dense'} {kv_dtype} KV, "
                                 f"rid {a.rid}: cpu {a.out} != cuda {b.out}")
-    log(f"[reduced-{base}-{'paged' if paged else 'dense'}-{kv_dtype}] greedy tokens identical "
+    log(f"[reduced-{'' if arch == 'qwen2-1.5b' else arch + '-'}{base}-"
+        f"{'paged' if paged else 'dense'}-{kv_dtype}] greedy tokens identical "
         f"on cpu (plain) and cuda (kernels): {len(got)} requests, "
         f"{sum(len(r.out) for r in got)} tokens; attention kernels "
         f"{ {n: COUNTERS[n].kernel for n in mine} }, fused_linear_q {n_q} launches, "
@@ -900,7 +1199,8 @@ def phase_full(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
-    eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
+    with forwards_never_wait(model):
+        eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: COUNTERS[n].kernel for n in SERVING}
@@ -1093,7 +1393,8 @@ def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WIN
 
 BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("paged_decode_attention", ("paged_decode",)),
-           ("sparse_delta_batched", ("sparse_delta_batched",)),
+           ("sparse_delta_batched", ("idsfromarray",)),
+           ("sparse_delta", ("idsfromrow",)),
            ("fused_linear_q", ("fused_linear_q",)),
            ("fused_linear", ("fused_linear",)),
            ("sparse_delta_dval", ("dval_",)),
@@ -1151,18 +1452,52 @@ def packed_fingerprint(params) -> list:
             for _, x in flatten(params) if isinstance(x, QuantizedTensor)]
 
 
-def path_kernels(base: str) -> tuple[tuple, tuple]:
-    """(kernels a training step must launch, kernels it must not) on a base."""
+def path_kernels(base: str, cfg) -> tuple[tuple, tuple]:
+    """(kernels a training step must launch, kernels it must not) on a base;
+    the single-tenant bypass runs only where the model has an untied head
+    or expert stacks to adapt (the MoE family)."""
+    moe = bool(cfg.num_experts)
+    single = (SINGLE_TENANT, ()) if moe else ((), SINGLE_TENANT)
     if base == "bf16":
-        return TRAINING, PACKED_BASE
-    return PACKED_BASE + ("sparse_delta_dval",), ("fused_linear",)
+        return TRAINING + single[0], PACKED_BASE + single[1]
+    return PACKED_BASE + ("sparse_delta_dval",) + single[0], ("fused_linear",) + single[1]
 
 
-def phase_reduced_train(card: str, base: str = "bf16") -> None:
-    """Reduced qwen2-1.5b in fp32 (fp32 values too), the same params and
+def step_launches(cfg, base: str) -> dict:
+    """Launches of each path kernel in one training step: every adapted
+    matrix once forward (its kernel) and once backward (dval). Dense: 7
+    projections a layer; MoE: 4 attention projections through fused_linear,
+    3 expert stacks and the untied head through sparse_delta."""
+    L = cfg.num_layers
+    if cfg.num_experts:
+        return {"fused_linear": 4 * L, "sparse_delta": 3 * L + 1, "sparse_delta_dval": 7 * L + 1}
+    return {n: 7 * L for n in path_kernels(base, cfg)[0]}
+
+
+def trainable_count(cfg, k: int) -> int:
+    """NeuroAda values: k per output neuron of every adapted matrix."""
+    hd = cfg.resolved_head_dim
+    attn = cfg.num_heads * hd + 2 * cfg.num_kv_heads * hd + cfg.d_model
+    mlp = 2 * cfg.d_ff + cfg.d_model
+    per_layer = attn + (cfg.num_experts * mlp if cfg.num_experts else mlp)
+    head = 0 if cfg.tie_embeddings else cfg.padded_vocab
+    return k * (cfg.num_layers * per_layer + head)
+
+
+# card vs CPU after three AdamW steps, relative on the value tree. The MoE
+# family is worse conditioned: on the CPU alone, weights perturbed by 1e-7
+# (relative) move reduced olmoe's values by 3.7e-5 (reduced qwen2's by
+# 9e-7) — a few wgate values whose first gradients nearly vanish take Adam
+# steps of another size (Adam's first step is ±lr whatever the gradient's
+# magnitude). Losses are held to 1e-5 for both.
+VALUE_TOL = {"dense": 1e-5, "moe": 1e-4}
+
+
+def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> None:
+    """Reduced ``arch`` in fp32 (fp32 values too), the same params and
     three batches, trained on the card and on the CPU; on a packed base the
     params are packed on the CPU and the same bytes move to the card."""
-    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
     model = get_model(cfg)
     params_cpu = model.init(seed=0, device="cpu")
     if base != "bf16":
@@ -1174,7 +1509,7 @@ def phase_reduced_train(card: str, base: str = "bf16") -> None:
     to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.to("cuda"), t)  # noqa: E731
     reset_counters()
     got_loss, got_val = train_run(model, to_cuda(params_cpu), pcfg, tcfg, batches)
-    must, must_not = path_kernels(base)
+    must, must_not = path_kernels(base, cfg)
     for name, c in COUNTERS.items():
         assert name not in must or c.kernel > 0, f"reduced training never launched {name}"
         assert name not in must_not or c.kernel == 0, f"reduced training launched {name}"
@@ -1186,40 +1521,42 @@ def phase_reduced_train(card: str, base: str = "bf16") -> None:
              if a is not None]
     diff = sum(float((b - a).double().square().sum()) for a, b in pairs) ** 0.5
     norm = sum(float(a.double().square().sum()) for a, _ in pairs) ** 0.5
-    assert diff <= 1e-5 * norm, f"values: ||cuda - cpu|| / ||cpu|| = {diff / norm:.3e}"
+    tol = VALUE_TOL["moe" if cfg.num_experts else "dense"]
+    assert diff <= tol * norm, f"values: ||cuda - cpu|| / ||cpu|| = {diff / norm:.3e} > {tol}"
     base_txt = "fp32 base" if base == "bf16" else f"{base} base"
-    log(f"[reduced-train] 3 steps of reduced qwen2-1.5b fp32, {base_txt}: losses cpu "
+    log(f"[reduced-train] 3 steps of reduced {arch} fp32, {base_txt}: losses cpu "
         f"{[f'{x:.7f}' for x in want_loss]} cuda {[f'{x:.7f}' for x in got_loss]} "
         f"(max |diff| {max(abs(a - b) for a, b in zip(want_loss, got_loss)):.2e}); values "
         f"||cuda - cpu|| / ||cpu|| = {diff / norm:.2e} [{card}]")
 
 
-def phase_train(card: str, base: str = "bf16") -> dict:
-    """Full-width qwen2-1.5b NeuroAda training on a bf16 base, or on one
+def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> dict:
+    """Full-width NeuroAda training of ``arch`` on a bf16 base, or on one
     packed to ``base`` (int8, NF4) after init and before selection, as the
-    launcher does; then its adapter served on the same base. Returns the
-    measured steps' launches and the step's figures."""
-    cfg = get_config("qwen2-1.5b")
+    launcher does; then its adapter served on the same base (for MoE beside
+    two random tenants, with a window run). Returns the measured steps'
+    launches and the step's figures."""
+    cfg = get_config(arch)
     model = get_model(cfg)
     params = model.init(seed=0, device="cuda")
     if base != "bf16":
         params = quantize_base(params, base, block=QUANT_BLOCK)  # the dense base is freed
     base_bytes = tree_bytes(params)
     tcfg = TrainConfig(steps=TRAIN_WARMUP + TRAIN_STEPS + 1, learning_rate=TRAIN_LR)
+    moe = bool(cfg.num_experts)
     tag = "train" if base == "bf16" else f"train-{base}"
+    tag = "train-olmoe" if moe else tag
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)), tcfg, params)
     torch.cuda.synchronize()
     select_s = time.perf_counter() - t0
     st = stats(params, trainer.state.trainable)
-    per_layer = 2 * cfg.d_model + cfg.num_heads * cfg.resolved_head_dim \
-        + 2 * cfg.num_kv_heads * cfg.resolved_head_dim + 2 * cfg.d_ff
-    assert st["trainable"] == cfg.num_layers * per_layer * TRAIN_K, st
-    log(f"[{tag}] qwen2-1.5b {base} base ({base_bytes:,} bytes), NeuroAda k={TRAIN_K} "
+    assert st["trainable"] == trainable_count(cfg, TRAIN_K), st
+    log(f"[{tag}] {arch} {base} base ({base_bytes:,} bytes), NeuroAda k={TRAIN_K} "
         f"magnitude: trainable {st['trainable']:,} of {st['total']:,} "
         f"({100 * st['fraction']:.4f} %), selection {select_s:.2f} s [{card}]")
-    must, must_not = path_kernels(base)
+    must, must_not = path_kernels(base, cfg)
     data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     try:
         for _ in range(TRAIN_WARMUP):
@@ -1248,10 +1585,10 @@ def phase_train(card: str, base: str = "bf16") -> dict:
             assert c.plain == 0, f"training called the plain version of {name} {c.plain} times"
             assert name not in must_not or c.kernel == 0, f"training launched {name}"
         per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
-        want = 7 * cfg.num_layers
-        assert all(v == want for v in per_step.values()), (per_step, want)
+        want = step_launches(cfg, base)
+        assert per_step == want, (per_step, want)
         assert all(np.isfinite(losses)), losses
-        prof = "train_profile.txt" if base == "bf16" else f"train_{base}_profile.txt"
+        prof = f"{tag.replace('-', '_')}_profile.txt"
         busy, _, _ = profile_run(lambda: trainer.step(next(data)), card, f"{tag}-profile",
                                  prof)
     finally:
@@ -1268,11 +1605,14 @@ def phase_train(card: str, base: str = "bf16") -> dict:
               "step_s": times, "tokens_per_step": tok, "peak_bytes": peak,
               "launches_per_step": per_step, "busy_share": busy,
               "trainable": st["trainable"], "fraction": st["fraction"]}
-    fname = "train.json" if base == "bf16" else f"train_{base}.json"
-    with open(os.path.join(OUT_DIR, fname), "w") as f:
-        json.dump(result, f, indent=1)
-    serve_trained(model, params, trainer, card, tag)
-    return {"launches": launches, "peak": peak, "median_s": med}
+    with open(os.path.join(OUT_DIR, f"{tag.replace('-', '_')}.json"), "w") as f:
+        json.dump(dict(result, arch=arch), f, indent=1)
+    out = {"launches": launches, "peak": peak, "median_s": med}
+    if moe:
+        out["serve_launches"] = serve_moe(model, params, trainer, card)
+    else:
+        serve_trained(model, params, trainer, card, tag)
+    return out
 
 
 def serve_trained(model, params, trainer, card: str, tag: str) -> None:
@@ -1295,6 +1635,68 @@ def serve_trained(model, params, trainer, card: str, tag: str) -> None:
     log(f"[{tag}] exported adapter ({os.path.getsize(path)} bytes) served as tenant 1 beside "
         f"the base{' on the packed base it was trained on' if packed else ''}: {len(reqs)} "
         f"requests, {sum(len(r.out) for r in reqs)} tokens [{card}]")
+
+
+def serve_moe(model, params, trainer, card: str) -> dict:
+    """Full-width olmoe serving: the trained adapter (exported and loaded
+    back) as tenant 1 beside two random tenants on its indices and the base,
+    with phase 5's engine settings and prompts. The gate run (every request
+    ends, the paged serving kernels launched and no training kernel, no
+    plain version, one transfer a step, the pool drains, pool bytes as
+    reckoned), the same run profiled (busy share, launches per
+    layer-forward), then one window run. Returns the gate run's launches of
+    the serving kernels."""
+    path = os.path.join(OUT_DIR, "train-olmoe_adapter.npz")
+    export_adapter(path, trainer.aux, trainer.state.trainable, {"arch": model.cfg.name})
+    idx, val = load_adapter(path)
+    idx, val = (map_leaves(lambda x: None if x is None else x.cuda(), t) for t in (idx, val))
+    tenants = [(idx, val)] + random_tenants(params, 2, seed=9, dtype=torch.bfloat16,
+                                            device="cuda", idx=idx)
+    rng = np.random.default_rng(11)
+    lens = [40, 700, 130, 256, 511, 64, 300, 620, 90, 410]
+    prompts = [rng.integers(3, model.cfg.vocab_size, size=n).tolist() for n in lens]
+    max_new = 32
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PREFILL_CHUNK,
+              decode_chunk=DECODE_CHUNK, page_size=PAGE)
+    serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with forwards_never_wait(model):
+        eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {name: c.kernel for name, c in COUNTERS.items()}
+    for name, c in COUNTERS.items():
+        assert c.plain == 0, f"olmoe serving called the plain version of {name}"
+        assert name in SERVING or c.kernel == 0, f"olmoe serving launched {name}"
+        assert name not in SERVING or c.kernel > 0, f"olmoe serving never launched {name}"
+    for r in reqs:
+        assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
+    assert {r.adapter_id for r in reqs} == {0, 1, 2, 3}
+    assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+    assert eng.kv.drained(), "olmoe block pool not fully free after the run"
+    pool = eng.kv.pool_bytes()
+    assert pool == MOE_POOL_BYTES, pool
+    n_tok = sum(len(r.out) for r in reqs)
+    st = eng.step_times
+    log(f"[serve-olmoe] trained adapter ({os.path.getsize(path):,} bytes) as tenant 1 beside 2 "
+        f"random tenants and the base: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tok/s; steps {eng.steps} (mixed {len(st['mixed'])} x "
+        f"{float(np.mean(st['mixed'])) * 1e3:.2f} ms, decode {len(st['decode'])} x "
+        f"{float(np.mean(st['decode'])) * 1e3:.2f} ms); pool {pool:,} bytes (as reckoned); "
+        f"launches {json.dumps({k: n[k] for k in SERVING})}, plain 0 [{card}]")
+    busy, n_launch, (peng, _) = profile_run(
+        lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
+        "profile-olmoe", "full_profile_olmoe.txt")
+    per_fwd = n_launch / forwards_of(peng)
+    log(f"[serve-olmoe] {per_fwd:.1f} kernel launches per layer-forward (profiled gate run) "
+        f"[{card}]")
+    phase_window(model, params, tenants, card, kw, repeats=1, tag="window-olmoe",
+                 fname="window_olmoe.json",
+                 extra={"arch": model.cfg.name, "pool_bytes": pool, "busy_share": busy,
+                        "launches_per_layer_forward": per_fwd})
+    return {k: n[k] for k in SERVING}
 
 
 def main() -> int:
@@ -1343,9 +1745,16 @@ def main() -> int:
     stamp("reduced training")
     train = {base: phase_train(card, base) for base in ("bf16",) + PACKED}
     stamp("full training")
+    torch.cuda.empty_cache()
+    phase_reduced_train(card, "bf16", MOE_ARCH)
+    phase_reduced("fp32", arch=MOE_ARCH)
+    stamp("reduced olmoe")
+    train["olmoe"] = phase_train(card, "bf16", MOE_ARCH)
+    stamp("olmoe training and serving")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
+    launches["sparse_delta"] = train["olmoe"]["launches"]["sparse_delta"]
     for base in PACKED:
         peak, ref_peak = train[base]["peak"], train["bf16"]["peak"]
         assert peak < ref_peak, f"{base} training peak {peak} >= bf16's {ref_peak}"
@@ -1358,6 +1767,7 @@ def main() -> int:
     by_phase.update({f"serve-{b}": n for b, n in packed_serving.items()})
     launches["fused_linear_q"] = sum(by_phase.values())
 
+    olmoe_launches = {**train["olmoe"]["serve_launches"], **train["olmoe"]["launches"]}
     kernels = []
     for name, s in summary.items():
         row = {
@@ -1370,6 +1780,10 @@ def main() -> int:
         }
         if name == "fused_linear_q":
             row.update(launches_by_phase=by_phase, cases=s["cases"])
+        if "olmoe" in s:
+            # olmoe's own shapes and launches: the training run's measured
+            # steps for the training kernels, its serving gate run for the rest
+            row.update(olmoe=dict(s["olmoe"], launches=olmoe_launches[name]))
         kernels.append(row)
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

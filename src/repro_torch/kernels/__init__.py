@@ -12,12 +12,14 @@ their launch counters.
 | ``decode_attention_q`` | its int8 body ``_decode_attn_q_kernel`` | ``csrc/dense_decode_attention.cu`` |
 | ``fused_linear`` | ``fused_linear.py::fused_linear_pallas`` | ``csrc/fused_linear.cu`` |
 | ``sparse_delta_dval`` | ``sparse_delta.py::sparse_delta_dval_pallas`` | ``csrc/sparse_delta_dval.cu`` |
+| ``sparse_delta`` | ``sparse_delta.py::sparse_delta_pallas`` | ``csrc/sparse_delta.cu`` |
 | ``fused_linear_q`` | ``quant_linear.py::fused_linear_q_pallas`` | ``csrc/fused_linear_q.cu`` |
 
 ``SERVING`` carries the default paged engine with an fp KV cache; the
 attention bodies of the other cache layouts and dtypes stand in
 ``ATTENTION`` under their ``(paged, kv_dtype)``; ``TRAINING`` carries
-training; ``fused_linear_q`` carries both on a packed (int8 or NF4) base: it
+training; ``SINGLE_TENANT`` (``sparse_delta``) joins it where training
+adapts an untied head or expert stacks (the MoE family); ``fused_linear_q`` carries both on a packed (int8 or NF4) base: it
 takes the place of ``fused_linear`` in training and of the plain ``x @ W``
 base matmuls in serving. A wrapper launches its kernel for CUDA tensors and
 uses the plain version for CPU tensors; there is no backend switch.
@@ -43,12 +45,14 @@ ATTENTION = {
     (False, "int8"): ("decode_attention_q",),
 }
 TRAINING = ("fused_linear", "sparse_delta_dval")
+SINGLE_TENANT = ("sparse_delta",)
 PACKED_BASE = ("fused_linear_q",)
 COUNTERS = {c.name: c for c in (sparse_delta.counter, decode_attention.counter,
                                 decode_attention.q_counter, prefill_attention.counter,
                                 prefill_attention.q_counter, dense_decode_attention.counter,
                                 dense_decode_attention.q_counter, fused_linear.counter,
-                                sparse_delta.dval_counter, quant_linear.counter)}
+                                sparse_delta.dval_counter, sparse_delta.delta_counter,
+                                quant_linear.counter)}
 
 
 def reset_counters() -> None:
@@ -56,4 +60,5 @@ def reset_counters() -> None:
         c.reset()
 
 
-__all__ = ["ATTENTION", "COUNTERS", "PACKED_BASE", "SERVING", "TRAINING", "reset_counters"]
+__all__ = ["ATTENTION", "COUNTERS", "PACKED_BASE", "SERVING", "SINGLE_TENANT", "TRAINING",
+           "reset_counters"]

@@ -56,9 +56,11 @@ SIGNATURES = {
     "rt_decode_attention_q": [_P] * 8 + [_I] * 9 + [_P],
     # x, w, idx, val, bias (may be null), y | M, N, K, k, x_dtype, v_dtype | stream
     "rt_fused_linear": [_P] * 6 + [_I] * 6 + [_P],
-    # x, idx, dy, partials, dval | M, d_in, d_out, k, rows_per_split, n_split,
+    # x, idx, val, y | B, M, d_in, d_out, k, x_dtype, v_dtype | stream
+    "rt_sparse_delta": [_P] * 4 + [_I] * 7 + [_P],
+    # x, idx, dy, partials, dval | B, M, d_in, d_out, k, rows_per_split, n_split,
     # dtype | stream
-    "rt_sparse_delta_dval": [_P] * 5 + [_I] * 7 + [_P],
+    "rt_sparse_delta_dval": [_P] * 5 + [_I] * 8 + [_P],
     # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
     # block, qdtype, x_dtype, v_dtype | stream
     "rt_fused_linear_q": [_P] * 7 + [_I] * 8 + [_P],

@@ -1,12 +1,19 @@
-// Multi-tenant NeuroAda bypass apply:
-//   y[m, o] = sum_j val[aid[m], j, o] * x[m, idx[aid[m], j, o]]
+// NeuroAda bypass apply, in two forms that share one kernel:
+//   multi-tenant:   y[m, o] = sum_j val[aid[m], j, o] * x[m, idx[aid[m], j, o]]
+//   single-tenant, over a leading batch axis (experts, or B = 1 for a head):
+//                   y[b, m, o] = sum_j val[b, j, o] * x[b, m, idx[b, j, o]]
 // with float32 accumulation and the output in x's dtype.
 //
-// Replaces the TPU kernel src/repro/kernels/sparse_delta.py
-// sparse_delta_batched_pallas (body _delta_batched_kernel). That kernel
-// loops over all N adapters with a per-row select, a workaround for
-// Mosaic's poor per-sublane gathers; here each row reads aid[m] and
-// gathers only its own adapter's k entries.
+// Replaces two TPU kernels of src/repro/kernels/sparse_delta.py:
+// sparse_delta_batched_pallas (body _delta_batched_kernel), which loops over
+// all N adapters with a per-row select, a workaround for Mosaic's poor
+// per-sublane gathers; and sparse_delta_pallas (body _delta_kernel), the
+// single-tenant apply, which the reference vmaps over (groups, experts) for
+// the MoE expert stacks (models/moe.py _expert_linear_g), one grid axis
+// more per vmap. Here a row finds its adapter by a policy (IdsFromArray
+// reads aid[m]; IdsFromRow takes m / M, the row's batch index) and gathers
+// only that adapter's k entries, so a whole (E, M, d_in) expert stack is
+// one launch over E * M rows.
 //
 // Bound: memory. Each call reads x once, the touched idx/val once and
 // writes y once; the k*d_out multiply-adds per row are negligible.
@@ -19,7 +26,8 @@
 // x is read once; few rows in a decode step: the columns spread out), one
 // thread per column at a time, looping over the tile's rows and k.
 // Neighbouring threads read neighbouring idx/val entries, and rows of one
-// slot share an adapter, so those reads coalesce and stay in L1.
+// tile mostly share an adapter (a slot's rows, or an expert's), so those
+// reads coalesce and stay in L1.
 #include "common.cuh"
 
 namespace {
@@ -28,14 +36,26 @@ constexpr int kThreads = 256;
 constexpr int kMaxRows = 8;
 constexpr size_t kStageBytes = 96 * 1024;
 
-template <typename TX, typename TV>
-__global__ void sparse_delta_batched_kernel(const TX* __restrict__ x,
-                                            const int32_t* __restrict__ idx,
-                                            const TV* __restrict__ val,
-                                            const int32_t* __restrict__ aid,
-                                            TX* __restrict__ y, int M, int d_in,
-                                            int d_out, int n_ad, int k, int rows_per_block,
-                                            int cols_per_block) {
+// Where a row's adapter comes from.
+struct IdsFromArray {  // the engine's per-row tenant ids
+  const int32_t* aid;
+  int n_ad;
+  // ids come from the engine's host plan; clamp so a bad id can never read
+  // outside the stacks
+  __device__ __forceinline__ int operator()(int m) const {
+    return min(max(aid[m], 0), n_ad - 1);
+  }
+};
+struct IdsFromRow {  // a leading batch axis: rows [b*M, (b+1)*M) use adapter b
+  int rows_per_adapter;
+  __device__ __forceinline__ int operator()(int m) const { return m / rows_per_adapter; }
+};
+
+template <typename TX, typename TV, typename Ids>
+__global__ void sparse_delta_kernel(const TX* __restrict__ x, const int32_t* __restrict__ idx,
+                                    const TV* __restrict__ val, Ids adapter_of,
+                                    TX* __restrict__ y, int M, int d_in, int d_out, int k,
+                                    int rows_per_block, int cols_per_block) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TX* xs = reinterpret_cast<TX*>(smem_raw);
   const int m0 = blockIdx.x * rows_per_block;
@@ -57,9 +77,7 @@ __global__ void sparse_delta_batched_kernel(const TX* __restrict__ x,
   const int o_end = min(d_out, o0 + cols_per_block);
   for (int o = o0 + static_cast<int>(threadIdx.x); o < o_end; o += blockDim.x) {
     for (int r = 0; r < rows; ++r) {
-      // ids come from the engine's host plan; clamp so a bad id can never
-      // read outside the stacks
-      const int a = min(max(aid[m0 + r], 0), n_ad - 1);
+      const int a = adapter_of(m0 + r);
       const int32_t* ia = idx + a * ad_stride + o;
       const TV* va = val + a * ad_stride + o;
       const TX* xr = xs + static_cast<size_t>(r) * d_in;
@@ -73,15 +91,16 @@ __global__ void sparse_delta_batched_kernel(const TX* __restrict__ x,
   }
 }
 
-template <typename TX, typename TV>
-cudaError_t launch(const void* x, const void* idx, const void* val, const void* aid, void* y,
-                   int M, int d_in, int d_out, int n_ad, int k, cudaStream_t stream) {
+// M counts all rows (B * M for the batch policy).
+template <typename TX, typename TV, typename Ids>
+cudaError_t launch(const void* x, const void* idx, const void* val, Ids adapter_of, void* y,
+                   int M, int d_in, int d_out, int k, cudaStream_t stream) {
   const size_t row_bytes = static_cast<size_t>(d_in) * sizeof(TX);
   size_t fit = kStageBytes / row_bytes;
   const int rpb = static_cast<int>(fit < 1 ? 1 : (fit > kMaxRows ? kMaxRows : fit));
   const size_t smem = rpb * row_bytes;
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  auto kernel = sparse_delta_batched_kernel<TX, TV>;
+  auto kernel = sparse_delta_kernel<TX, TV, Ids>;
   cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -97,9 +116,23 @@ cudaError_t launch(const void* x, const void* idx, const void* val, const void* 
   dim3 grid(row_tiles, splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const int32_t*>(idx), static_cast<const TV*>(val),
-      static_cast<const int32_t*>(aid), static_cast<TX*>(y), M, d_in, d_out, n_ad, k, rpb,
-      cols);
+      adapter_of, static_cast<TX*>(y), M, d_in, d_out, k, rpb, cols);
   return cudaGetLastError();
+}
+
+template <typename Ids>
+cudaError_t dispatch(int x_dtype, int v_dtype, const void* x, const void* idx, const void* val,
+                     Ids adapter_of, void* y, int M, int d_in, int d_out, int k,
+                     cudaStream_t s) {
+  if (x_dtype == RT_BF16 && v_dtype == RT_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, idx, val, adapter_of, y, M, d_in, d_out, k, s);
+  if (x_dtype == RT_BF16 && v_dtype == RT_F32)
+    return launch<__nv_bfloat16, float>(x, idx, val, adapter_of, y, M, d_in, d_out, k, s);
+  if (x_dtype == RT_F32 && v_dtype == RT_BF16)
+    return launch<float, __nv_bfloat16>(x, idx, val, adapter_of, y, M, d_in, d_out, k, s);
+  if (x_dtype == RT_F32 && v_dtype == RT_F32)
+    return launch<float, float>(x, idx, val, adapter_of, y, M, d_in, d_out, k, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -108,17 +141,16 @@ extern "C" int rt_sparse_delta_batched(const void* x, const void* idx, const voi
                                        const void* aid, void* y, int M, int d_in, int d_out,
                                        int n_ad, int k, int x_dtype, int v_dtype,
                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_dtype == RT_BF16 && v_dtype == RT_BF16)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, idx, val, aid, y, M, d_in, d_out, n_ad, k, s);
-  else if (x_dtype == RT_BF16 && v_dtype == RT_F32)
-    err = launch<__nv_bfloat16, float>(x, idx, val, aid, y, M, d_in, d_out, n_ad, k, s);
-  else if (x_dtype == RT_F32 && v_dtype == RT_BF16)
-    err = launch<float, __nv_bfloat16>(x, idx, val, aid, y, M, d_in, d_out, n_ad, k, s);
-  else if (x_dtype == RT_F32 && v_dtype == RT_F32)
-    err = launch<float, float>(x, idx, val, aid, y, M, d_in, d_out, n_ad, k, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  IdsFromArray ids{static_cast<const int32_t*>(aid), n_ad};
+  return static_cast<int>(dispatch(x_dtype, v_dtype, x, idx, val, ids, y, M, d_in, d_out, k,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// x (B, M, d_in), idx/val (B, k, d_out) -> y (B, M, d_out); M >= 1.
+extern "C" int rt_sparse_delta(const void* x, const void* idx, const void* val, void* y, int B,
+                               int M, int d_in, int d_out, int k, int x_dtype, int v_dtype,
+                               void* stream) {
+  IdsFromRow ids{M};
+  return static_cast<int>(dispatch(x_dtype, v_dtype, x, idx, val, ids, y, B * M, d_in, d_out,
+                                   k, static_cast<cudaStream_t>(stream)));
 }

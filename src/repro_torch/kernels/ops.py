@@ -5,10 +5,10 @@ Each reshapes and broadcasts its arguments to the kernel's contract and
 calls the kernel module's wrapper, which launches the CUDA kernel for a
 CUDA tensor and the plain PyTorch version for a CPU tensor. There is no
 backend switch: the tensor's device decides. Offsets and lengths are (B,)
-int32 tensors, as the engine builds them. :func:`fused_linear` and
-:func:`fused_linear_q` carry the training gradient (the reference's
-``custom_vjp``) as ``torch.autograd.Function`` classes; :func:`matmul_q`
-is the base matmul of a plain or packed weight.
+int32 tensors, as the engine builds them. :func:`delta_apply`,
+:func:`fused_linear` and :func:`fused_linear_q` carry the training
+gradient (the reference's ``custom_vjp``) as ``torch.autograd.Function``
+classes; :func:`matmul_q` is the base matmul of a plain or packed weight.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention as _decode
 from repro_torch.kernels.dense_decode_attention import decode_attention as _dense_decode
 from repro_torch.kernels.prefill_attention import paged_prefill_attention as _prefill
-from repro_torch.kernels.sparse_delta import sparse_delta_batched, sparse_delta_dval
+from repro_torch.kernels.sparse_delta import sparse_delta, sparse_delta_batched, sparse_delta_dval
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize
 
 
@@ -34,6 +34,43 @@ def delta_apply_batched(x, idx, val, aid):
     aid = aid.expand(lead).reshape(-1).to(torch.int32).contiguous()
     y = sparse_delta_batched(x.reshape(-1, x.shape[-1]).contiguous(), idx, val, aid)
     return y.reshape(*lead, idx.shape[-1])
+
+
+class _DeltaApply(torch.autograd.Function):
+    """Forward: the single-tenant bypass kernel over a leading batch axis.
+    Backward, as the reference's ``_delta_bwd``: ``dval`` from the
+    value-gradient kernel (one launch for the whole batch), cast to the
+    values' dtype; ``dx`` by the plain scatter of ``sparse_delta_dx_ref``."""
+
+    @staticmethod
+    def forward(ctx, x3, idx, val):
+        ctx.save_for_backward(x3, idx, val)
+        return sparse_delta(x3, idx, val)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, idx, val = ctx.saved_tensors
+        dy = dy.contiguous()
+        need_x, _, need_val = ctx.needs_input_grad
+        dx = dval = None
+        if need_x:
+            dx = ref.sparse_delta_dx_ref(idx, val, dy, x3.shape[2]).to(x3.dtype)
+        if need_val:
+            dval = sparse_delta_dval(x3, idx, dy).to(val.dtype)
+        return dx, None, dval
+
+
+def delta_apply(x, idx, val):
+    """Single-tenant NeuroAda bypass, differentiable in x and the values:
+    x (..., d_in) × Delta (k, d_out) -> (..., d_out), or an expert stack
+    x (E, ..., d_in) × (E, k, d_out) -> (E, ..., d_out), each expert on its
+    own rows. Either way one kernel launch."""
+    if idx.ndim == 2:
+        y = delta_apply(x.reshape(1, -1, x.shape[-1]), idx[None], val[None])
+        return y.reshape(*x.shape[:-1], idx.shape[-1])
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+    y = _DeltaApply.apply(x3, idx.contiguous(), val.contiguous())
+    return y.reshape(*x.shape[:-1], idx.shape[-1])
 
 
 def decode_attention(q, k, v, kv_valid_len, k_scale=None, v_scale=None):

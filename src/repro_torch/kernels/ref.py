@@ -27,6 +27,23 @@ def sparse_delta_batched_ref(x, idx, val, aid):
     return (xg.float() * val[a].float()).sum(dim=1).to(x.dtype)
 
 
+def _gather_batched(x, idx):
+    """x (B, M, d_in) at idx (B, k, d_out) -> (B, M, k, d_out): row m of
+    batch b read at batch b's indices."""
+    b, m, _ = x.shape
+    k, d_out = idx.shape[1:]
+    ind = idx.long().reshape(b, 1, k * d_out).expand(b, m, k * d_out)
+    return torch.gather(x, 2, ind).reshape(b, m, k, d_out)
+
+
+def sparse_delta_ref(x, idx, val):
+    """y[b, m, o] = Σ_j val[b, j, o] · x[b, m, idx[b, j, o]]: x (B, M, d_in),
+    idx/val (B, k, d_out) -> (B, M, d_out) in x's dtype, float32 products
+    and sums."""
+    xg = _gather_batched(x, idx)
+    return (xg.float() * val.float()[:, None]).sum(dim=2).to(x.dtype)
+
+
 def sparse_delta_f32(x, idx, val):
     """Σ_j val[j, o] · x[m, idx[j, o]] in float32: x (M, d_in), idx/val
     (k, d_out) -> (M, d_out) float32."""
@@ -60,14 +77,27 @@ def fused_linear_q_ref(x, data, scales, idx=None, val=None, bias=None, *, qdtype
 
 
 def sparse_delta_dval_ref(x, idx, dy):
-    """dval[j, o] = Σ_m dy[m, o] · x[m, idx[j, o]] in float32 -> (k, d_out)."""
+    """dval[j, o] = Σ_m dy[m, o] · x[m, idx[j, o]] in float32 -> (k, d_out);
+    with a leading batch axis, x (B, M, d_in), idx (B, k, d_out), dy (B, M,
+    d_out) -> (B, k, d_out), each batch on its own."""
+    if x.ndim == 3:
+        return torch.einsum("bmko,bmo->bko", _gather_batched(x, idx).float(), dy.float())
     xg = x[:, idx.long()].float()  # (M, k, d_out)
     return torch.einsum("mko,mo->ko", xg, dy.float())
 
 
 def sparse_delta_dx_ref(idx, val, dy, d_in: int):
     """dx[m, i] = Σ_{(j, o): idx[j, o] = i} dy[m, o] · val[j, o]: a float32
-    scatter-add of the k·d_out terms of each row (``index_add_``)."""
+    scatter-add of the k·d_out terms of each row (``index_add_``). With a
+    leading batch axis (idx/val (B, k, d_out), dy (B, M, d_out)) each batch
+    scatters into its own (M, d_in) rows."""
+    if dy.ndim == 3:
+        b, m, _ = dy.shape
+        kd = idx.shape[1] * idx.shape[2]
+        upd = (dy.float()[:, :, None, :] * val.float()[:, None]).reshape(b, m, kd)
+        ind = idx.long().reshape(b, 1, kd).expand(b, m, kd)
+        dx = torch.zeros((b, m, d_in), dtype=torch.float32, device=dy.device)
+        return dx.scatter_add_(2, ind, upd)
     m = dy.shape[0]
     upd = (dy.float()[:, None, :] * val.float()[None]).reshape(m, -1)
     dx = torch.zeros((m, d_in), dtype=torch.float32, device=dy.device)

@@ -11,6 +11,9 @@ base matmul through the fused dequant kernel); ``--quant-block`` must match
 the block the adapters were trained against. The engine runs on the paged
 KV pool (``--paged``, the default) or, with ``--dense``, on the dense slot
 cache; ``--kv-dtype int8`` stores either as int8 codes with float32 scales.
+``--arch olmoe-1b-7b`` serves the MoE family (tenants' expert and head
+deltas through the expert dispatch); ``--base-dtype int8|nf4`` and
+``--kv-dtype int8`` are not ported on MoE yet and raise.
 The weights are random from seed 0 (weight files are not loaded yet).
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.

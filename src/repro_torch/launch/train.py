@@ -1,10 +1,15 @@
 """Training launcher of the port: NeuroAda sparse-bypass fine-tuning of a
-dense decoder on the GPU (Alg. 1: magnitude selection, training of the
-bypass values only, adapter export).
+dense or MoE decoder on the GPU (Alg. 1: magnitude selection, training of
+the bypass values only, adapter export).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --task lm --steps 200 --batch 4 --seq 512 --k 1 \\
       [--base-dtype int8|nf4 [--quant-block 64]] [--export-adapter tenant.npz]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b ...
+
+On the MoE family (olmoe-1b-7b) selection covers the expert stacks and the
+untied head (never the router), the loss adds ``router_aux_coef`` × the
+load-balancing loss, and ``--base-dtype int8|nf4`` is not ported yet.
 
 The weights are random from ``--seed`` (weight files are not loaded yet).
 ``--base-dtype int8|nf4`` packs the frozen base after init and before

@@ -1,5 +1,5 @@
 """The model API the engine and the trainer drive (port of
-``repro.models.registry``, dense family only)."""
+``repro.models.registry``, the dense and MoE families)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,11 @@ import torch.nn as nn
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
+FAMILIES = ("dense", "moe")
+
 
 class Model(nn.Module):
-    """A config-bound dense decoder. Weights live in a nested param dict
+    """A config-bound decoder of the dense or MoE family. Weights live in a nested param dict
     (:func:`init`, or converted from the reference), passed to each call as
     in the reference, so one ``Model`` serves any param tree of its config.
     Per-layer views of the last param tree and tenant stacks seen are kept,
@@ -18,8 +20,9 @@ class Model(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.family != "dense":
-            raise ValueError(f"the port serves the dense family, got {cfg.family!r}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"the port has the {' and '.join(FAMILIES)} families, got "
+                             f"{cfg.family!r} (ROADMAP.md §1 item 10)")
         self.cfg = cfg
         self._views: tuple = (None, None)
         self._a_views: tuple = ((), None)

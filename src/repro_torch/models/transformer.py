@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer: paged serving and training (port of the
-dense path of ``repro.models.transformer``).
+"""Decoder-only transformer, dense and MoE: paged and dense-cache serving
+and training (port of the dense and MoE paths of
+``repro.models.transformer``).
 
 Params are a nested dict in the reference's layout and names: weights
 ``W (d_in, d_out)`` with ``y = x @ W``, per-layer leaves stacked along a
@@ -23,6 +24,15 @@ an optional ``"head"`` ``BatchedDelta`` for an untied head. Training
 adapters are the tree of :func:`repro_torch.core.adapt.zip_adapters`:
 ``Delta`` leaves of ``(L, k, d_out)`` beside each adapted ``w``, every
 projection of every layer through the fused kernel with W frozen.
+
+The MoE family (``cfg.num_experts > 0``) replaces each layer's MLP with
+:func:`repro_torch.models.moe.moe_ffn`: a router ``(L, D, E)`` and expert
+stacks ``wgate``/``wup`` ``(L, E, D, F)`` and ``wdown`` ``(L, E, F, D)``,
+whose adapters carry the expert axis too (``(L, E, k, F)`` training
+deltas, ``(L, N, E, k, F)`` tenant stacks). An untied head is adaptable
+like any linear: a training delta ``(k, V)`` goes through
+``ops.delta_apply``, a tenant stack ``(N, k, V)`` through
+``ops.delta_apply_batched``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 
 from repro_torch.core.delta import BatchedDelta, Delta
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (
     attention,
     chunk_attention,
@@ -96,9 +107,16 @@ def init_params(cfg, *, seed: int, device) -> dict:
     if cfg.qk_norm:
         blocks["q_norm"] = ones(L, hd)
         blocks["k_norm"] = ones(L, hd)
-    blocks["wgate"] = lin(D, Fd)
-    blocks["wup"] = lin(D, Fd)
-    blocks["wdown"] = lin(Fd, D)
+    if cfg.num_experts:
+        E = cfg.num_experts
+        blocks["router"] = {"w": normal((L, D, E), D**-0.5)}
+        blocks["wgate"] = lin(D, Fd, stack=(L, E))
+        blocks["wup"] = lin(D, Fd, stack=(L, E))
+        blocks["wdown"] = lin(Fd, D, stack=(L, E))
+    else:
+        blocks["wgate"] = lin(D, Fd)
+        blocks["wup"] = lin(D, Fd)
+        blocks["wdown"] = lin(Fd, D)
     params = {
         "embed": {"w": normal((cfg.padded_vocab, D), 0.02)},
         "blocks": blocks,
@@ -197,6 +215,15 @@ def _qkv(cfg, p, a, x, cos, sin):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _mlp(cfg, p, a, x, with_aux: bool = False):
+    """The layer's MLP: (y, aux) — the MoE FFN and, for training
+    (``with_aux``), its load-balancing loss; None for the SwiGLU MLP and for
+    serving (no loss, and no launch to make one)."""
+    if cfg.num_experts:
+        return moe_lib.moe_ffn(cfg, p, a, x, with_aux=with_aux)
+    return silu_mlp(p, a, x), None
 
 
 def _head_logits(cfg, params, adapters, h):
@@ -299,7 +326,7 @@ def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None
             o = paged_prefill_attention(q, ck, cv, table, q_offset=q_offset, kv_valid_len=vl,
                                         k_scale=ks, v_scale=vs)
         h = h + alinear(p, a, "wo", o.reshape(b, c, -1))
-        h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))[0]
     last = batch["last_idx"].long()[:, None, None].expand(-1, 1, h.shape[-1])
     hs = rms_norm(torch.gather(h, 1, last), params["final_norm"], cfg.norm_eps)
     return _head_logits(cfg, params, adapters, hs)[:, 0]
@@ -336,7 +363,7 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
         else:
             o = paged_attention(q, ck, cv, table, kv_valid_len=vl, k_scale=ks, v_scale=vs)
         h = h + alinear(p, a, "wo", o.reshape(h.shape[0], 1, -1))
-        h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))[0]
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head_logits(cfg, params, adapters, h)[:, 0]
 
@@ -360,24 +387,26 @@ def delta_views(adapters, n_layers: int) -> list[dict]:
 
 
 def _train_head(cfg, params, adapters, h):
+    """Tied: ``h @ embed.T``; untied: the head matmul plus, when the
+    adapters carry one, its NeuroAda delta through the single-tenant bypass
+    kernel (differentiable in h and the values)."""
     if cfg.tie_embeddings:
         return h @ params["embed"]["w"].T
+    logits = ops.matmul_q(h, params["head"]["w"])
     d = adapters.get("head") if adapters else None
     if isinstance(d, dict):
         d = d.get("w")
     if d is not None:
-        raise NotImplementedError(
-            "a NeuroAda delta on an untied head needs the single-tenant bypass "
-            "kernel (sparse_delta_pallas), which the port does not have yet "
-            "(ROADMAP.md §2)")
-    return ops.matmul_q(h, params["head"]["w"])
+        logits = logits + ops.delta_apply(h, d.idx, d.val)
+    return logits
 
 
 def forward_train(cfg, params, adapters, batch, layers=None):
     """Training forward over ``batch["tokens"]`` (B, S) at positions
     ``0..S-1`` (or ``batch["positions"]``): causal attention, every adapted
     projection through the fused kernel. Returns ((B, S, V) logits, the
-    auxiliary loss — 0 for the dense family)."""
+    auxiliary loss: the MoE layers' load-balancing losses summed over the
+    layers and divided by L, 0 for the dense family)."""
     layers = layer_views(params) if layers is None else layers
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -388,14 +417,17 @@ def forward_train(cfg, params, adapters, batch, layers=None):
     cos, sin = rope_angles(positions, rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
                                                  device=h.device))
     deltas = delta_views(adapters, len(layers))
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p, a in zip(layers, deltas):
         x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, p, a, x, cos, sin)
         o = train_attention(q, k, v, cfg)
         h = h + alinear(p, a, "wo", o.reshape(b, s, -1))
-        h = h + silu_mlp(p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))
+        y, aux_l = _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps), with_aux=True)
+        h = h + y
+        if aux_l is not None:
+            aux = aux + aux_l
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return _train_head(cfg, params, adapters, h), aux / cfg.num_layers
 
 

@@ -27,6 +27,12 @@ engine's device (blocks of ``quant_block`` rows): every base matmul of a
 step then runs the fused dequant kernel and the tenants' bypasses apply on
 top, so N tenants share one packed base.
 
+An MoE model (``cfg.num_experts > 0``) serves on a bf16 or fp32 base with
+an fp KV cache: the step's ``BatchedDelta`` leaves carry the slots' ids into
+the MoE FFN, which scatters them through its expert dispatch. A packed
+base (``peft.quantize_base``) and int8 KV on MoE are not ported yet and
+raise.
+
 Out of the port so far: speculative decoding, tensor parallelism, metrics
 and tracing, deadlines, fairness policies and cancellation (the reference's
 engine has them).
@@ -92,6 +98,10 @@ class ServeEngine:
             raise ValueError(f"base_dtype {base_dtype!r} not in {BASE_DTYPES}")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
+        if model.cfg.num_experts and kv_dtype != "fp32":
+            raise NotImplementedError(
+                f"kv_dtype {kv_dtype!r} on the MoE family is not ported yet "
+                "(ROADMAP.md §1, int8 KV on MoE)")
         self.device = resolve_device(device)
         self.model = model
         self.params = map_leaves(lambda t: None if t is None else t.to(self.device), params)

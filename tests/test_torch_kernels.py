@@ -37,6 +37,7 @@ from repro_torch.kernels import (
     COUNTERS,
     PACKED_BASE,
     SERVING,
+    SINGLE_TENANT,
     TRAINING,
     build,
     ops,
@@ -413,7 +414,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     sd.sparse_delta_dval(x, idx, torch.ones(24, 48))
     assert (COUNTERS["fused_linear"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
     attention = {name for names in ATTENTION.values() for name in names}
-    assert set(COUNTERS) == set(SERVING) | attention | set(TRAINING) | set(PACKED_BASE)
+    assert set(COUNTERS) == (set(SERVING) | attention | set(TRAINING) | set(SINGLE_TENANT)
+                             | set(PACKED_BASE))
     reset_counters()
     assert all(c.plain == c.kernel == 0 for c in COUNTERS.values())
 

@@ -285,7 +285,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.convert, repro_torch.peft, repro_torch.kernels.build, "
             "repro_torch.train, repro_torch.launch.train, repro_torch.optim, "
-            "repro_torch.data, repro_torch.distributed, repro_torch.quant; "
+            "repro_torch.data, repro_torch.distributed, repro_torch.quant, "
+            "repro_torch.models.moe; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
