@@ -2,12 +2,16 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --reduced-train-distances
+
+The second form only prints how far reduced training moves card vs CPU at
+a few batch shapes (the readings behind the reduced runs' bounds).
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the hand-written CUDA kernels from the seven sources in
-   ``src/repro_torch/kernels/csrc`` (timed; eleven entry points);
+2. build: compile the hand-written CUDA kernels from the nine sources in
+   ``src/repro_torch/kernels/csrc`` (timed; thirteen entry points);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
@@ -25,7 +29,13 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    buffers, the untied head over 2048 rows; dval's 2-D call equal to its
    B = 1 call bit for bit), and the earlier kernels at olmoe's shapes
    (paged attention with 16/16 heads, ``fused_linear`` 2048², the batched
-   apply over 256 stacked (tenant, expert) adapters) — then timed beside
+   apply over 256 stacked (tenant, expert) adapters); ``flash_attention_fwd``
+   (out and lse; causal and full, bf16 and fp32, hd 16/64/128, GQA groups 1
+   and 6, S 130 and 2000) and at the path shapes, qwen2's (1, 4096, 12/2,
+   128) and olmoe's (1, 2048, 16/16, 128), with the plain backward timed
+   at qwen2's; ``topk_select`` equal to the sort, indices and order
+   (ragged d_in and d_out, k 1-64 and k = d_in, tie-heavy bf16), and over
+   every stack qwen2 (7) and olmoe (8) select on — then timed beside
    its plain version, its bound and a one-call PyTorch yardstick where
    there is one (the port never calls it);
 4. reduced serving: reduced qwen2-1.5b in fp32 through the paged
@@ -56,8 +66,10 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    (busy share, launches per layer-forward) and one window run;
 6. reduced training: reduced qwen2-1.5b in fp32, the same params and three
    batches trained on the card (kernels) and on the CPU (plain versions),
-   on the fp32, an int8 and an NF4 base: losses within 1e-5, final values
-   within 1e-5 relative;
+   on the fp32, an int8 and an NF4 base, and on the fp32 base with every
+   layer's attention on the flash path (threshold 32, block 16, seq 64):
+   selected indices identical, losses within 1e-5, final values within
+   1e-5 relative;
 7. full training: qwen2-1.5b at full width and depth in bf16, NeuroAda
    k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 10
    measured (losses, step time, tokens/s, peak memory, launches per step:
@@ -65,9 +77,16 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    busy share); then the trained adapter is exported and served as a
    tenant beside the base. The same on an int8 and on an NF4 base
    (``fused_linear_q`` in place of ``fused_linear``, the packed base
-   unchanged by every step, peak memory below the bf16 base's);
+   unchanged by every step, peak memory below the bf16 base's). Each
+   run's selection is timed, with its ``topk_select`` launches (7, one a
+   stack; 196 on a packed base, one a layer) and peak memory. Then
+   long-context training: full-width qwen2-1.5b, bf16, k = 1, task ``lm``,
+   batch 1 x seq 4096, 2 + 10 steps as above with 28 ``flash_attention_fwd``
+   launches a step beside the 196 of each training kernel, one profiled
+   step (the flash forward's device time beside the plain backward's);
 8. MoE: reduced olmoe-1b-7b in fp32 trained three steps on the card and
-   on the CPU (losses within 1e-5, values within 1e-4 relative) and served
+   on the CPU (losses within 1e-5, values within 1e-4 relative; again on
+   the flash path, values within 1e-5) and served
    with 2 tenants (greedy tokens identical); then full-width olmoe-1b-7b
    in bf16, random weights from a seed: selection at k = 1 over the
    expert stacks and the untied head, 2 warm-up + 10 measured steps at
@@ -80,7 +99,7 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
-the eleven kernels; the rows of kernels olmoe also runs carry an ``olmoe``
+the thirteen kernels; the rows of kernels olmoe also runs carry an ``olmoe``
 entry (ms, plain ms and bound at olmoe's shapes, launches in its training
 steps or serving gate run). Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
@@ -115,22 +134,28 @@ from repro_torch.data import TASKS, DataLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     ATTENTION,
     COUNTERS,
+    LONG_CONTEXT,
     PACKED_BASE,
+    SELECTION,
     SERVING,
     SINGLE_TENANT,
     TRAINING,
     build,
+    ops,
     reset_counters,
 )
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import dense_decode_attention as dd_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import fused_linear as fl_mod  # noqa: E402
 from repro_torch.kernels import prefill_attention as pre_mod  # noqa: E402
 from repro_torch.kernels import quant_linear as ql_mod  # noqa: E402
 from repro_torch.kernels import sparse_delta as sd_mod  # noqa: E402
+from repro_torch.kernels import topk_select as ts_mod  # noqa: E402
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.attention import flash_attention_bwd  # noqa: E402
 from repro_torch.models.layers import quant_kv_page  # noqa: E402
 from repro_torch.peft import (  # noqa: E402
     export_adapter,
@@ -151,6 +176,14 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash_attention_fwd beyond TOL: its logsumexp is float32 arithmetic on
+# both sides (≈ 9 a row at S 4096), held to 1e-4 absolute in both dtypes;
+# bf16 out is also held as a whole against the plain version in float32 on
+# the same inputs, ||out - exact|| / ||exact||, to at most
+# FLASH_BF16_ROUNDINGS times the control ||bf16(exact) - exact|| / ||exact||
+# (one rounding of the exact output). The kernel rounds twice, p before the
+# p·v product and out, each about the control.
+FLASH_LSE_ATOL, FLASH_BF16_ROUNDINGS = 1e-4, 3.0
 
 # full-width serving shape of qwen2-1.5b (configs/qwen2_1p5b.py)
 SLOTS, MAX_LEN, PAGE, PREFILL_CHUNK, DECODE_CHUNK = 8, 1024, 16, 256, 8
@@ -160,6 +193,16 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_LR = 4, 512, 1, 3e-3
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # the packed bases, with the launchers' default scale block
 PACKED, QUANT_BLOCK = ("int8", "nf4"), 64
+# long-context training: full-width qwen2-1.5b at batch 1 x seq 4096 (inside
+# its published context), every layer's attention at or above the flash
+# threshold (2048). Reduced models reach the flash path at batch 4 x seq 64
+# with the threshold and the backward's block lowered to 32 and 16. (At
+# batch 2 x seq 128 reduced olmoe's values differ card vs CPU by 1.7e-4
+# relative with dense attention and no flash kernel at all — a few expert
+# wgate values whose first gradients nearly vanish — so that batch cannot
+# hold the MoE bound of 1e-4 for any kernel.)
+LONG_BATCH, LONG_SEQ = 1, 4096
+REDUCED_FLASH, REDUCED_FLASH_SHAPE = dict(flash_threshold=32, flash_block=16), (4, 64)
 
 
 def log(msg: str) -> None:
@@ -448,6 +491,8 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     train_kernels(gen, projections, dev, summary, detail, card)
     packed_kernels(gen, projections, dev, summary, detail, card)
     moe_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
+    long_context_kernels(gen, dev, summary, detail, card)
+    selection_kernels(gen, dev, summary, detail, card)
     return summary, detail
 
 
@@ -944,6 +989,202 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
             f"{lib}, bound {b_ms:.4f} by {b_by}) [{card}]")
 
 
+def flash_cost(q, k, causal: bool) -> tuple[float, float]:
+    """q, k and v read once, out and the float32 lse written once; 4·hd
+    flops (q kᵀ and p v) for every (query, key) pair a head sees."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    n = min(sq, skv)
+    pairs = n * (n + 1) // 2 + (sq - n) * skv if causal else sq * skv
+    nbytes = (2 * q.numel() + 2 * b * skv * hkv * hd) * q.element_size() + b * h * sq * 4
+    return nbytes, 4.0 * b * h * hd * pairs
+
+
+def check_flash(name: str, q, k, v, causal: bool, out, lse) -> dict:
+    """``flash_attention_fwd``'s (out, lse) against its plain version on the
+    same inputs: lse to FLASH_LSE_ATOL, bf16 out's relative error to
+    FLASH_BF16_ROUNDINGS roundings, out elementwise to TOL. Every reading is
+    taken before any is held, and a failure names them all."""
+    want, want_lse = fa_mod.flash_attention_fwd_plain(q, k, v, causal=causal)
+    row = {"max_abs_err": max_err(out, want), "lse_max_abs_err": max_err(lse, want_lse)}
+    bounds = {"lse_max_abs_err": FLASH_LSE_ATOL}
+    if q.dtype == torch.bfloat16:
+        exact = fa_mod.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                 causal=causal)[0]
+        norm = float(exact.norm())
+        row["rel_err"] = float((out.float() - exact).norm()) / norm
+        row["rounding"] = float((exact.to(q.dtype).float() - exact).norm()) / norm
+        bounds["rel_err"] = FLASH_BF16_ROUNDINGS * row["rounding"]
+    for key, b in bounds.items():
+        assert row[key] <= b, f"{name}: {key} {row[key]:.3e} > {b:.3e} ({row})"
+    check_close(name, out, want, q.dtype)
+    return row
+
+
+def flash_cases(gen, dev) -> tuple[list, dict]:
+    """``flash_attention_fwd`` against its plain version (``check_flash``):
+    causal and full, bf16 and fp32, hd 16 / 64 / 128, GQA groups 1 and 6,
+    ragged S (130, 2000); then the path shapes, bf16 causal — qwen2-1.5b's
+    (1, 4096, 12/2, 128) and olmoe-1b-7b's (1, 2048, 16/16, 128). Returns
+    every case's readings and, by arch, the path shape's (q, k, v, out,
+    lse, readings)."""
+    def qkv(b, s, h, hkv, hd, dt):
+        return (torch.randn(b, s, n, hd, generator=gen, device=dev).to(dt) for n in (h, hkv, hkv))
+
+    checked, path = [], {}
+    cases = ((1, 130, 4, 4, 16), (1, 130, 6, 1, 16), (2, 2000, 12, 2, 64),
+             (1, 2000, 16, 16, 128), (1, 130, 12, 2, 128))
+    for b, s, h, hkv, hd in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = qkv(b, s, h, hkv, hd, dt)
+            for causal in (True, False):
+                out, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal)
+                name = f"flash_attention_fwd {(b, s, h, hkv, hd)} {dt} causal={causal}"
+                checked.append({"kernel": "flash_attention_fwd", "shape": [b, s, h, hkv, hd],
+                                "dtype": str(dt), "causal": causal,
+                                **check_flash(name, q, k, v, causal, out, lse)})
+    for arch, (b, s, h, hkv, hd) in (("qwen2-1.5b", (LONG_BATCH, LONG_SEQ, 12, 2, 128)),
+                                     (MOE_ARCH, (1, 2048, 16, 16, 128))):
+        cfg = get_config(arch)
+        assert (h, hkv, hd) == (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+        q, k, v = qkv(b, s, h, hkv, hd, torch.bfloat16)
+        out, lse = fa_mod.flash_attention_fwd(q, k, v, causal=True)
+        row = {"kernel": "flash_attention_fwd", "arch": arch, "shape": [b, s, h, hkv, hd],
+               "dtype": "torch.bfloat16", "causal": True,
+               **check_flash(f"flash_attention_fwd {arch}", q, k, v, True, out, lse)}
+        checked.append(row)
+        path[arch] = (q, k, v, out, lse, row)
+    bf16 = [r for r in checked if "rel_err" in r]
+    log(f"[kernels] flash_attention_fwd ok on out and lse at {len(checked)} cases (causal and "
+        f"full, bf16 and fp32, hd 16/64/128, GQA groups 1 and 6, S 130 and 2000, both path "
+        f"shapes): lse max|err| {max(r['lse_max_abs_err'] for r in checked):.3e} (bound "
+        f"{FLASH_LSE_ATOL}); bf16 out relative error at most "
+        f"{max(r['rel_err'] / r['rounding'] for r in bf16):.2f} roundings (bound "
+        f"{FLASH_BF16_ROUNDINGS}), max|err| {max(r['max_abs_err'] for r in bf16):.3e} (2e-2); "
+        f"fp32 out max|err| "
+        f"{max(r['max_abs_err'] for r in checked if r['dtype'] == 'torch.float32'):.3e} (2e-5)")
+    return checked, path
+
+
+def long_context_kernels(gen, dev, summary, detail, card: str) -> None:
+    """``flash_attention_fwd`` held against its plain version (``flash_cases``);
+    at the path shapes timed beside the plain version, the bound and one SDPA
+    call (the port never calls it), and the plain backward
+    (``flash_attention_bwd``, block 512) at qwen2's shape."""
+    checked, path = flash_cases(gen, dev)
+    detail.extend(checked)
+    rows = {}
+    for arch, (q, k, v, out, lse, row) in path.items():
+        cfg = get_config(arch)
+        b, s, h, hkv, hd = row["shape"]
+        row["ms"] = cuda_ms(lambda: fa_mod.flash_attention_fwd(q, k, v, causal=True))
+        row["plain_ms"] = cuda_ms(lambda: fa_mod.flash_attention_fwd_plain(q, k, v, causal=True),
+                                  iters=3)
+        row["bound_ms"], row["bound_by"] = bound(*flash_cost(q, k, True), torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        if arch == "qwen2-1.5b":
+            dout = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+            row["backward_plain_ms"] = cuda_ms(lambda: flash_attention_bwd(
+                q, k, v, out, lse, dout, causal=True, block=cfg.flash_block), iters=3)
+        rows[arch] = row
+        log(f"[kernels] flash_attention_fwd {arch} {(b, s, h, hkv, hd)} bf16 causal: max|err| "
+            f"{row['max_abs_err']:.3e}, relative {row['rel_err']:.3e} "
+            f"({row['rel_err'] / row['rounding']:.2f} roundings), lse {row['lse_max_abs_err']:.3e}; {row['ms']:.4f} ms "
+            f"(plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
+            f"{row['bound_ms']:.4f} by {row['bound_by']})"
+            + (f"; plain backward {row['backward_plain_ms']:.4f} ms"
+               if "backward_plain_ms" in row else "") + f" [{card}]")
+    r, o = rows["qwen2-1.5b"], rows[MOE_ARCH]
+    summary["flash_attention_fwd"] = {
+        "source": fa_mod.SOURCE, "replaces": fa_mod.REPLACES, "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "backward_plain_ms": r["backward_plain_ms"],
+        "shape": f"one layer of qwen2-1.5b: q ({LONG_BATCH}, {LONG_SEQ}, 12, 128), k/v "
+                 f"({LONG_BATCH}, {LONG_SEQ}, 2, 128) bf16, causal",
+        "olmoe": {k: o[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "max_abs_err")},
+    }
+
+
+def weight_stacks(cfg) -> list:
+    """(name, shape) of every stack magnitude selection runs on: the
+    adapted projections' (L[, E], d_in, d_out) leaves and an untied head."""
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
+    dq, dkv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+    e = (cfg.num_experts,) if cfg.num_experts else ()
+    out = [("wq", (L, d, dq)), ("wk", (L, d, dkv)), ("wv", (L, d, dkv)), ("wo", (L, dq, d)),
+           ("wgate", (L, *e, d, f)), ("wup", (L, *e, d, f)), ("wdown", (L, *e, f, d))]
+    if not cfg.tie_embeddings:
+        out.append(("head", (d, cfg.padded_vocab)))
+    return out
+
+
+def selection_kernels(gen, dev, summary, detail, card: str) -> None:
+    """``topk_select`` against its plain version, indices and order
+    exactly: ragged shapes (d_in 100 / 1536 / 8960, d_out 1 / 127 / 50304),
+    k of 1, 2, 7 and 64 and k = d_in on a small matrix, tie-heavy bf16
+    stacks (small integers), in bf16 and fp32; then every stack qwen2-1.5b
+    (7) and olmoe-1b-7b (8: attention, the three expert stacks, the head)
+    select on, bf16 at k = 1, each timed beside the sort, the bound (the
+    stack read once, the indices written once) and one ``torch.topk`` of
+    |w| (whose order among ties may differ; the port never calls it)."""
+    n = 0
+    for b, d_in, d_out, ks in ((1, 100, 1, (1, 2, 7, 64, 100)), (3, 1536, 127, (1, 2, 7, 64)),
+                               (1, 8960, 256, (1, 7, 64)), (2, 1536, 50304, (1, 2))):
+        for dt in (torch.bfloat16, torch.float32):
+            w = torch.randn(b, d_in, d_out, generator=gen, device=dev).to(dt)
+            for kk in ks:
+                got, want = ts_mod.topk_select(w, kk), ts_mod.topk_select_plain(w, kk)
+                assert torch.equal(got, want), f"topk_select {(b, d_in, d_out)} {dt} k={kk}"
+                n += 1
+    for b, d_in, d_out, ks in ((4, 100, 130, (1, 2, 7, 64, 100)), (2, 1536, 256, (1, 7))):
+        w = torch.randint(-3, 4, (b, d_in, d_out), generator=gen, device=dev).to(torch.bfloat16)
+        for kk in ks:
+            assert torch.equal(ts_mod.topk_select(w, kk), ts_mod.topk_select_plain(w, kk)), \
+                f"topk_select ties {(b, d_in, d_out)} k={kk}"
+            n += 1
+    log(f"[kernels] topk_select equal to the sort (indices and order) in {n} ragged and "
+        f"tie-heavy cases (d_in 100/1536/8960, d_out 1/127/50304, k 1/2/7/64/d_in)")
+    totals = {}
+    for arch in ("qwen2-1.5b", MOE_ARCH):
+        acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0}
+        for name, shape in weight_stacks(get_config(arch)):
+            w = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+            got, want = ops.topk_select(w, TRAIN_K), ts_mod.topk_select_plain(w, TRAIN_K)
+            assert torch.equal(got, want), f"topk_select {arch} {name} {shape}"
+            row = {"kernel": "topk_select", "arch": arch, "stack": name, "shape": list(shape),
+                   "k": TRAIN_K, "dtype": "torch.bfloat16", "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: ops.topk_select(w, TRAIN_K)),
+                   "plain_ms": cuda_ms(lambda: ts_mod.topk_select_plain(w, TRAIN_K), iters=1,
+                                       warmup=1),
+                   "library_ms": cuda_ms(lambda: torch.topk(w.abs(), TRAIN_K, dim=-2))}
+            nbytes = w.numel() * w.element_size() + got.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 0.0, torch.bfloat16)
+            detail.append(row)
+            for key in ("ms", "plain_ms", "library_ms"):
+                acc[key] += row[key]
+            acc["bytes"] += nbytes
+            del w, got, want
+        acc["bound_ms"], acc["bound_by"] = bound(acc["bytes"], 0.0, torch.bfloat16)
+        totals[arch] = acc
+        log(f"[kernels] topk_select over {arch}'s {len(weight_stacks(get_config(arch)))} stacks (bf16, "
+            f"k={TRAIN_K}, {acc['bytes'] / 1e9:.2f} GB): {acc['ms']:.4f} ms (plain sort "
+            f"{acc['plain_ms']:.4f}, torch.topk {acc['library_ms']:.4f}, bound "
+            f"{acc['bound_ms']:.4f} by {acc['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+    q, o = totals["qwen2-1.5b"], totals[MOE_ARCH]
+    summary["topk_select"] = {
+        "source": ts_mod.SOURCE, "replaces": ts_mod.REPLACES, "max_abs_err": 0.0,
+        "ms": q["ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+        "bound_by": q["bound_by"], "library_ms": q["library_ms"],
+        "shape": f"qwen2-1.5b's 7 stacks (L = 28) in bf16, k = {TRAIN_K}, one launch each",
+        "olmoe": {k: o[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }
+
+
 def packed_cost(x, qt, k, val, bias) -> tuple[float, float]:
     """x read once, the packed codes and scales read once (never a dense
     weight), idx/val/bias read once, y written once; 2·M·K·N flops of the
@@ -1398,17 +1639,20 @@ BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("fused_linear_q", ("fused_linear_q",)),
            ("fused_linear", ("fused_linear",)),
            ("sparse_delta_dval", ("dval_",)),
+           ("flash_attention_fwd", ("flash_fwd",)),
+           ("topk_select", ("topk_kernel",)),
            ("index ops (index_add_, gathers)", ("index",)),
            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")))
 
 
-def profile_run(run, card: str, tag: str, fname: str) -> tuple[float, int, object]:
+def profile_run(run, card: str, tag: str, fname: str,
+                buckets_out: dict | None = None) -> tuple[float, int, object]:
     """``run`` under ``torch.profiler``: device time by kernel (a table in
-    the output directory's ``fname``), by bucket; returns the device's busy
-    share of the run's wall time, the number of kernels launched and what
-    ``run`` returned. Only the device is traced: nothing here reads the
-    host's op trace, and with 10^5 kernels a run its post-processing takes
-    minutes."""
+    the output directory's ``fname``), by bucket (into ``buckets_out``, in
+    µs, when given); returns the device's busy share of the run's wall time,
+    the number of kernels launched and what ``run`` returned. Only the
+    device is traced: nothing here reads the host's op trace, and with 10^5
+    kernels a run its post-processing takes minutes."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = run()
@@ -1427,6 +1671,8 @@ def profile_run(run, card: str, tag: str, fname: str) -> tuple[float, int, objec
         name = next((n for n, pats in BUCKETS if any(p in key for p in pats)), "other")
         buckets[name] = buckets.get(name, 0.0) + dev(e)
     shares = ", ".join(f"{k} {v / total:.1%}" for k, v in buckets.items() if v)
+    if buckets_out is not None:
+        buckets_out.update(buckets)
     n_launch = sum(e.count for e in rows)
     log(f"[{tag}] device busy {total / wall_us:.1%} of {wall_us / 1e3:.1f} ms wall "
         f"(profiled run; device {total / 1e3:.1f} ms, {n_launch} kernels); device time: "
@@ -1438,10 +1684,11 @@ def profile_run(run, card: str, tag: str, fname: str) -> tuple[float, int, objec
 
 
 def train_run(model, params, pcfg, tcfg, batches):
-    """Train on ``batches`` (numpy) from ``params``; (losses, values)."""
+    """Train on ``batches`` (numpy) from ``params``; (losses, values, the
+    selected indices)."""
     trainer = Trainer(model, get_peft(pcfg), tcfg, params)
     hist = trainer.run(iter(batches))
-    return [h["loss"] for h in hist], trainer.state.trainable
+    return [h["loss"] for h in hist], trainer.state.trainable, trainer.aux
 
 
 def packed_fingerprint(params) -> list:
@@ -1452,26 +1699,39 @@ def packed_fingerprint(params) -> list:
             for _, x in flatten(params) if isinstance(x, QuantizedTensor)]
 
 
-def path_kernels(base: str, cfg) -> tuple[tuple, tuple]:
+def path_kernels(base: str, cfg, long: bool = False) -> tuple[tuple, tuple]:
     """(kernels a training step must launch, kernels it must not) on a base;
     the single-tenant bypass runs only where the model has an untied head
-    or expert stacks to adapt (the MoE family)."""
+    or expert stacks to adapt (the MoE family), the flash forward only at
+    sequence lengths from the flash threshold on (``long``)."""
     moe = bool(cfg.num_experts)
     single = (SINGLE_TENANT, ()) if moe else ((), SINGLE_TENANT)
+    flash = (LONG_CONTEXT, ()) if long else ((), LONG_CONTEXT)
     if base == "bf16":
-        return TRAINING + single[0], PACKED_BASE + single[1]
-    return PACKED_BASE + ("sparse_delta_dval",) + single[0], ("fused_linear",) + single[1]
+        return TRAINING + single[0] + flash[0], PACKED_BASE + single[1] + flash[1]
+    return (PACKED_BASE + ("sparse_delta_dval",) + single[0] + flash[0],
+            ("fused_linear",) + single[1] + flash[1])
 
 
-def step_launches(cfg, base: str) -> dict:
+def step_launches(cfg, base: str, long: bool = False) -> dict:
     """Launches of each path kernel in one training step: every adapted
-    matrix once forward (its kernel) and once backward (dval). Dense: 7
-    projections a layer; MoE: 4 attention projections through fused_linear,
-    3 expert stacks and the untied head through sparse_delta."""
+    matrix once forward (its kernel) and once backward (dval), and at a
+    long sequence one flash forward a layer. Dense: 7 projections a layer;
+    MoE: 4 attention projections through fused_linear, 3 expert stacks and
+    the untied head through sparse_delta."""
     L = cfg.num_layers
+    flash = {"flash_attention_fwd": L} if long else {}
     if cfg.num_experts:
-        return {"fused_linear": 4 * L, "sparse_delta": 3 * L + 1, "sparse_delta_dval": 7 * L + 1}
-    return {n: 7 * L for n in path_kernels(base, cfg)[0]}
+        return {"fused_linear": 4 * L, "sparse_delta": 3 * L + 1, "sparse_delta_dval": 7 * L + 1,
+                **flash}
+    return {n: 7 * L for n in path_kernels(base, cfg)[0]} | flash
+
+
+def select_launches(cfg, base: str) -> int:
+    """``topk_select`` launches of selection: one a stack (7 dense, 8 MoE
+    with its head); a packed stack dequantizes and selects layer by layer."""
+    stacks = len(weight_stacks(cfg))
+    return stacks if base == "bf16" else stacks * cfg.num_layers
 
 
 def trainable_count(cfg, k: int) -> int:
@@ -1489,53 +1749,124 @@ def trainable_count(cfg, k: int) -> int:
 # (relative) move reduced olmoe's values by 3.7e-5 (reduced qwen2's by
 # 9e-7) — a few wgate values whose first gradients nearly vanish take Adam
 # steps of another size (Adam's first step is ±lr whatever the gradient's
-# magnitude). Losses are held to 1e-5 for both.
-VALUE_TOL = {"dense": 1e-5, "moe": 1e-4}
+# magnitude). Losses are held to 1e-5 for both. The flash-path runs (batch 4
+# x seq 64) hold both families to the dense bound: reduced olmoe reads
+# 3.5e-6 there on an H100 (``--reduced-train-distances``).
+VALUE_TOL = {"dense": 1e-5, "moe": 1e-4, "flash": 1e-5}
+# (batch, seq, flash threshold, flash block) of ``--reduced-train-distances``;
+# a threshold above seq keeps every layer on dense attention
+DISTANCE_SHAPES = ((2, 128, 64, 32), (2, 128, 4096, 32), (4, 64, 32, 16), (4, 16, 2048, 512))
 
 
-def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> None:
-    """Reduced ``arch`` in fp32 (fp32 values too), the same params and
-    three batches, trained on the card and on the CPU; on a packed base the
-    params are packed on the CPU and the same bytes move to the card."""
-    cfg = reduced(get_config(arch)).replace(dtype="float32")
+def reduced_train_case(arch: str, base: str, batch: int, seq: int, **cfg_kw):
+    """Reduced ``arch`` in fp32 with ``cfg_kw``, its params made on the CPU
+    from seed 0 (packed to ``base`` unless bf16) and three batches."""
+    cfg = reduced(get_config(arch)).replace(dtype="float32", **cfg_kw)
     model = get_model(cfg)
-    params_cpu = model.init(seed=0, device="cpu")
+    params = model.init(seed=0, device="cpu")
     if base != "bf16":
-        params_cpu = quantize_base(params_cpu, base, block=QUANT_BLOCK)
-    pcfg = PeftConfig(k=2, delta_dtype="float32")
-    tcfg = TrainConfig(steps=3, learning_rate=TRAIN_LR)
-    batches = [TASKS["reasoning"](cfg.vocab_size, 4, 16, 0, i) for i in range(3)]
-    want_loss, want_val = train_run(model, params_cpu, pcfg, tcfg, batches)
-    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.to("cuda"), t)  # noqa: E731
+        params = quantize_base(params, base, block=QUANT_BLOCK)
+    batches = [TASKS["reasoning"](cfg.vocab_size, batch, seq, 0, i) for i in range(3)]
+    return cfg, model, params, batches
+
+
+def reduced_train(model, params, batches, device: str):
+    """Three AdamW steps (k = 2, fp32 values) on ``device``."""
+    params = map_leaves(lambda x: None if x is None else x.to(device), params)
+    return train_run(model, params, PeftConfig(k=2, delta_dtype="float32"),
+                     TrainConfig(steps=3, learning_rate=TRAIN_LR), batches)
+
+
+def value_distance(want, got) -> tuple[float, list]:
+    """||got - want|| / ||want|| over two value trees, and per leaf its path,
+    largest |difference| and share of the squared distance."""
+    leaves = [("/".join(p), a, b.cpu()) for (p, a), (_, b) in zip(flatten(want), flatten(got))
+              if a is not None]
+    sq = [float((b - a).double().square().sum()) for _, a, b in leaves]
+    norm = sum(float(a.double().square().sum()) for _, a, _ in leaves) ** 0.5
+    dist = sum(sq) ** 0.5
+    return dist / norm, [(p, float((b - a).abs().max()), d / dist**2 if dist else 0.0)
+                         for (p, a, b), d in zip(leaves, sq)]
+
+
+def reduced_train_distances(card: str) -> None:
+    """How far reduced training moves card vs CPU at each of
+    DISTANCE_SHAPES, and, on the CPU alone, the flash path against dense
+    attention at the first (the same function in two orders of float32
+    sums): losses, the value tree's relative distance and its share by
+    leaf. Readings only; ``phase_reduced_train`` holds its runs to bounds."""
+    def report(label, a, b):
+        rel, leaves = value_distance(a[1], b[1])
+        log(f"[distances] {label}: losses {[f'{x:.7f}' for x in a[0]]} / "
+            f"{[f'{x:.7f}' for x in b[0]]}; values relative distance {rel:.3e} [{card}]")
+        for path, worst, share in leaves:
+            log(f"[distances]     {path}: max |diff| {worst:.3e}, share {share:.3f}")
+
+    for arch in ("qwen2-1.5b", MOE_ARCH):
+        for batch, seq, threshold, block in DISTANCE_SHAPES:
+            _, model, params, batches = reduced_train_case(
+                arch, "bf16", batch, seq, flash_threshold=threshold, flash_block=block)
+            kind = f"flash (threshold {threshold}, block {block})" if seq >= threshold else "dense"
+            report(f"{arch} batch {batch} x seq {seq}, {kind}, cpu / cuda",
+                   reduced_train(model, params, batches, "cpu"),
+                   reduced_train(model, params, batches, "cuda"))
+        batch, seq, threshold, block = DISTANCE_SHAPES[0]
+        runs = [reduced_train(*reduced_train_case(arch, "bf16", batch, seq, flash_threshold=t,
+                                                  flash_block=block)[1:], "cpu")
+                for t in (threshold, 1 << 20)]
+        report(f"{arch} batch {batch} x seq {seq}, cpu alone: flash / dense", *runs)
+
+
+def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
+                        flash: bool = False) -> None:
+    """Reduced ``arch`` in fp32 (fp32 values too), the same params and
+    three batches, trained on the card and on the CPU: losses, values and
+    the selected indices; on a packed base the params are packed on the CPU
+    and the same bytes move to the card. ``flash`` lowers the flash
+    threshold and block so that every layer's attention at seq 64 takes the
+    flash path (its kernel on the card, its plain version on the CPU)."""
+    batch, seq = REDUCED_FLASH_SHAPE if flash else (4, 16)
+    cfg, model, params, batches = reduced_train_case(arch, base, batch, seq,
+                                                     **(REDUCED_FLASH if flash else {}))
+    want_loss, want_val, want_idx = reduced_train(model, params, batches, "cpu")
     reset_counters()
-    got_loss, got_val = train_run(model, to_cuda(params_cpu), pcfg, tcfg, batches)
-    must, must_not = path_kernels(base, cfg)
+    got_loss, got_val, got_idx = reduced_train(model, params, batches, "cuda")
+    must, must_not = path_kernels(base, cfg, long=flash)
     for name, c in COUNTERS.items():
-        assert name not in must or c.kernel > 0, f"reduced training never launched {name}"
+        assert name not in must + SELECTION or c.kernel > 0, \
+            f"reduced training never launched {name}"
         assert name not in must_not or c.kernel == 0, f"reduced training launched {name}"
         assert c.plain == 0, f"reduced training on the card called plain {name}"
+    assert not flash or COUNTERS["flash_attention_fwd"].kernel == 3 * cfg.num_layers
+    for (p, a), (_, b) in zip(flatten(want_idx), flatten(got_idx)):
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b.cpu())), \
+            f"selected indices of {p} differ card vs cpu"
     for i, (a, b) in enumerate(zip(want_loss, got_loss)):
         assert abs(a - b) <= 1e-5, f"step {i}: loss cpu {a!r} != cuda {b!r}"
     # relative error of the whole value tree: ||cuda - cpu|| / ||cpu||
-    pairs = [(a, b.cpu()) for (_, a), (_, b) in zip(flatten(want_val), flatten(got_val))
-             if a is not None]
-    diff = sum(float((b - a).double().square().sum()) for a, b in pairs) ** 0.5
-    norm = sum(float(a.double().square().sum()) for a, _ in pairs) ** 0.5
-    tol = VALUE_TOL["moe" if cfg.num_experts else "dense"]
-    assert diff <= tol * norm, f"values: ||cuda - cpu|| / ||cpu|| = {diff / norm:.3e} > {tol}"
+    rel = value_distance(want_val, got_val)[0]
+    tol = VALUE_TOL["flash" if flash else "moe" if cfg.num_experts else "dense"]
+    assert rel <= tol, f"values: ||cuda - cpu|| / ||cpu|| = {rel:.3e} > {tol}"
     base_txt = "fp32 base" if base == "bf16" else f"{base} base"
-    log(f"[reduced-train] 3 steps of reduced {arch} fp32, {base_txt}: losses cpu "
+    path = (f", flash path (threshold {cfg.flash_threshold}, block {cfg.flash_block}, seq "
+            f"{seq}: {COUNTERS['flash_attention_fwd'].kernel} flash launches)" if flash else "")
+    log(f"[reduced-train] 3 steps of reduced {arch} fp32, {base_txt}{path}: selected indices "
+        f"identical ({COUNTERS['topk_select'].kernel} topk_select launches); losses cpu "
         f"{[f'{x:.7f}' for x in want_loss]} cuda {[f'{x:.7f}' for x in got_loss]} "
         f"(max |diff| {max(abs(a - b) for a, b in zip(want_loss, got_loss)):.2e}); values "
-        f"||cuda - cpu|| / ||cpu|| = {diff / norm:.2e} [{card}]")
+        f"||cuda - cpu|| / ||cpu|| = {rel:.2e} [{card}]")
 
 
-def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> dict:
+def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
     """Full-width NeuroAda training of ``arch`` on a bf16 base, or on one
     packed to ``base`` (int8, NF4) after init and before selection, as the
-    launcher does; then its adapter served on the same base (for MoE beside
-    two random tenants, with a window run). Returns the measured steps'
-    launches and the step's figures."""
+    launcher does: selection (timed, its launches and peak memory), then
+    ``batch`` x ``seq`` steps; at ``seq`` from the flash threshold on (the
+    long-context run) every layer's attention takes the flash kernel. Then
+    the adapter is served on the same base (for MoE beside two random
+    tenants, with a window run; not after the long-context run). Returns
+    the measured steps' launches, selection's and the step's figures."""
     cfg = get_config(arch)
     model = get_model(cfg)
     params = model.init(seed=0, device="cuda")
@@ -1544,20 +1875,32 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> dict
     base_bytes = tree_bytes(params)
     tcfg = TrainConfig(steps=TRAIN_WARMUP + TRAIN_STEPS + 1, learning_rate=TRAIN_LR)
     moe = bool(cfg.num_experts)
+    long = seq >= cfg.flash_threshold
+    tok = batch * seq
     tag = "train" if base == "bf16" else f"train-{base}"
-    tag = "train-olmoe" if moe else tag
+    tag = "train-olmoe" if moe else "train-long" if long else tag
+    # selection: the Trainer's set-up selects every adapted stack on the card
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters()
     t0 = time.perf_counter()
     trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)), tcfg, params)
     torch.cuda.synchronize()
     select_s = time.perf_counter() - t0
+    select_peak = torch.cuda.max_memory_allocated() - held
+    n_select = COUNTERS["topk_select"].kernel
+    assert all(c.plain == 0 for c in COUNTERS.values()), "selection called a plain version"
+    assert n_select == select_launches(cfg, base), (n_select, select_launches(cfg, base))
     st = stats(params, trainer.state.trainable)
     assert st["trainable"] == trainable_count(cfg, TRAIN_K), st
     log(f"[{tag}] {arch} {base} base ({base_bytes:,} bytes), NeuroAda k={TRAIN_K} "
         f"magnitude: trainable {st['trainable']:,} of {st['total']:,} "
-        f"({100 * st['fraction']:.4f} %), selection {select_s:.2f} s [{card}]")
-    must, must_not = path_kernels(base, cfg)
-    data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        f"({100 * st['fraction']:.4f} %), selection {select_s:.3f} s ({n_select} topk_select "
+        f"launches, peak {select_peak / 2**20:.1f} MiB above the {held / 2**30:.2f} GiB held "
+        f"before it) [{card}]")
+    must, must_not = path_kernels(base, cfg, long)
+    data = DataLoader("lm", cfg.vocab_size, batch, seq, seed=0)
     try:
         for _ in range(TRAIN_WARMUP):
             trainer.step(next(data))
@@ -1567,9 +1910,9 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> dict
         reset_counters()
         times, losses, peak = [], [], 0
         for _ in range(TRAIN_STEPS):
-            batch = next(data)
+            step_batch = next(data)
             t0 = time.perf_counter()
-            m = trainer.step(batch)  # returns floats: waits for the device
+            m = trainer.step(step_batch)  # returns floats: waits for the device
             times.append(time.perf_counter() - t0)
             peak = max(peak, torch.cuda.max_memory_allocated())
             losses.append(m["loss"])
@@ -1585,18 +1928,18 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> dict
             assert c.plain == 0, f"training called the plain version of {name} {c.plain} times"
             assert name not in must_not or c.kernel == 0, f"training launched {name}"
         per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
-        want = step_launches(cfg, base)
+        want = step_launches(cfg, base, long)
         assert per_step == want, (per_step, want)
         assert all(np.isfinite(losses)), losses
         prof = f"{tag.replace('-', '_')}_profile.txt"
+        buckets = {}
         busy, _, _ = profile_run(lambda: trainer.step(next(data)), card, f"{tag}-profile",
-                                 prof)
+                                 prof, buckets)
     finally:
         data.close()
     med = float(np.median(times))
-    tok = TRAIN_BATCH * TRAIN_SEQ
     log(f"[{tag}] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
-    log(f"[{tag}] {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: step time "
+    log(f"[{tag}] {TRAIN_STEPS} steps of batch {batch} x seq {seq}: step time "
         f"median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
         f"{tok / med:.0f} training tokens/s; peak memory {peak / 2**30:.2f} GiB; base "
         f"{base_bytes:,} bytes; launches per step {json.dumps(per_step)}, plain 0; device "
@@ -1604,13 +1947,17 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b") -> dict
     result = {"card": card, "base": base, "base_bytes": base_bytes, "losses": losses,
               "step_s": times, "tokens_per_step": tok, "peak_bytes": peak,
               "launches_per_step": per_step, "busy_share": busy,
-              "trainable": st["trainable"], "fraction": st["fraction"]}
+              "trainable": st["trainable"], "fraction": st["fraction"],
+              "select_s": select_s, "select_launches": n_select,
+              "select_peak_bytes_above_held": select_peak,
+              "profiled_step_device_us_by_bucket": buckets}
     with open(os.path.join(OUT_DIR, f"{tag.replace('-', '_')}.json"), "w") as f:
         json.dump(dict(result, arch=arch), f, indent=1)
-    out = {"launches": launches, "peak": peak, "median_s": med}
+    out = {"launches": launches, "peak": peak, "median_s": med, "select_launches": n_select,
+           "select_s": select_s, "buckets": buckets}
     if moe:
         out["serve_launches"] = serve_moe(model, params, trainer, card)
-    else:
+    elif not long:
         serve_trained(model, params, trainer, card, tag)
     return out
 
@@ -1712,6 +2059,12 @@ def main() -> int:
     log(f"[card] {card}")
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--reduced-train-distances"]:
+        reduced_train_distances(card)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     secs, build_log = build.timed_build()
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
@@ -1742,11 +2095,23 @@ def main() -> int:
     stamp("full serving")
     for base in ("bf16",) + PACKED:
         phase_reduced_train(card, base)
+    phase_reduced_train(card, "bf16", flash=True)
     stamp("reduced training")
     train = {base: phase_train(card, base) for base in ("bf16",) + PACKED}
     stamp("full training")
     torch.cuda.empty_cache()
+    train["long"] = phase_train(card, "bf16", batch=LONG_BATCH, seq=LONG_SEQ)
+    long, fl = train["long"], summary["flash_attention_fwd"]
+    n_flash = long["launches"]["flash_attention_fwd"] // TRAIN_STEPS
+    log(f"[train-long] flash attention a step: forward kernel "
+        f"{long['buckets'].get('flash_attention_fwd', 0.0) / 1e3:.2f} ms of device time in the "
+        f"profiled step ({n_flash} launches; {fl['ms']:.4f} ms a call in the kernel phase), "
+        f"plain backward ≈ {n_flash * fl['backward_plain_ms']:.2f} ms ({n_flash} x "
+        f"{fl['backward_plain_ms']:.4f} ms a layer, timed in the kernel phase) [{card}]")
+    stamp("long-context training")
+    torch.cuda.empty_cache()
     phase_reduced_train(card, "bf16", MOE_ARCH)
+    phase_reduced_train(card, "bf16", MOE_ARCH, flash=True)
     phase_reduced("fp32", arch=MOE_ARCH)
     stamp("reduced olmoe")
     train["olmoe"] = phase_train(card, "bf16", MOE_ARCH)
@@ -1767,7 +2132,14 @@ def main() -> int:
     by_phase.update({f"serve-{b}": n for b, n in packed_serving.items()})
     launches["fused_linear_q"] = sum(by_phase.values())
 
-    olmoe_launches = {**train["olmoe"]["serve_launches"], **train["olmoe"]["launches"]}
+    # this slice's path: the long-context run's measured steps (flash) and
+    # its selection (one topk_select launch a stack)
+    launches["flash_attention_fwd"] = long["launches"]["flash_attention_fwd"]
+    launches["topk_select"] = long["select_launches"]
+    select_by_phase = {("train-" + b if b != "bf16" else "train"): train[b]["select_launches"]
+                       for b in train}
+    olmoe_launches = {**train["olmoe"]["serve_launches"], **train["olmoe"]["launches"],
+                      "topk_select": train["olmoe"]["select_launches"]}
     kernels = []
     for name, s in summary.items():
         row = {
@@ -1780,10 +2152,15 @@ def main() -> int:
         }
         if name == "fused_linear_q":
             row.update(launches_by_phase=by_phase, cases=s["cases"])
+        if name == "flash_attention_fwd":
+            row["backward_plain_ms"] = s["backward_plain_ms"]
+        if name == "topk_select":
+            row["launches_by_phase"] = select_by_phase
         if "olmoe" in s:
             # olmoe's own shapes and launches: the training run's measured
-            # steps for the training kernels, its serving gate run for the rest
-            row.update(olmoe=dict(s["olmoe"], launches=olmoe_launches[name]))
+            # steps for the training kernels (its seq 512 runs no flash), its
+            # selection for topk_select, its serving gate run for the rest
+            row.update(olmoe=dict(s["olmoe"], launches=olmoe_launches.get(name, 0)))
         kernels.append(row)
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -36,9 +36,10 @@ def is_adaptable(name: str, leaf, exclude=DEFAULT_EXCLUDE) -> bool:
 
 
 def _select(w, k: int, strategy: str) -> torch.Tensor:
-    """Top-k indices of a dense or packed matrix. A packed layer stack
-    dequantizes one layer at a time, so selection never holds the whole
-    dense stack."""
+    """Top-k indices of a dense or packed matrix or stack: one selection
+    (one kernel launch) for a dense stack. A packed layer stack dequantizes
+    one layer at a time, so selection never holds the whole dense stack,
+    and selects layer by layer."""
     if not isinstance(w, QuantizedTensor):
         return topk_indices(w, k, strategy=strategy)
     if w.ndim == 2:

@@ -14,24 +14,33 @@ their launch counters.
 | ``sparse_delta_dval`` | ``sparse_delta.py::sparse_delta_dval_pallas`` | ``csrc/sparse_delta_dval.cu`` |
 | ``sparse_delta`` | ``sparse_delta.py::sparse_delta_pallas`` | ``csrc/sparse_delta.cu`` |
 | ``fused_linear_q`` | ``quant_linear.py::fused_linear_q_pallas`` | ``csrc/fused_linear_q.cu`` |
+| ``flash_attention_fwd`` | ``flash_attention.py::flash_attention_fwd_pallas`` (+ ``flash_attention_gqa_pallas``) | ``csrc/flash_attention.cu`` |
+| ``topk_select`` | ``topk_select.py::topk_select_pallas`` | ``csrc/topk_select.cu`` |
 
 ``SERVING`` carries the default paged engine with an fp KV cache; the
 attention bodies of the other cache layouts and dtypes stand in
 ``ATTENTION`` under their ``(paged, kv_dtype)``; ``TRAINING`` carries
 training; ``SINGLE_TENANT`` (``sparse_delta``) joins it where training
-adapts an untied head or expert stacks (the MoE family); ``fused_linear_q`` carries both on a packed (int8 or NF4) base: it
-takes the place of ``fused_linear`` in training and of the plain ``x @ W``
-base matmuls in serving. A wrapper launches its kernel for CUDA tensors and
-uses the plain version for CPU tensors; there is no backend switch.
+adapts an untied head or expert stacks (the MoE family);
+``fused_linear_q`` carries both on a packed (int8 or NF4) base: it takes
+the place of ``fused_linear`` in training and of the plain ``x @ W`` base
+matmuls in serving. ``LONG_CONTEXT`` (``flash_attention_fwd``) joins
+training at sequence lengths from ``cfg.flash_threshold`` on, and
+``SELECTION`` (``topk_select``) runs once per adapted stack when adapters
+are initialised (NeuroAda phase 1). A wrapper launches its kernel for CUDA
+tensors and uses the plain version for CPU tensors; there is no backend
+switch.
 """
 
 from repro_torch.kernels import (
     decode_attention,
     dense_decode_attention,
+    flash_attention,
     fused_linear,
     prefill_attention,
     quant_linear,
     sparse_delta,
+    topk_select,
 )
 
 SERVING = ("sparse_delta_batched", "paged_decode_attention", "paged_prefill_attention")
@@ -47,12 +56,15 @@ ATTENTION = {
 TRAINING = ("fused_linear", "sparse_delta_dval")
 SINGLE_TENANT = ("sparse_delta",)
 PACKED_BASE = ("fused_linear_q",)
+LONG_CONTEXT = ("flash_attention_fwd",)
+SELECTION = ("topk_select",)
 COUNTERS = {c.name: c for c in (sparse_delta.counter, decode_attention.counter,
                                 decode_attention.q_counter, prefill_attention.counter,
                                 prefill_attention.q_counter, dense_decode_attention.counter,
                                 dense_decode_attention.q_counter, fused_linear.counter,
                                 sparse_delta.dval_counter, sparse_delta.delta_counter,
-                                quant_linear.counter)}
+                                quant_linear.counter, flash_attention.counter,
+                                topk_select.counter)}
 
 
 def reset_counters() -> None:
@@ -60,5 +72,5 @@ def reset_counters() -> None:
         c.reset()
 
 
-__all__ = ["ATTENTION", "COUNTERS", "PACKED_BASE", "SERVING", "SINGLE_TENANT", "TRAINING",
-           "reset_counters"]
+__all__ = ["ATTENTION", "COUNTERS", "LONG_CONTEXT", "PACKED_BASE", "SELECTION", "SERVING",
+           "SINGLE_TENANT", "TRAINING", "reset_counters"]

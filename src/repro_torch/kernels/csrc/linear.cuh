@@ -1,25 +1,12 @@
 // The pieces shared by the dense and the packed fused linear kernels
-// (fused_linear.cu, fused_linear_q.cu): the cp.async wrappers, the block
-// tiles, the bf16 x-tile loader and the epilogue that adds the NeuroAda
-// bypass and the bias to an accumulated element.
+// (fused_linear.cu, fused_linear_q.cu): the block tiles, the bf16 x-tile
+// loader and the epilogue that adds the NeuroAda bypass and the bias to an
+// accumulated element. (The cp.async wrappers live in common.cuh.)
 #pragma once
 
 #include "common.cuh"
 
 namespace rt {
-
-// ------------------------------------------------------------ cp.async
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // --------------------------------------------------------------- tiles
 

@@ -8,7 +8,10 @@ backend switch: the tensor's device decides. Offsets and lengths are (B,)
 int32 tensors, as the engine builds them. :func:`delta_apply`,
 :func:`fused_linear` and :func:`fused_linear_q` carry the training
 gradient (the reference's ``custom_vjp``) as ``torch.autograd.Function``
-classes; :func:`matmul_q` is the base matmul of a plain or packed weight.
+classes; :func:`matmul_q` is the base matmul of a plain or packed weight;
+:func:`topk_select` is the selection of NeuroAda's phase 1. (Long-context
+training attention, whose backward is plain PyTorch, is an autograd
+function in ``models.attention`` around ``kernels.flash_attention``.)
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from repro_torch.kernels.decode_attention import paged_decode_attention as _deco
 from repro_torch.kernels.dense_decode_attention import decode_attention as _dense_decode
 from repro_torch.kernels.prefill_attention import paged_prefill_attention as _prefill
 from repro_torch.kernels.sparse_delta import sparse_delta, sparse_delta_batched, sparse_delta_dval
+from repro_torch.kernels.topk_select import topk_select as _topk_select
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize
 
 
@@ -210,3 +214,12 @@ def matmul_q(x, w):
     y = _FusedLinearQ.apply(x2d, w.data, w.scales, None, None, None, w.qdtype, w.block,
                             w.dtype_name)
     return y.reshape(*lead, w.shape[-1])
+
+
+def topk_select(w, k: int):
+    """Per-column top-k of |w| over a stack (..., d_in, d_out) -> (..., k,
+    d_out) int32, by descending |w| with ties to the lower row: one launch
+    for the whole stack, w read in its own dtype."""
+    lead, (d_in, d_out) = w.shape[:-2], w.shape[-2:]
+    idx = _topk_select(w.reshape(-1, d_in, d_out).contiguous(), k)
+    return idx.reshape(*lead, k, d_out)

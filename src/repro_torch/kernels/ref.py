@@ -204,3 +204,43 @@ def paged_prefill_attention_q_ref(q, k_pool, v_pool, k_scale, v_scale, table, q_
     return prefill_attention_ref(q, gather_paged_kv_q(k_pool, k_scale, table),
                                  gather_paged_kv_q(v_pool, v_scale, table), q_offset,
                                  kv_valid_len)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool):
+    """q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd), query head h on kv head
+    ``h // (H // Hkv)`` -> (out (B, Sq, H, hd) in q's dtype, lse (B, H, Sq)
+    float32): the function of the reference's ``_flash_fwd_scan``, in float32
+    — scores scaled by hd^-0.5, causal columns ``j > i`` masked to -1e30
+    with their p set to 0, out = Σ_j p v / max(l, 1e-30), lse = m +
+    log(max(l, 1e-30)). Dense scores, not a scan: the same sums in another
+    order."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * hd**-0.5
+    mask = None
+    if causal:
+        mask = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(skv, device=q.device)[None, :])
+        s = s.masked_fill(~mask, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float()) / den.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(den)).reshape(b, h, sq)
+    return out.reshape(b, sq, h, hd).to(q.dtype), lse
+
+
+def topk_select_ref(w, k: int):
+    """(..., d_in, d_out) -> (..., k, d_out) int32: per column the k rows of
+    largest |w| in float32, by descending |w| with ties to the lower row (a
+    stable sort: ``lax.top_k``'s order). One matrix at a time, so a stack
+    never needs a stack-sized float32 copy or sort."""
+    flat = w.reshape(-1, *w.shape[-2:])
+    out = torch.empty((flat.shape[0], k, w.shape[-1]), dtype=torch.int32, device=w.device)
+    for i in range(flat.shape[0]):
+        order = torch.sort(flat[i].abs().float(), dim=0, descending=True, stable=True).indices
+        out[i] = order[:k].to(torch.int32)
+    return out.reshape(*w.shape[:-2], k, w.shape[-1])

@@ -6,6 +6,13 @@ the bypass values only, adapter export).
       --task lm --steps 200 --batch 4 --seq 512 --k 1 \\
       [--base-dtype int8|nf4 [--quant-block 64]] [--export-adapter tenant.npz]
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b ...
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+      --task lm --batch 1 --seq 4096 --k 1     # long context
+
+Selection (Alg. 1 phase 1) runs one top-k kernel launch per adapted stack.
+At ``--seq`` from the config's ``flash_threshold`` (2048) on, every layer's
+attention runs the flash forward kernel and a FlashAttention-2 backward, on
+both families.
 
 On the MoE family (olmoe-1b-7b) selection covers the expert stacks and the
 untied head (never the router), the loss adds ``router_aux_coef`` × the

@@ -8,8 +8,12 @@ chunk step is no kernel in the reference either: :func:`chunk_attention`
 dequantizes the cache view (cast to q's dtype, as the reference does) and
 runs :func:`dense_attention`.
 
-Training: :func:`dense_attention`, plain PyTorch with a float32 softmax, as
-the reference's training attention is no Pallas kernel.
+Training: :func:`train_attention` takes :func:`dense_attention` (plain
+PyTorch with a float32 softmax) below ``cfg.flash_threshold`` and
+:func:`flash_attention` at or above it, as the reference does. The flash
+forward is the hand-written kernel (its plain version on the CPU); its
+backward is the reference's FlashAttention-2 scan (``_flash_core_bwd``) in
+plain PyTorch, as the reference leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 _MASKED = -1e30
 
@@ -50,16 +55,89 @@ def dense_attention(q, k, v, *, causal: bool, q_offset=None, kv_valid_len=None):
     return out.reshape(b, sq, h, hd)
 
 
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool, block: int):
+    """The reference's ``_flash_core_bwd`` in plain PyTorch: per KV block of
+    ``block`` keys, p recomputed from the forward's ``lse`` and dq, dk, dv
+    formed in float32 — O(S·block) memory, never S². Returns dq in q's
+    dtype, dk and dv in k's and v's. ``delta = Σ dout·out`` reads ``out`` in
+    q's dtype (the reference keeps the scan's float32 out: the same in
+    float32). The same sums in another order: q is scaled by hd^-0.5 once
+    (so s needs no scaling pass and dk none after), only p is masked (a
+    masked p is 0 either way), and query rows before a causal block's first
+    key, which see none of it, are skipped."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = hd**-0.5
+
+    def grouped(t):  # (B, S, H, hd) -> (B, Hkv, G, S, hd) float32
+        return t.reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4).float()
+
+    qs_all, do = grouped(q) * scale, grouped(dout)
+    delta = (do * grouped(out)).sum(dim=-1)  # (B, Hkv, G, Sq)
+    lse = lse.reshape(b, hkv, g, sq)
+    dq = torch.zeros_like(qs_all)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    qpos = torch.arange(sq, device=q.device)
+    for start in range(0, skv, block):
+        kb = k[:, start:start + block].float()
+        vb = v[:, start:start + block].float()
+        r0 = min(start, sq) if causal else 0
+        qs, dos = qs_all[..., r0:, :], do[..., r0:, :]
+        p = torch.exp(torch.einsum("bkgqh,bskh->bkgqs", qs, kb) - lse[..., r0:, None])
+        if causal:
+            p.masked_fill_(qpos[r0:, None] < torch.arange(start, start + kb.shape[1],
+                                                          device=q.device)[None, :], 0.0)
+        # dv and dk per query head, the groups summed after: B·H products of
+        # (block, hd), not B·Hkv with a (group x rows)-long contraction
+        dv[:, start:start + block] = torch.einsum(
+            "bkgqs,bkgqh->bkgsh", p, dos).sum(dim=2).transpose(1, 2).to(v.dtype)
+        ds = torch.einsum("bkgqh,bskh->bkgqs", dos, vb).sub_(delta[..., r0:, None]).mul_(p)
+        dq[..., r0:, :] += torch.einsum("bkgqs,bskh->bkgqh", ds, kb)
+        dk[:, start:start + block] = torch.einsum(
+            "bkgqs,bkgqh->bkgsh", ds, qs).sum(dim=2).transpose(1, 2).to(k.dtype)
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return dq.to(q.dtype), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash kernel (out and the row logsumexp). Backward:
+    :func:`flash_attention_bwd`, the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.block = causal, block
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                                         block=ctx.block)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool, block: int):
+    """Online-softmax attention with a flash backward (port of the
+    reference's ``flash_attention`` at ``q_offset`` 0): q (B, Sq, H, hd), k/v
+    (B, Skv, Hkv, hd) -> (B, Sq, H, hd) in q's dtype, differentiable in q, k
+    and v. Like the reference it refuses an Skv that ``block`` does not
+    divide (the backward's KV blocks)."""
+    skv = k.shape[1]
+    if skv % block:
+        raise ValueError(f"Skv={skv} must be a multiple of block={block}")
+    return _FlashAttention.apply(q, k, v, causal, block)
+
+
 def train_attention(q, k, v, cfg):
-    """Causal self-attention of a training forward. The reference takes
-    :func:`dense_attention` below ``cfg.flash_threshold`` and a flash scan
-    with its own backward at or above it; the scan is not ported yet."""
+    """Causal self-attention of a training forward: :func:`dense_attention`
+    below ``cfg.flash_threshold``, :func:`flash_attention` with
+    ``cfg.flash_block`` at or above it (the reference's dispatch)."""
     if k.shape[1] >= cfg.flash_threshold:
-        raise NotImplementedError(
-            f"training at sequence length {k.shape[1]} >= flash_threshold "
-            f"{cfg.flash_threshold} needs the flash scan with its custom backward, "
-            "which the port does not have yet (ROADMAP.md §1, 'flash attention for "
-            "training')")
+        return flash_attention(q, k, v, causal=True, block=cfg.flash_block)
     return dense_attention(q, k, v, causal=True)
 
 

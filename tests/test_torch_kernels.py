@@ -35,7 +35,9 @@ from repro_torch.convert import to_tensor
 from repro_torch.kernels import (
     ATTENTION,
     COUNTERS,
+    LONG_CONTEXT,
     PACKED_BASE,
+    SELECTION,
     SERVING,
     SINGLE_TENANT,
     TRAINING,
@@ -415,7 +417,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     assert (COUNTERS["fused_linear"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
     attention = {name for names in ATTENTION.values() for name in names}
     assert set(COUNTERS) == (set(SERVING) | attention | set(TRAINING) | set(SINGLE_TENANT)
-                             | set(PACKED_BASE))
+                             | set(PACKED_BASE) | set(LONG_CONTEXT) | set(SELECTION))
     reset_counters()
     assert all(c.plain == c.kernel == 0 for c in COUNTERS.values())
 

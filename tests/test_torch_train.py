@@ -33,6 +33,7 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.convert import tree_to_torch
 from repro_torch.core.adapt import zip_adapters
 from repro_torch.data import TASKS, DataLoader, peek_batch
+from repro_torch.kernels import COUNTERS, reset_counters
 from repro_torch.launch import train as launch
 from repro_torch.models import get_model
 from repro_torch.optim import adamw, get_schedule
@@ -108,14 +109,25 @@ def test_loss_masks_vocab_padding_and_weights_positions():
 
 
 def test_attention_at_the_flash_threshold_raises(world):
-    from repro_torch.models.attention import train_attention
+    """The threshold no longer raises: at ``Skv >= flash_threshold`` training
+    attention dispatches to ``flash_attention`` (one flash forward, which
+    agrees with ``dense_attention``), below it to ``dense_attention``; a
+    ragged Skv at the threshold raises the reference's ``ValueError``."""
+    from repro_torch.models.attention import dense_attention, train_attention
 
-    cfg = world["tm"].cfg.replace(flash_threshold=8)
-    q = torch.zeros(1, 8, 4, 16)
-    kv = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="flash"):
-        train_attention(q, kv, kv, cfg)
-    assert train_attention(q[:, :7], kv[:, :7], kv[:, :7], cfg).shape == (1, 7, 4, 16)
+    cfg = world["tm"].cfg.replace(flash_threshold=8, flash_block=4)
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 4, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 8, 2, 16)).astype(np.float32))
+            for _ in range(2))
+    reset_counters()
+    got = train_attention(q, k, v, cfg)
+    assert COUNTERS["flash_attention_fwd"].plain == 1
+    torch.testing.assert_close(got, dense_attention(q, k, v, causal=True), atol=2e-6, rtol=2e-6)
+    assert train_attention(q[:, :7], k[:, :7], v[:, :7], cfg).shape == (1, 7, 4, 16)
+    assert COUNTERS["flash_attention_fwd"].plain == 1
+    with pytest.raises(ValueError, match="multiple of block"):
+        train_attention(q, k, v, cfg.replace(flash_block=3))
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
@@ -257,7 +269,7 @@ def test_launcher_needs_cuda_unless_asked_for_cpu(monkeypatch):
 @pytest.mark.parametrize("argv,err", [
     (["--peft", "lora"], NotImplementedError),
     (["--strategy", "random"], NotImplementedError),
-    (["--batch", "1", "--seq", "2048"], NotImplementedError),  # flash scan
+    (["--strategy", "gradient"], NotImplementedError),
     (["--remat", "full"], NotImplementedError),
     (["--ckpt", "/nonexistent/run"], NotImplementedError),
     (["--resume"], NotImplementedError),
