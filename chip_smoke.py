@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --reduced-train-distances
+    python3 chip_smoke.py --decode-row-variants
 
 The second form only prints how far reduced training moves card vs CPU at
-a few batch shapes (the readings behind the reduced runs' bounds).
+a few batch shapes (the readings behind the reduced runs' bounds); the
+third only times the decode-row ``fused_linear_q`` with one part of its
+source removed at a time (where its time goes).
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile the hand-written CUDA kernels from the nine sources in
-   ``src/repro_torch/kernels/csrc`` (timed; thirteen entry points);
+   ``src/repro_torch/kernels/csrc`` (timed; fourteen C entry points for
+   the thirteen kernels);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
@@ -21,9 +25,14 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    Smax, an fp Smax of 1000), ``fused_linear`` and ``sparse_delta_dval`` on ragged shapes
    (row, column and K tails) and at every projection of a training step
    (M = 4 x 512 rows; wdown's K = 8960 included), ``fused_linear_q`` (int8
-   and NF4) on ragged shapes (scale blocks 2-128 crossing K tiles, k 0-3)
-   and at every projection at M = 2048 (training, bypass k = 1) and M = 8
-   (decode rows, no bypass); ``sparse_delta`` and the batched
+   and NF4) on ragged shapes (scale blocks 2-128 crossing K tiles, k 0-3),
+   at the decode rows (M 1/3/8/16 on the split-K kernel, K 78-8960, two
+   bf16 calls identical bit for bit) and at every projection at M = 2048
+   (training, bypass k = 1) and M = 8 (decode rows, no bypass); the paged
+   prefill's bf16 output (both bodies) also as a whole, within three bf16
+   roundings of the plain version in float32, at the path shapes and at
+   edge cases (offsets off the page, stalled and idle slots, GQA groups 1,
+   4 and 6, hd 16-128); ``sparse_delta`` and the batched
    ``sparse_delta_dval`` on ragged shapes (B 1, 3 and 64) and at the
    olmoe-1b-7b training shapes (three expert linears over (64, 320, ·)
    buffers, the untied head over 2048 rows; dval's 2-D call equal to its
@@ -58,7 +67,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    served twice, for the median and spread of tokens/s; then the
    same tenants, prompts and settings on an int8 and on an NF4 base
    (``ServeEngine(base_dtype=...)``): the gate run (every base matmul
-   through ``fused_linear_q``, 7 a layer-forward) and one window run;
+   through ``fused_linear_q``, 7 a layer-forward, decode steps on the
+   split-K kernel), its profile and one window run;
    between them, the same tenants, prompts and settings on the paged pool
    with int8 KV and on the dense slot cache with bf16 and int8 KV: the
    gate run (its attention kernels launched and no other, pool bytes as
@@ -182,7 +192,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the same inputs, ||out - exact|| / ||exact||, to at most
 # FLASH_BF16_ROUNDINGS times the control ||bf16(exact) - exact|| / ||exact||
 # (one rounding of the exact output). The kernel rounds twice, p before the
-# p·v product and out, each about the control.
+# p·v product and out, each about the control. The bf16 paged prefill
+# (both bodies) is held the same way (check_prefill).
 FLASH_LSE_ATOL, FLASH_BF16_ROUNDINGS = 1e-4, 3.0
 
 # full-width serving shape of qwen2-1.5b (configs/qwen2_1p5b.py)
@@ -295,13 +306,14 @@ def delta_cost(x, idx, val, aid, d_out) -> tuple[float, float]:
 
 
 def paged_case(gen, q_off, q_len, c, dtype, dev, num_blocks, share_pages=3,
-               arch="qwen2-1.5b"):
-    """q (B, c, H, hd) of ``arch`` (12 and 128 for qwen2-1.5b) against a
-    pool of ``num_blocks`` pages through a table with ragged frontiers
-    ``q_off + q_len``; slots 0 and 1 share their leading pages, pages past
-    each frontier hold the sentinel ``num_blocks``."""
+               arch="qwen2-1.5b", heads=None):
+    """q (B, c, H, hd) of ``arch`` (12 and 128 for qwen2-1.5b; or ``heads``
+    = (H, Hkv, hd)) against a pool of ``num_blocks`` pages through a table
+    with ragged frontiers ``q_off + q_len``; slots 0 and 1 share their
+    leading pages, pages past each frontier hold the sentinel
+    ``num_blocks``."""
     cfg = get_config(arch)
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    h, hkv, hd = heads or (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
     b = len(q_off)
     n_pages = -(-MAX_LEN // PAGE)
     q_off = torch.tensor(q_off, dtype=torch.int32, device=dev)
@@ -352,6 +364,40 @@ def decode_cost(q, kp, table, vl) -> tuple[float, float]:
 def prefill_cost(q, kp, table, qoff, vl, mask) -> tuple[float, float]:
     return (attention_bytes(q, kp, table, vl, int(mask[:, 0].any(-1).sum()), 2),
             4.0 * float(mask[:, 0].sum()) * q.shape[2] * q.shape[3])
+
+
+def rel_to_exact(out, exact) -> dict:
+    """bf16 ``out`` against the float32 ``exact`` as a whole: its relative
+    error ||out - exact|| / ||exact||, and the control ||bf16(exact) -
+    exact|| / ||exact||, one rounding of the exact result."""
+    norm = float(exact.norm())
+    return {"rel_err": float((out.float() - exact).norm()) / norm,
+            "rounding": float((exact.to(out.dtype).float() - exact).norm()) / norm}
+
+
+def check_prefill(name: str, q, kp, vp, table, qoff, vl, ks=None, vs=None) -> dict:
+    """``paged_prefill_attention`` (the int8 body with ``ks``/``vs``) against
+    its plain version on the same inputs, every row compared (pad rows of
+    short chunks and stalled slots included): elementwise to TOL, and bf16
+    also as a whole, at most FLASH_BF16_ROUNDINGS roundings from the plain
+    version in float32 (the kernel rounds p to bf16 for p·v and the output,
+    each about one rounding; an elementwise 2e-2 would pass a wrong row
+    sum). Idle slots give zeros. Returns the readings."""
+    extra = (table, qoff, vl) + ((ks, vs) if ks is not None else ())
+    got = pre_mod.paged_prefill_attention(q, kp, vp, *extra)
+    want = pre_mod.paged_prefill_attention_plain(q, kp, vp, *extra)
+    torch.cuda.synchronize()
+    row = {"max_abs_err": max_err(got, want)}
+    if q.dtype == torch.bfloat16:
+        pools = (kp, vp) if ks is not None else (kp.float(), vp.float())  # int8 codes stay
+        exact = pre_mod.paged_prefill_attention_plain(q.float(), *pools, *extra)
+        row.update(rel_to_exact(got, exact))
+        bound_rel = FLASH_BF16_ROUNDINGS * row["rounding"]
+        assert row["rel_err"] <= bound_rel, f"{name}: rel_err {row['rel_err']:.3e} > {bound_rel:.3e}"
+    check_close(name, got, want, q.dtype)
+    for s in (vl == 0).nonzero().flatten().tolist():
+        assert float(got[s].float().abs().max()) == 0.0, f"{name}: idle slot {s} must give zeros"
+    return row
 
 
 def sdpa_yardstick(q, kp, vp, table, mask):
@@ -459,13 +505,10 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     for dt in (torch.bfloat16, torch.float32):
         q, kp, vp, table, qoff, vl = paged_case(gen, pre_off, pre_len, PREFILL_CHUNK, dt,
                                                 dev, num_blocks)
-        got = pre_mod.paged_prefill_attention(q, kp, vp, table, qoff, vl)
-        want = pre_mod.paged_prefill_attention_plain(q, kp, vp, table, qoff, vl)
-        torch.cuda.synchronize()
-        err = check_close("paged_prefill_attention", got, want, dt)
-        assert float(got[3].float().abs().max()) == 0.0, "idle slot must give zeros"
+        readings = check_prefill("paged_prefill_attention", q, kp, vp, table, qoff, vl)
+        err = readings["max_abs_err"]
         row = {"kernel": "paged_prefill_attention", "dtype": str(dt), "q_offset": pre_off,
-               "q_len": pre_len, "max_abs_err": err}
+               "q_len": pre_len, **readings}
         if dt == torch.bfloat16:
             row["ms"] = cuda_ms(
                 lambda: pre_mod.paged_prefill_attention(q, kp, vp, table, qoff, vl))
@@ -487,6 +530,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     log(f"[kernels] paged_prefill_attention ok: max|err| bf16 {r['max_abs_err']:.3e}, "
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa {r['library_ms']:.4f}, "
         f"bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
+    detail.extend(prefill_cases(gen, dev, num_blocks))
     kv_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     train_kernels(gen, projections, dev, summary, detail, card)
     packed_kernels(gen, projections, dev, summary, detail, card)
@@ -494,6 +538,45 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     long_context_kernels(gen, dev, summary, detail, card)
     selection_kernels(gen, dev, summary, detail, card)
     return summary, detail
+
+
+# the paged prefill's edge cases beside the path shape: chunk offsets off the
+# page (the diagonal tile crosses pages), frontiers mid-page, a stalled
+# slot (q_len 0, frontier > 0), idle slots, a chunk ending at the cache's
+# last row; GQA groups 6 (qwen2-1.5b), 1 (olmoe-1b-7b) and 4 at hd 64 and 16
+PREFILL_EDGE = ([5, 33, 1000, 0, 300, 16, 0, 767], [200, 17, 23, 0, 0, 256, 0, 1])
+PREFILL_HEADS = ((12, 2, 128), (16, 16, 128), (8, 2, 64), (4, 1, 16))
+
+
+def prefill_cases(gen, dev, num_blocks) -> list:
+    """``check_prefill`` on the edge cases at every head layout of
+    PREFILL_HEADS, bf16 and fp32, fp and int8 pools (one int8 page all
+    zero: scale 0)."""
+    q_off, q_len = PREFILL_EDGE
+    rows = []
+    for heads in PREFILL_HEADS:
+        hkv, hd = heads[1], heads[2]
+        for dt in (torch.bfloat16, torch.float32):
+            q, kp, vp, table, qoff, vl = paged_case(gen, q_off, q_len, PREFILL_CHUNK, dt, dev,
+                                                    num_blocks, heads=heads)
+            name = f"paged_prefill_attention {heads} {dt}"
+            readings = check_prefill(name, q, kp, vp, table, qoff, vl)
+            rows.append({"kernel": "paged_prefill_attention", "case": "edge", "heads": heads,
+                         "dtype": str(dt), **readings})
+            kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev, zero_group=int(table[0, 2]))
+            vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev, zero_group=int(table[0, 2]))
+            readings = check_prefill(name.replace("attention", "attention_q"), q, kc, vc,
+                                        table, qoff, vl, ks, vs)
+            rows.append({"kernel": "paged_prefill_attention_q", "case": "edge", "heads": heads,
+                         "dtype": str(dt), **readings})
+    bf16 = [r for r in rows if "rel_err" in r]
+    log(f"[kernels] paged_prefill_attention (fp and int8 pools) ok at {len(rows)} edge cases "
+        f"(q_offset {q_off}, q_len {q_len}; heads/kv heads/hd {list(PREFILL_HEADS)}; bf16 and "
+        f"fp32): bf16 relative error at most "
+        f"{max(r['rel_err'] / r['rounding'] for r in bf16):.2f} roundings (bound "
+        f"{FLASH_BF16_ROUNDINGS}), max|err| {max(r['max_abs_err'] for r in bf16):.3e} (2e-2); "
+        f"fp32 max|err| {max(r['max_abs_err'] for r in rows if 'rel_err' not in r):.3e} (2e-5)")
+    return rows
 
 
 def quantized(gen, shape, dev, zero_group=None):
@@ -504,6 +587,24 @@ def quantized(gen, shape, dev, zero_group=None):
     if zero_group is not None:
         x[zero_group] = 0.0
     return quant_kv_page(x)
+
+
+def int8_attention_cost(q, hkv, table, vl, n_vis: float, q_rows: int,
+                        n_lengths: int) -> tuple[float, float]:
+    """Bytes and flops of a paged attention over int8 pools on this data:
+    the ``q_rows`` query positions that see a column, one code byte of k and
+    of v at each distinct pool position below a frontier, the two scales of
+    each distinct page, the table entries up to each frontier, the
+    ``n_lengths`` (B,) int32 vectors, the output written once; 4·hd flops
+    for each of the ``n_vis`` visible (row, column) pairs a head."""
+    h, hd, es = q.shape[2], q.shape[3], q.element_size()
+    tab, lens = table.cpu().tolist(), vl.cpu().tolist()
+    positions = {(tab[s][t // PAGE], t % PAGE) for s, n in enumerate(lens) for t in range(n)}
+    pages = {tab[s][t // PAGE] for s, n in enumerate(lens) for t in range(n)}
+    nbytes = (q_rows * h * hd * es + 2 * len(positions) * hkv * hd + 2 * len(pages) * hkv * 4
+              + 4 * sum(-(-n // PAGE) for n in lens) + n_lengths * 4 * q.shape[0]
+              + q.numel() * es)
+    return nbytes, 4.0 * n_vis * h * hd
 
 
 def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pre_off,
@@ -518,12 +619,6 @@ def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pr
     has SDPA's on the head-expanded cache."""
     cfg = get_config("qwen2-1.5b")
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-
-    def visible(table, vl):
-        tab, lens = table.cpu().tolist(), vl.cpu().tolist()
-        positions = {(tab[s][t // PAGE], t % PAGE) for s, n in enumerate(lens) for t in range(n)}
-        pages = {tab[s][t // PAGE] for s, n in enumerate(lens) for t in range(n)}
-        return len(positions), len(pages), 4 * sum(-(-n // PAGE) for n in lens)
 
     # -- paged decode and prefill, int8 pools
     for kind, (q_off, q_len, c) in (("decode", ([0] * SLOTS, dec_vl, 1)),
@@ -540,17 +635,19 @@ def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pr
             else:
                 args = (q, kc, vc, table, qoff, vl, ks, vs)
                 fn, plain = mod.paged_prefill_attention, mod.paged_prefill_attention_plain
-            got, want = fn(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = check_close(name, got, want, dt)
-            idle = 5 if kind == "decode" else 3
-            assert float(got[idle].float().abs().max()) == 0.0, "idle slot must give zeros"
+            if kind == "decode":
+                got, want = fn(*args), plain(*args)
+                torch.cuda.synchronize()
+                readings = {"max_abs_err": check_close(name, got, want, dt)}
+                assert float(got[5].float().abs().max()) == 0.0, "idle slot must give zeros"
+            else:
+                readings = check_prefill(name, *args)
+            err = readings["max_abs_err"]
             row = {"kernel": name, "dtype": str(dt), "q_offset": q_off, "q_len": q_len,
-                   "max_abs_err": err}
+                   **readings}
             if dt == torch.bfloat16:
                 row["ms"] = cuda_ms(lambda: fn(*args))
                 row["plain_ms"] = cuda_ms(lambda: plain(*args), iters=3)
-                n_pos, n_pages, idx_bytes = visible(table, vl)
                 if kind == "decode":
                     n_vis = float(vl.sum())
                     q_rows = int((vl > 0).sum())
@@ -560,11 +657,8 @@ def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pr
                     mask = (col <= qpos) & (col < vl[:, None, None])
                     n_vis = float(mask.sum())
                     q_rows = int(mask.any(-1).sum())
-                nbytes = (q_rows * h * hd * q.element_size() + 2 * n_pos * hkv * hd
-                          + 2 * n_pages * hkv * 4 + idx_bytes
-                          + (1 if kind == "decode" else 2) * 4 * q.shape[0]
-                          + q.numel() * q.element_size())
-                row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * n_vis * h * hd, dt)
+                row["bound_ms"], row["bound_by"] = bound(*int8_attention_cost(
+                    q, hkv, table, vl, n_vis, q_rows, 1 if kind == "decode" else 2), dt)
                 summary[name] = dict(
                     source=mod.SOURCE, replaces=mod.Q_REPLACES, max_abs_err=err, ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -802,18 +896,22 @@ def moe_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, p
     #    their bound, in bf16 into the kernel's "olmoe" entry)
     out = {}
 
-    def timed(kernel, tag, fn, plain, dt, cost):
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        row = {"kernel": kernel, "arch": MOE_ARCH, "case": tag, "dtype": str(dt),
-               "max_abs_err": check_close(f"{kernel} olmoe {tag}", got, want, dt)}
+    def timed(kernel, tag, fn, plain, dt, cost, check=None, lib=None):
+        if check is None:
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            readings = {"max_abs_err": check_close(f"{kernel} olmoe {tag}", got, want, dt)}
+        else:
+            readings = check()
+        row = {"kernel": kernel, "arch": MOE_ARCH, "case": tag, "dtype": str(dt), **readings}
         if dt == torch.bfloat16:
             row["ms"] = cuda_ms(fn)
             row["plain_ms"] = cuda_ms(plain, iters=3)
             row["bound_ms"], row["bound_by"] = bound(*cost(), dt)
+            row["library_ms"] = cuda_ms(lib) if lib is not None else None
             out[kernel] = row
             summary[kernel]["olmoe"] = {key: row[key] for key in (
-                "case", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
         detail.append(row)
 
     for dt in (torch.bfloat16, torch.float32):
@@ -826,11 +924,27 @@ def moe_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, p
             lambda: decode_cost(q, kp, table, vl))
         q, kp, vp, table, qoff, vl = paged_case(gen, pre_off, pre_len, PREFILL_CHUNK, dt, dev,
                                                 num_blocks, arch=MOE_ARCH)
+        mask = prefill_mask(qoff, vl, table, dev)
         timed(
             "paged_prefill_attention", "q (8,256,16,128), group 1",
             lambda: pre_mod.paged_prefill_attention(q, kp, vp, table, qoff, vl),
             lambda: pre_mod.paged_prefill_attention_plain(q, kp, vp, table, qoff, vl), dt,
-            lambda: prefill_cost(q, kp, table, qoff, vl, prefill_mask(qoff, vl, table, dev)))
+            lambda: prefill_cost(q, kp, table, qoff, vl, mask),
+            check=lambda: check_prefill("paged_prefill_attention olmoe", q, kp, vp, table,
+                                        qoff, vl),
+            lib=sdpa_yardstick(q, kp, vp, table, mask))
+        # the int8 body at olmoe's heads (a kernel case: olmoe serves fp KV)
+        hkv, hd = kp.shape[2], kp.shape[3]
+        kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev, zero_group=int(table[4, 1]))
+        vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
+        qargs = (q, kc, vc, table, qoff, vl, ks, vs)
+        timed(
+            "paged_prefill_attention_q", "q (8,256,16,128), group 1, int8 pools",
+            lambda: pre_mod.paged_prefill_attention(*qargs),
+            lambda: pre_mod.paged_prefill_attention_plain(*qargs), dt,
+            lambda: int8_attention_cost(q, hkv, table, vl, float(mask.sum()),
+                                        int(mask[:, 0].any(-1).sum()), 2),
+            check=lambda: check_prefill("paged_prefill_attention_q olmoe", *qargs))
         x = torch.randn(m_tok, d, generator=gen, device=dev).to(dt)
         w = (torch.randn(d, d, generator=gen, device=dev) * d**-0.5).to(dt)
         idx = torch.randint(0, d, (TRAIN_K, d), generator=gen, device=dev, dtype=torch.int32)
@@ -1011,9 +1125,7 @@ def check_flash(name: str, q, k, v, causal: bool, out, lse) -> dict:
     if q.dtype == torch.bfloat16:
         exact = fa_mod.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
                                                  causal=causal)[0]
-        norm = float(exact.norm())
-        row["rel_err"] = float((out.float() - exact).norm()) / norm
-        row["rounding"] = float((exact.to(q.dtype).float() - exact).norm()) / norm
+        row.update(rel_to_exact(out, exact))
         bounds["rel_err"] = FLASH_BF16_ROUNDINGS * row["rounding"]
     for key, b in bounds.items():
         assert row[key] <= b, f"{name}: {key} {row[key]:.3e} > {b:.3e} ({row})"
@@ -1200,6 +1312,53 @@ def packed_cost(x, qt, k, val, bias) -> tuple[float, float]:
     return nbytes, 2.0 * m * kd * n + 2.0 * m * k * n
 
 
+# decode rows of fused_linear_q (the split-K kernel below ql_mod.SKINNY_ROWS):
+# (M, K, N, k, block), every M, K, N, block and k of the ragged set at least
+# once; K 4500 and 8960 split in several chunks, blocks 2 and 6 cross steps
+SKINNY_CASES = ((1, 78, 48, 0, 2), (3, 4500, 129, 3, 6), (8, 8960, 256, 1, 64),
+                (16, 4500, 520, 2, 128), (8, 78, 129, 2, 6), (16, 8960, 48, 0, 2),
+                (1, 4500, 520, 1, 64), (3, 8960, 256, 0, 128))
+
+
+def skinny_cases(gen, dev) -> None:
+    """``fused_linear_q`` at decode rows against its plain version: every
+    case of SKINNY_CASES, int8 and NF4, bf16 (the split-K kernel, and a
+    second call identical bit for bit: the K chunks sum in a fixed order)
+    and fp32, bias and none, both value dtypes."""
+    counter = COUNTERS["fused_linear_q"]
+    counter.reset()
+    n_bf16 = 0
+    for rm, rk, rn, kk, block in SKINNY_CASES:
+        for qd in PACKED:
+            for dt in (torch.bfloat16, torch.float32):
+                w = torch.randn(rk, rn, generator=gen, device=dev) * rk**-0.5
+                qt = quantize(w.to(dt), qd, block)
+                x = torch.randn(rm, rk, generator=gen, device=dev).to(dt)
+                b = torch.randn(rn, generator=gen, device=dev).to(dt)
+                idx = torch.randint(0, rk, (kk, rn), generator=gen, device=dev,
+                                    dtype=torch.int32) if kk else None
+                for vdt in (torch.bfloat16, torch.float32):
+                    val = (torch.randn(kk, rn, generator=gen, device=dev) * 0.05).to(vdt) \
+                        if kk else None
+                    for bias in (b, None):
+                        args = (x, qt.data, qt.scales, idx, val, bias)
+                        got = ql_mod.fused_linear_q(*args, qdtype=qd, block=block)
+                        want = ql_mod.fused_linear_q_plain(*args, qdtype=qd, block=block)
+                        torch.cuda.synchronize()
+                        name = (f"fused_linear_q {qd} decode rows M={rm} K={rk} N={rn} k={kk} "
+                                f"block={block} {dt}")
+                        check_close(name, got, want, dt)
+                        if dt == torch.bfloat16:
+                            again = ql_mod.fused_linear_q(*args, qdtype=qd, block=block)
+                            assert torch.equal(got, again), f"{name}: two calls differ"
+                            n_bf16 += 2
+    assert counter.routes.get("skinny", 0) == n_bf16 and counter.plain == len(SKINNY_CASES) * 16, \
+        counter
+    log(f"[kernels] fused_linear_q decode rows ok (split-K kernel, {n_bf16} bf16 launches; M "
+        f"1/3/8/16, K 78/4500/8960, N 48/129/256/520, blocks 2/6/64/128, k 0-3; bf16 2e-2, fp32 "
+        f"2e-5; two bf16 calls identical bit for bit)")
+
+
 def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
     """``fused_linear_q`` (int8 and NF4) against its plain version: ragged
     shapes first (row, column and K tails, scale blocks that cross K tiles,
@@ -1230,6 +1389,7 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
     log("[kernels] fused_linear_q ok on ragged shapes, int8 and NF4 (M 7/33/130/200, "
         "K 78/96/1000/4500, N 48/129/264/520, blocks 2/6/32/128, k 0-3; bf16 2e-2, "
         "fp32 2e-5)")
+    skinny_cases(gen, dev)
     m_train, m_dec = TRAIN_BATCH * TRAIN_SEQ, SLOTS
     cases = {}
     for qd in PACKED:
@@ -1258,6 +1418,8 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                     got, want = fn(), plain()
                     torch.cuda.synchronize()
                     err = check_close(f"fused_linear_q {qd} {name} M={m}", got, want, dt)
+                    if dt == torch.bfloat16 and m == m_dec:
+                        assert torch.equal(got, fn()), f"fused_linear_q {qd} {name}: two calls differ"
                     row = {"kernel": "fused_linear_q", "qdtype": qd, "proj": name, "M": m,
                            "K": d_in, "N": d_out, "k": k, "bias": bias is not None,
                            "dtype": str(dt), "max_abs_err": err}
@@ -1572,6 +1734,10 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
         assert c.plain == 0, f"{qd} serving called the plain version of {name} {c.plain} times"
     forwards = n["paged_decode_attention"] + n["paged_prefill_attention"]  # one a layer-forward
     assert n["fused_linear_q"] == 7 * forwards > 0, (n, forwards)
+    # decode steps (M = slots rows) on the split-K kernel, mixed steps on the tiled one
+    routes = COUNTERS["fused_linear_q"].routes
+    assert routes == {"skinny": 7 * n["paged_decode_attention"],
+                      "tiled": 7 * n["paged_prefill_attention"]}, routes
     assert n["sparse_delta_batched"] > 0 and n["fused_linear"] == 0, n
     for r in reqs:
         assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
@@ -1580,7 +1746,10 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
     n_tok = sum(len(r.out) for r in reqs)
     log(f"[full-{qd}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} "
         f"tok/s; steps {eng.steps}; launches {json.dumps(n)} (fused_linear_q = 7 x "
-        f"{forwards} layer-forwards), plain 0 [{card}]")
+        f"{forwards} layer-forwards: {json.dumps(routes)}), plain 0 [{card}]")
+    profile_run(lambda: serve(model, packed, tenants, prompts, max_new, "cuda", base_dtype=qd,
+                              quant_block=QUANT_BLOCK, **kw),
+                card, f"profile-{qd}", f"full_profile_{qd}.txt")
     phase_window(model, packed, tenants, card, dict(kw, base_dtype=qd, quant_block=QUANT_BLOCK),
                  repeats=1, tag=f"window-{qd}", fname=f"window_{qd}.json",
                  extra={"base_dtype": qd, "base_bytes": base_bytes})
@@ -1815,6 +1984,91 @@ def reduced_train_distances(card: str) -> None:
                                                   flash_block=block)[1:], "cpu")
                 for t in (threshold, 1 << 20)]
         report(f"{arch} batch {batch} x seq {seq}, cpu alone: flash / dense", *runs)
+
+
+# where the decode-row fused_linear_q's time goes: its source rebuilt with
+# one part removed (each marker must be found in csrc/fused_linear_q.cu)
+_DEQ = "{\n  if (QT == RT_Q_NF4) {\n    const uint32_t b = (word(lo, c >> 2)"
+_NEXT = "    if (s + kSkWarps < steps)  // the next step's loads fly while this one is dequantized"
+_STEP = "    sk_step<QT, MT, UNIFORM, VEC>(cur, acc, scales, k0, nt, N, K, block, nf4);"
+_SUM = "  cg::cluster_group cluster = cg::this_cluster();\n  cluster.sync();"
+DECODE_ROW_VARIANTS = {
+    "as built": (),
+    "no dequantize": ((_DEQ, "{\n  return word(lo, c >> 2) + __float_as_uint(s) + (nf4 == nullptr);"
+                             + _DEQ[1:]),),
+    "no loads after the first step": ((_NEXT, "    if (false)"),),
+    "no dequantize or products": ((_STEP, "    acc[0][0][0] += __uint_as_float(cur.code[0].x ^ "
+                                          "cur.code[1].y ^ cur.xb[0][0]);"),),
+    "no cluster sum": ((_SUM, "  if (gridDim.z > 0) return;\n" + _SUM),),
+}
+
+
+def decode_row_variants(card: str) -> None:
+    """``fused_linear_q`` at qwen2-1.5b's decode rows (M = 8, the 7
+    projections of one layer, block 64, int8 and NF4) timed with its
+    source as built and with one part removed at a time (the dequantize,
+    the loads after each warp's first step, the dequantize and the
+    products, the cluster's sum), all built here in one call; the time a
+    part takes is the difference. Only the unchanged build is checked
+    against the plain version (the others are wrong by construction).
+    Writes ``chiprun_out/decode_row_variants.json``."""
+    import ctypes
+    src = (build.CSRC / "fused_linear_q.cu").read_text()
+    nvcc = build.nvcc_path()
+    procs, libs = {}, {}
+    for name, edits in DECODE_ROW_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            assert old in text, f"marker of {name!r} not in fused_linear_q.cu"
+            text = text.replace(old, new)
+        d = build.BUILD_DIR / "variants" / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "fused_linear_q.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-shared", "-I", str(build.CSRC), "-o", str(d / "v.so"),
+             str(d / "fused_linear_q.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"variant {name!r} did not build:\n{out[-3000:]}"
+        fn = ctypes.CDLL(str(build.BUILD_DIR / "variants" / name.replace(" ", "_") / "v.so"))
+        fn = fn.rt_fused_linear_q_skinny
+        fn.argtypes, fn.restype = build.SIGNATURES["rt_fused_linear_q_skinny"], ctypes.c_int
+        libs[name] = fn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cfg = get_config("qwen2-1.5b")
+    d, dkv, dff = cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim, cfg.d_ff
+    projections = [("wq", d, d), ("wk", d, dkv), ("wv", d, dkv), ("wo", d, d),
+                   ("wgate", d, dff), ("wup", d, dff), ("wdown", dff, d)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {"card": card}
+    for qd in PACKED:
+        rows = {name: [] for name in libs}
+        for pname, k_in, n_out in projections:
+            w = torch.randn(k_in, n_out, generator=gen, device=dev) * k_in**-0.5
+            qt = quantize(w.to(torch.bfloat16), qd, QUANT_BLOCK)
+            x = torch.randn(SLOTS, k_in, generator=gen, device=dev).to(torch.bfloat16)
+            y = torch.empty(SLOTS, n_out, dtype=torch.bfloat16, device=dev)
+            _, k_chunk, n_split = ql_mod.skinny_split(n_out, k_in, sms)
+            for name, fn in libs.items():
+                def run(fn=fn):
+                    rc = fn(x.data_ptr(), qt.data.data_ptr(), qt.scales.data_ptr(), None, None,
+                            None, y.data_ptr(), SLOTS, n_out, k_in, 0, QUANT_BLOCK,
+                            0 if qd == "int8" else 1, 1, k_chunk, n_split, stream)
+                    build.check(rc, f"fused_linear_q variant {name}")
+                run()
+                if name == "as built":
+                    check_close(f"fused_linear_q {qd} {pname} as built", y, ql_mod.fused_linear_q_plain(
+                        x, qt.data, qt.scales, qdtype=qd, block=QUANT_BLOCK), torch.bfloat16)
+                rows[name].append(cuda_ms(run, iters=20) * 1e3)
+        result[qd] = {name: {"layer_us": sum(r), "per_projection_us": r} for name, r in rows.items()}
+        for name, r in rows.items():
+            log(f"[decode-row variants] {qd} {name}: {sum(r):.2f} us a layer (" + ", ".join(
+                f"{p[0]} {v:.2f}" for p, v in zip(projections, r)) + f") [{card}]")
+    with open(os.path.join(OUT_DIR, "decode_row_variants.json"), "w") as f:
+        json.dump(result, f, indent=1)
 
 
 def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
@@ -2062,6 +2316,9 @@ def main() -> int:
     if sys.argv[1:] == ["--reduced-train-distances"]:
         reduced_train_distances(card)
         return 0
+    if sys.argv[1:] == ["--decode-row-variants"]:
+        decode_row_variants(card)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2069,7 +2326,7 @@ def main() -> int:
     secs, build_log = build.timed_build()
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
         f.write(build_log)
-    log(f"[build] {len(build.SIGNATURES)} kernels built in {secs:.1f} s "
+    log(f"[build] {len(build.SIGNATURES)} kernel entry points built in {secs:.1f} s "
         f"(sm_90a, nvcc; log in chiprun_out/kernel_build.log)")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line and " 0 bytes spill" not in line:

@@ -64,6 +64,9 @@ SIGNATURES = {
     # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
     # block, qdtype, x_dtype, v_dtype | stream
     "rt_fused_linear_q": [_P] * 7 + [_I] * 8 + [_P],
+    # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
+    # block, qdtype, v_dtype, k_chunk, n_split | stream (bf16 x, M <= 16)
+    "rt_fused_linear_q_skinny": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, out, lse | B, Sq, Skv, H, Hkv, hd, causal, dtype, the batch,
     # sequence and head strides of q, k and v | stream
     "rt_flash_attention_fwd": [_P] * 5 + [_I] * 17 + [_P],

@@ -44,6 +44,11 @@ __device__ __forceinline__ void cp_async_wait_1() {
 __device__ __forceinline__ void cp_async_wait_0() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Dynamic shared memory above the 48 KB default needs an explicit opt-in.
 template <typename K>

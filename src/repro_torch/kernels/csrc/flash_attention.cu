@@ -37,9 +37,13 @@
 //   32-key tiles in shared memory; lane j scores key j, each lane owns
 //   hd / 32 output columns), expf and true divides: the reduced card-vs-CPU
 //   checks compare it with the plain version at 2e-5.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using rt::ldsm_x4;
+using rt::mma_bf16;
+using rt::pack_bf16;
 
 constexpr float kNeg = -1e30f;  // the Pallas body's mask value
 
@@ -53,34 +57,6 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr int kBQ = 64, kBK = 64, kThreadsTC = 128;
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four 8x8 bf16 matrices from shared memory, lanes 8q..8q+7 naming the rows
-// of matrix q; r[q] is matrix q's mma fragment (transposed with TRANS).
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a b: a 16x16 bf16 row-major A, a 16x8 bf16 column-major B, float32 C.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 struct Layout {  // element strides of q, k, v: batch, sequence, head
   int q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;

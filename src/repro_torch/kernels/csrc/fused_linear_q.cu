@@ -9,15 +9,54 @@
 // fused_linear_q_pallas (body _fused_q_kernel, dequant _dequant_tile). That
 // kernel dequantizes each 512-deep K tile in VMEM and needs K to divide by
 // 512 and the tile by the scale block; qwen2-1.5b's wdown (K = 8960) does
-// not. Here K runs in 32-deep tiles with a masked tail, any M, N and K,
-// any even block >= 2 (a tile may cross scale blocks: each row reads the
-// scale row of its own global k), and the bypass is added once in the
-// epilogue from x's rows, as in fused_linear.cu.
+// not. Here any M, N and K, any even block >= 2 (a tile may cross scale
+// blocks: each row reads the scale row of its own global k), and the bypass
+// is added once in the epilogue from x's rows, as in fused_linear.cu.
 //
-// Bound: operations at the training rows (M = 2048: as fused_linear), bytes
-// at the decode rows (M = 8: the packed codes dominate; int8 reads half the
-// bytes of bf16, NF4 a quarter, plus 4 bytes of scale per block column).
-// Design, a simple first version built on fused_linear.cu:
+// Three kernels, chosen by the wrapper (kernels/quant_linear.py):
+//
+// bf16, decode rows (M <= 16, rt_fused_linear_q_skinny). Bound: bytes. One
+// layer of qwen2-1.5b reads 49.7 MB of int8 codes (26.3 MB NF4) plus 4
+// bytes of scale per block column, 15 (8) us on an H100, while the product
+// is 2 * 8 * 46.8 M flops. A 128 x 128 tile would leave 15/16 of the tensor
+// work as padding and 2-70 blocks on 132 SMs. Design: swap A and B of
+// mma.sync.m16n8k16, so the dequantized W^T is A (16 output columns x 16 K)
+// and x^T is B (16 K x 8 rows): the 8 decode rows fill the n = 8 side
+// exactly (M up to 16 takes two n-tiles). A fragment register holds rows k
+// and k + 1 of one column, which is one NF4 byte (low nibble row 2i, high
+// nibble 2i + 1) or the same byte of two int8 rows. A thread reads 16
+// columns of a packed row in one 16-byte load (int8: rows k0 + 2t, +1, +8,
+// +9; NF4: packed rows k0/2 + t, +4, for lane = 4g + t), each byte once,
+// and its 16 columns feed the A rows g and g + 8 of 8 mmas (mma j takes
+// columns 2j and 2j + 1), so a warp covers 128 columns x 16 K a step with
+// no shared memory. Dequantize in registers with the plain version's
+// arithmetic: int8 through a byte permute (2^23 + code + 128 as float bits,
+// minus 2^23 + 128: exact, no I2F), NF4 through a 16-float codebook in
+// shared memory; times the scale in float32, one rounding to bf16. (A
+// CUDA-core FMA version would issue the same dequantize work plus 8 FMAs a
+// code; on the tensor cores the product costs 8 mmas a 16-row step.) A block
+// of 8 warps owns 128 columns and one K chunk; its warps take the chunk's
+// 16-row steps in turn, loading step s + 8 (codes, scales, x) into
+// registers while step s is dequantized, and reduce over warps in shared
+// memory in warp order. The K chunks are a second grid axis sized by
+// quant_linear.skinny_split: one wave of blocks (two an SM), every warp a
+// step, at most 16 chunks; chunks are multiples of 16 rows, so a chunk
+// starts at an even row and no NF4 byte straddles two. The chunks of a
+// column tile run as one thread-block cluster and sum their partials
+// through distributed shared memory in chunk order, each rank finishing a
+// share of the tile (bypass and bias through finish(), one cast): one
+// launch a projection, no global partials, no atomics, the same bits on
+// every call. (A second, summing kernel measured the same kernel time on
+// the card and doubles the launches of a decode step, whose loop is bound
+// by the host; so does a last-block-reduces tail behind an atomic counter,
+// which measured slower.) Registers (-Xptxas=-v): at M <= 8 int8 127-128,
+// NF4 103-117 (launch bound 128: two blocks an SM), at M <= 16 147-199 (one
+// block an SM); no spills. 38 KB of static shared memory at M <= 8, 42 KB
+// at M <= 16 (warp reduction, partial tile, codebook).
+//
+// bf16, more rows (training at M = batch x seq, the mixed serving step),
+// bound by operations at M = 2048 (as fused_linear), a simple first version
+// built on fused_linear.cu:
 // - the dense weight never exists in device memory: each K tile's packed
 //   codes (int8 (32, 128) or NF4 uint8 (16, 128)) land in shared memory by
 //   cp.async (plain loads when rows are not 16-byte aligned), 2 stages deep;
@@ -31,15 +70,19 @@
 // - the NF4 codebook sits in shared memory (16 floats, copied from
 //   __constant__ at block start: per-thread indices would serialize reads
 //   of constant memory);
-// - bf16: WMMA 16x16x16 fragments with float32 accumulators (128x128 block
-//   tile, 8 warps of 64x32), as fused_linear; float32: plain FMA (64x64
-//   tile, 4x4 per thread), a true float32 product (no TF32);
-// - k = 0 (no bypass: the serving base matmul) skips the bypass loop; idx
-//   and val may then be null.
-// Split-K for the skinny decode rows, wgmma and TMA are later work.
+// - WMMA 16x16x16 fragments with float32 accumulators (128x128 block tile,
+//   8 warps of 64x32), as fused_linear; wgmma and TMA are later work.
+//
+// float32 (the reduced card-vs-CPU runs): plain FMA (64x64 tile, 4x4 per
+// thread), a true float32 product (no TF32).
+//
+// k = 0 (no bypass: the serving base matmul) skips the bypass loop; idx and
+// val may then be null.
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "linear.cuh"
+#include "mma.cuh"
 
 enum { RT_Q_INT8 = 0, RT_Q_NF4 = 1 };
 
@@ -47,6 +90,7 @@ namespace {
 
 using namespace nvcuda;
 using namespace rt;
+namespace cg = cooperative_groups;
 
 __constant__ float kNF4[16] = {
     -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
@@ -222,6 +266,312 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
+// ------------------------------------------- bf16, decode rows (split K)
+
+constexpr int kSkCols = 128;  // columns of a block: 8 lane groups x 16 bytes
+constexpr int kSkWarps = 8, kSkThreads = 32 * kSkWarps;
+constexpr int kSkStep = 16;   // K rows of one mma, one warp step
+constexpr int kSkMaxSplit = 16;  // K chunks of a column tile: Hopper's largest cluster
+
+// 16 bytes of packed row `prow` at columns n..n+15, zeros past the edges;
+// VEC (N % 16 == 0, 16-byte aligned data): one streaming load.
+template <bool VEC>
+__device__ __forceinline__ uint4 load_codes16(const uint8_t* __restrict__ data, int prow,
+                                              int prows, int n, int N) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (prow >= prows || n >= N) return r;
+  const uint8_t* p = data + static_cast<size_t>(prow) * N + n;
+  if (VEC) {
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+    return r;
+  }
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  for (int i = 0; i < 16 && n + i < N; ++i) w[i / 4] |= static_cast<uint32_t>(p[i]) << (8 * (i % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16 scales of scale row `srow` at columns n..n+15 (0 past N, or all 0 when
+// the row is not valid).
+template <bool VEC>
+__device__ __forceinline__ void load_scales16(float (&s)[16], const float* __restrict__ scales,
+                                              int srow, bool valid, int n, int N) {
+  const float* p = scales + static_cast<size_t>(srow) * N + n;
+  if (VEC && valid && n < N) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+      s[4 * i] = v.x;
+      s[4 * i + 1] = v.y;
+      s[4 * i + 2] = v.z;
+      s[4 * i + 3] = v.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = (valid && n + i < N) ? __ldg(p + i) : 0.f;
+}
+
+// x[m, k], x[m, k + 1] as one B-fragment register (zeros past M and K).
+__device__ __forceinline__ uint32_t x_pair(const __nv_bfloat16* __restrict__ x, int m, int k,
+                                           int M, int K, bool xvec) {
+  if (m >= M || k >= K) return 0u;
+  const __nv_bfloat16* p = x + static_cast<size_t>(m) * K + k;
+  if (xvec) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  const uint32_t lo = __bfloat16_as_ushort(p[0]);
+  const uint32_t hi = k + 1 < K ? __bfloat16_as_ushort(p[1]) : 0u;
+  return lo | (hi << 16);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// One thread's share of a 16-row step: its packed codes (int8 rows k0+2t,
+// +1, +8, +9; NF4 packed rows k0/2+t, +4, 16 columns each), the scales when
+// the step lies in one scale block (UNIFORM), and x's B fragments.
+template <int QT, int MT, bool UNIFORM>
+struct SkStage {
+  uint4 code[QT == RT_Q_NF4 ? 2 : 4];
+  float sc[UNIFORM ? 16 : 1];
+  uint32_t xb[MT][2];
+};
+
+template <int QT, int MT, bool UNIFORM, bool VEC>
+__device__ __forceinline__ void sk_load(SkStage<QT, MT, UNIFORM>& st,
+                                        const __nv_bfloat16* __restrict__ x,
+                                        const uint8_t* __restrict__ data,
+                                        const float* __restrict__ scales, int k0, int nt, int M,
+                                        int N, int K, int block, bool xvec) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t4 = lane & 3;
+  if (QT == RT_Q_NF4) {
+    const int pa = k0 / 2 + t4;
+    st.code[0] = load_codes16<VEC>(data, pa, K / 2, nt, N);
+    st.code[1] = load_codes16<VEC>(data, pa + 4, K / 2, nt, N);
+  } else {
+    const int ra = k0 + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st.code[i] = load_codes16<VEC>(data, ra + (i >> 1) * 8 + (i & 1), K, nt, N);
+  }
+  if constexpr (UNIFORM) load_scales16<VEC>(st.sc, scales, k0 / block, true, nt, N);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    st.xb[mt][0] = x_pair(x, mt * 8 + gr, k0 + 2 * t4, M, K, xvec);
+    st.xb[mt][1] = x_pair(x, mt * 8 + gr, k0 + 2 * t4 + 8, M, K, xvec);
+  }
+}
+
+// bf16 pair (rows k, k + 1) of column c of one slot: int8 from two code
+// rows, NF4 from one packed row; code * scale in float32, one rounding.
+template <int QT>
+__device__ __forceinline__ uint32_t sk_deq(const uint4& lo, const uint4& hi, int c, float s,
+                                           const float* nf4) {
+  if (QT == RT_Q_NF4) {
+    const uint32_t b = (word(lo, c >> 2) >> (8 * (c & 3))) & 0xFFu;
+    return pack_bf16(nf4[b & 0xF] * s, nf4[b >> 4] * s);
+  }
+  const uint32_t sel = 0x7440u + (c & 3);
+  const float f0 = __int_as_float(__byte_perm(word(lo, c >> 2) ^ 0x80808080u, 0x4B000000u, sel));
+  const float f1 = __int_as_float(__byte_perm(word(hi, c >> 2) ^ 0x80808080u, 0x4B000000u, sel));
+  return pack_bf16((f0 - 8388736.f) * s, (f1 - 8388736.f) * s);
+}
+
+// One 16-row step: dequantize the stage's codes into the A fragments of 8
+// mmas (mma j takes columns 2j and 2j + 1 of the thread's 16) and multiply
+// by x's B fragments.
+template <int QT, int MT, bool UNIFORM, bool VEC>
+__device__ __forceinline__ void sk_step(const SkStage<QT, MT, UNIFORM>& st,
+                                        float (&acc)[MT][8][4], const float* __restrict__ scales,
+                                        int k0, int nt, int N, int K, int block,
+                                        const float* nf4) {
+  const int t4 = threadIdx.x & 3;
+  const int ra = k0 + 2 * t4, rb = ra + 8;  // the even row of each slot's pair
+  float sa[16], sb[16];
+  if constexpr (UNIFORM) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sa[i] = sb[i] = st.sc[i];
+  } else {  // the two slots may sit in different scale blocks
+    load_scales16<VEC>(sa, scales, ra / block, ra < K, nt, N);
+    load_scales16<VEC>(sb, scales, rb / block, rb < K, nt, N);
+  }
+  // NF4 code 0 is -1: rows at or past K must give 0, not -scale
+  const bool va = QT != RT_Q_NF4 || ra < K, vb = QT != RT_Q_NF4 || rb < K;
+  const uint4& a_lo = st.code[0];
+  const uint4& a_hi = st.code[QT == RT_Q_NF4 ? 0 : 1];
+  const uint4& b_lo = st.code[QT == RT_Q_NF4 ? 1 : 2];
+  const uint4& b_hi = st.code[QT == RT_Q_NF4 ? 1 : 3];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t a[4];
+    a[0] = va ? sk_deq<QT>(a_lo, a_hi, 2 * j, sa[2 * j], nf4) : 0u;
+    a[1] = va ? sk_deq<QT>(a_lo, a_hi, 2 * j + 1, sa[2 * j + 1], nf4) : 0u;
+    a[2] = vb ? sk_deq<QT>(b_lo, b_hi, 2 * j, sb[2 * j], nf4) : 0u;
+    a[3] = vb ? sk_deq<QT>(b_lo, b_hi, 2 * j + 1, sb[2 * j + 1], nf4) : 0u;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][j], a, st.xb[mt][0], st.xb[mt][1]);
+  }
+}
+
+// grid (ceil(N / 128), n_split), launched as clusters of (1, n_split): the
+// n_split blocks of a column tile, one per K chunk, share one cluster. Each
+// block's 8 warps take its chunk's 16-row steps in turn, each loading step
+// s + 8 into registers while it dequantizes step s; their sums meet in
+// shared memory in warp order, giving the block's (M, 128) float32 partial.
+// After a cluster barrier, rank r of the cluster sums its share of the
+// tile's elements over ranks 0..n_split-1, in rank order, from the ranks'
+// shared memory (no global partials, no atomics: the same bits on every
+// call), adds the bypass and bias (finish) and writes y.
+template <int QT, int MT, bool UNIFORM, bool VEC, typename TV>
+__global__ void __launch_bounds__(kSkThreads, MT == 1 ? 2 : 1)
+    fused_linear_q_skinny_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const uint8_t* __restrict__ data,
+                                 const float* __restrict__ scales,
+                                 const int32_t* __restrict__ idx, const TV* __restrict__ val,
+                                 const __nv_bfloat16* __restrict__ bias,
+                                 __nv_bfloat16* __restrict__ y, int M, int N, int K, int k,
+                                 int block, int k_chunk, int xvec) {
+  __shared__ float red[kSkWarps][32][33];  // (warp, accumulator, lane), padded rows
+  __shared__ float tile[8 * MT][kSkCols];  // this block's partial
+  __shared__ float nf4[16];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * kSkCols, nt = n0 + 16 * (lane >> 2);  // this thread's 16 columns
+  const int kc0 = blockIdx.y * k_chunk;
+  const int steps = (min(K, kc0 + k_chunk) - kc0 + kSkStep - 1) / kSkStep;
+  if (threadIdx.x < 16) nf4[threadIdx.x] = kNF4[threadIdx.x];
+  __syncthreads();
+
+  float acc[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  SkStage<QT, MT, UNIFORM> cur, nxt;
+  if (warp < steps)
+    sk_load<QT, MT, UNIFORM, VEC>(cur, x, data, scales, kc0 + warp * kSkStep, nt, M, N, K,
+                                  block, xvec);
+  for (int s = warp; s < steps; s += kSkWarps) {
+    const int k0 = kc0 + s * kSkStep;
+    if (s + kSkWarps < steps)  // the next step's loads fly while this one is dequantized
+      sk_load<QT, MT, UNIFORM, VEC>(nxt, x, data, scales, k0 + kSkWarps * kSkStep, nt, M, N,
+                                    K, block, xvec);
+    sk_step<QT, MT, UNIFORM, VEC>(cur, acc, scales, k0, nt, N, K, block, nf4);
+    cur = nxt;
+  }
+
+  // accumulator (mt, j, e) of lane 4g + t is column 16g + 2j + (e >> 1) of
+  // the block and row mt * 8 + 2t + (e & 1)
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[warp][j * 4 + e][lane] = acc[mt][j][e];
+    __syncthreads();
+    for (int i = threadIdx.x; i < 8 * kSkCols; i += kSkThreads) {
+      const int r = i / kSkCols, col = i % kSkCols;
+      const int ln = (col >> 4) * 4 + (r >> 1), e = ((col & 15) >> 1) * 4 + (col & 1) * 2 + (r & 1);
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kSkWarps; ++w) v += red[w][e][ln];
+      tile[mt * 8 + r][col] = v;
+    }
+    __syncthreads();
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every chunk's partial is in its block's shared memory
+  const int n_split = gridDim.y, rank = blockIdx.y;
+  const int elems = min(M, 8 * MT) * kSkCols;
+  const int per = (elems + n_split - 1) / n_split;
+  for (int i = rank * per + threadIdx.x; i < min(elems, (rank + 1) * per); i += kSkThreads) {
+    const int m = i / kSkCols, col = i % kSkCols;
+    if (n0 + col >= N) continue;
+    float t[kSkMaxSplit];  // every rank's value in flight at once
+#pragma unroll
+    for (int q = 0; q < kSkMaxSplit; ++q)
+      t[q] = q < n_split ? cluster.map_shared_rank(&tile[0][0], q)[m * kSkCols + col] : 0.f;
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSkMaxSplit; ++q) v += t[q];  // chunk order (+0 past n_split)
+    finish(v, x, idx, val, bias, y, m, n0 + col, K, N, k);
+  }
+  cluster.sync();  // no block leaves while another still reads its partial
+}
+
+template <int QT, int MT, bool UNIFORM, bool VEC, typename TV>
+cudaError_t launch_skinny_main(const void* x, const void* data, const void* scales,
+                               const void* idx, const void* val, const void* bias, void* y,
+                               int M, int N, int K, int k, int block, int k_chunk, int n_split,
+                               bool xvec, cudaStream_t stream) {
+  auto kernel = fused_linear_q_skinny_kernel<QT, MT, UNIFORM, VEC, TV>;
+  if (n_split > 8) {  // clusters of more than 8 blocks are Hopper's non-portable sizes
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kSkCols - 1) / kSkCols, n_split);
+  cfg.blockDim = dim3(kSkThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const uint8_t*>(data), static_cast<const float*>(scales),
+                            static_cast<const int32_t*>(idx), static_cast<const TV*>(val),
+                            static_cast<const __nv_bfloat16*>(bias),
+                            static_cast<__nv_bfloat16*>(y), M, N, K, k, block, k_chunk,
+                            static_cast<int>(xvec));
+}
+
+template <int QT, int MT, typename TV>
+cudaError_t launch_skinny_mt(bool uniform, bool vec, const void* x, const void* data,
+                             const void* scales, const void* idx, const void* val,
+                             const void* bias, void* y, int M, int N, int K, int k, int block,
+                             int k_chunk, int n_split, bool xvec, cudaStream_t s) {
+#define RT_SK(U, V)                                                                          \
+  if (uniform == U && vec == V)                                                              \
+    return launch_skinny_main<QT, MT, U, V, TV>(x, data, scales, idx, val, bias, y, M, N, K, \
+                                                k, block, k_chunk, n_split, xvec, s);
+  RT_SK(true, true) RT_SK(true, false) RT_SK(false, true) RT_SK(false, false)
+#undef RT_SK
+  return cudaErrorInvalidValue;
+}
+
+template <int QT>
+cudaError_t launch_skinny(const void* x, const void* data, const void* scales, const void* idx,
+                          const void* val, const void* bias, void* y, int M, int N, int K,
+                          int k, int block, int v_dtype, int k_chunk, int n_split,
+                          cudaStream_t stream) {
+  if (M < 1 || M > 16 || k_chunk < kSkStep || k_chunk % kSkStep || n_split < 1 ||
+      n_split > kSkMaxSplit || static_cast<long>(k_chunk) * n_split < K ||
+      static_cast<long>(k_chunk) * (n_split - 1) >= K)
+    return cudaErrorInvalidConfiguration;
+  const bool vec = N % 16 == 0 && (reinterpret_cast<uintptr_t>(data) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(scales) & 15) == 0;
+  const bool xvec = K % 2 == 0 && (reinterpret_cast<uintptr_t>(x) & 3) == 0;
+  // a 16-row step lies in one scale block when the block is a multiple of 16
+  const bool uniform = block % kSkStep == 0;
+  if (v_dtype == RT_F32)
+    return M <= 8 ? launch_skinny_mt<QT, 1, float>(uniform, vec, x, data, scales, idx, val,
+                                                   bias, y, M, N, K, k, block, k_chunk,
+                                                   n_split, xvec, stream)
+                  : launch_skinny_mt<QT, 2, float>(uniform, vec, x, data, scales, idx, val,
+                                                   bias, y, M, N, K, k, block, k_chunk,
+                                                   n_split, xvec, stream);
+  return M <= 8 ? launch_skinny_mt<QT, 1, __nv_bfloat16>(uniform, vec, x, data, scales, idx,
+                                                         val, bias, y, M, N, K, k, block,
+                                                         k_chunk, n_split, xvec, stream)
+                : launch_skinny_mt<QT, 2, __nv_bfloat16>(uniform, vec, x, data, scales, idx,
+                                                         val, bias, y, M, N, K, k, block,
+                                                         k_chunk, n_split, xvec, stream);
+}
+
 // ---------------------------------------------------------- float32, FMA
 
 template <int QT, typename TV>
@@ -360,6 +710,30 @@ extern "C" int rt_fused_linear_q(const void* x, const void* data, const void* sc
   else if (qdtype == RT_Q_NF4)
     err = dispatch<RT_Q_NF4>(x, data, scales, idx, val, bias, y, M, N, K, k, block, x_dtype,
                              v_dtype, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The decode-row kernel: x, bias and y bf16, M <= 16; K split in n_split
+// <= 16 chunks of k_chunk rows (a multiple of 16, every row covered once),
+// one cluster of n_split blocks per 128-column tile.
+extern "C" int rt_fused_linear_q_skinny(const void* x, const void* data, const void* scales,
+                                        const void* idx, const void* val, const void* bias,
+                                        void* y, int M, int N, int K, int k, int block,
+                                        int qdtype, int v_dtype, int k_chunk, int n_split,
+                                        void* stream) {
+  if (block < 2 || block % 2 || K < 1 || k < 0 || (qdtype == RT_Q_NF4 && K % 2) ||
+      (v_dtype != RT_F32 && v_dtype != RT_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (qdtype == RT_Q_INT8)
+    err = launch_skinny<RT_Q_INT8>(x, data, scales, idx, val, bias, y, M, N, K, k, block,
+                                   v_dtype, k_chunk, n_split, s);
+  else if (qdtype == RT_Q_NF4)
+    err = launch_skinny<RT_Q_NF4>(x, data, scales, idx, val, bias, y, M, N, K, k, block,
+                                  v_dtype, k_chunk, n_split, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

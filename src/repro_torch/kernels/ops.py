@@ -206,13 +206,18 @@ def matmul_q(x, w):
     """x @ W for a plain or packed W, with no bypass: the base matmul of a
     serving step. A packed W runs the fused dequant kernel with ``k = 0``
     (the reference's zero bypass), differentiable in x; a plain W goes to
-    ``x @ w``."""
+    ``x @ w``. Where no gradient is wanted (serving), the kernel's wrapper is
+    called directly: an autograd Function costs the host more than the
+    decode-row kernel costs the card."""
     if not isinstance(w, QuantizedTensor):
         return x @ w
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1]).contiguous()
-    y = _FusedLinearQ.apply(x2d, w.data, w.scales, None, None, None, w.qdtype, w.block,
-                            w.dtype_name)
+    if torch.is_grad_enabled() and x.requires_grad:
+        y = _FusedLinearQ.apply(x2d, w.data, w.scales, None, None, None, w.qdtype, w.block,
+                                w.dtype_name)
+    else:
+        y = _ql.fused_linear_q(x2d, w.data, w.scales, qdtype=w.qdtype, block=w.block)
     return y.reshape(*lead, w.shape[-1])
 
 

@@ -16,8 +16,12 @@ that body counts on ``paged_prefill_attention_q``.
 Replaces ``src/repro/kernels/prefill_attention.py::paged_prefill_attention_pallas``
 (fp body ``_paged_prefill_attn_kernel``, int8 body ``_paged_prefill_attn_q_kernel``).
 The CUDA source (``csrc/prefill_attention.cu``) carries the design note:
-the C·G query rows of a (slot, kv-head) split across blocks, one warp per
-row, each block sweeping pages only up to its rows' causal frontier.
+in bf16 the C·G folded rows of a (slot, kv-head) split into 64-row tiles
+on the tensor cores (mma.sync, an online softmax in registers, 64-column
+K/V tiles gathered page by page through the table by cp.async, each block
+stopping at its rows' frontier); an int8 pool's codes are staged as int8
+and widened to bf16 in shared memory, its scales applied to the scores
+and to p. float32 keeps one warp per row.
 """
 
 from __future__ import annotations

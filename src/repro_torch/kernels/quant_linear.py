@@ -12,13 +12,17 @@ float32 and cast to x's dtype; products and sums run in float32 and the
 result is cast once to x's dtype.
 
 Replaces ``src/repro/kernels/quant_linear.py::fused_linear_q_pallas``. The
-CUDA source (``csrc/fused_linear_q.cu``) carries the design note: each K
-tile's packed codes are dequantized in shared memory, so the dense weight
-never exists in device memory, over any M, N and K and any even scale
-block — the Pallas kernel needs K to divide by its 512-deep tile, which
-qwen2-1.5b's ``wdown`` (K = 8960) does not.
+CUDA source (``csrc/fused_linear_q.cu``) carries the design note. The dense
+weight never exists in device memory, over any M, N and K and any even
+scale block (the Pallas kernel needs K to divide by its 512-deep tile,
+which qwen2-1.5b's ``wdown``, K = 8960, does not). :func:`route` picks one
+of three kernels: bf16 decode rows (M <= :data:`SKINNY_ROWS`) go to a
+split-K kernel that dequantizes in registers into swapped mma.sync
+operands, with K chunks from :func:`skinny_split` that a thread-block
+cluster sums in a fixed order; more bf16 rows to a 128 × 128 WMMA tile that
+dequantizes in shared memory; float32 to an FMA kernel.
 
-:func:`fused_linear_q` launches the kernel for a CUDA tensor and uses the
+:func:`fused_linear_q` launches a kernel for a CUDA tensor and uses the
 plain version only for a CPU tensor; a build or launch failure raises.
 The gradient lives in :mod:`repro_torch.kernels.ops`.
 """
@@ -36,6 +40,44 @@ SOURCE = "src/repro_torch/kernels/csrc/fused_linear_q.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _QDTYPES = {"int8": (0, torch.int8), "nf4": (1, torch.uint8)}
+
+# Rows up to which bf16 takes the split-K kernel: the decode megastep and the
+# dense engine's decode steps run M = slots (8) rows, which fill the n = 8
+# side of one swapped m16n8k16 product; up to 16 rows take two. Above, the
+# 128-row tile of the tiled kernel is no longer mostly padding.
+SKINNY_ROWS = 16
+# the split-K kernel's geometry (csrc/fused_linear_q.cu): a block covers
+# 128 columns with 8 warps, each warp 16 K rows a step; an SM holds two
+# such blocks (128 registers a thread); the K chunks of a column tile form
+# one thread-block cluster, at most 16 blocks (Hopper's largest)
+SKINNY_COLS, SKINNY_WARPS, SKINNY_STEP, SKINNY_BLOCKS_PER_SM = 128, 8, 16, 2
+SKINNY_MAX_SPLIT = 16
+
+
+def route(m: int, dtype: torch.dtype) -> str:
+    """Which kernel serves (M, dtype) on the card: ``"skinny"`` (bf16 decode
+    rows), ``"tiled"`` (more bf16 rows) or ``"f32"``."""
+    if dtype == torch.float32:
+        return "f32"
+    return "skinny" if m <= SKINNY_ROWS else "tiled"
+
+
+def skinny_split(n: int, k: int, sms: int) -> tuple[int, int, int]:
+    """(n_tile, k_chunk, n_split) of the split-K kernel: as many K chunks as
+    fit the 128-column tiles into one wave of blocks (two 8-warp blocks on
+    each of ``sms`` SMs: a second, partial wave would double the time of
+    the SMs it lands on), as far as every warp keeps a 16-row step of its
+    own and the chunks of a tile fit one cluster (:data:`SKINNY_MAX_SPLIT`).
+    Chunks are multiples of 16 rows, so each starts at an even row (an NF4
+    byte's two rows never straddle chunks), and every row of K lies in
+    exactly one. The chunks' partials stay in the cluster's shared memory,
+    so neither M nor the code type changes the plan."""
+    tiles = -(-n // SKINNY_COLS)
+    steps = -(-k // SKINNY_STEP)
+    one_wave = max(1, SKINNY_BLOCKS_PER_SM * sms // tiles)
+    n_split = max(1, min(one_wave, steps // SKINNY_WARPS, SKINNY_MAX_SPLIT))
+    k_chunk = -(-steps // n_split) * SKINNY_STEP
+    return SKINNY_COLS, k_chunk, -(-k // k_chunk)
 
 
 def fused_linear_q_plain(x, data, scales, idx=None, val=None, bias=None, *, qdtype: str,
@@ -104,14 +146,27 @@ def fused_linear_q(x, data, scales, idx=None, val=None, bias=None, *, qdtype: st
     if m == 0 or n == 0:
         return y
     k = 0 if idx is None else idx.shape[0]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    v_dtype = _DTYPES[x.dtype if val is None else val.dtype]
+    r = route(m, x.dtype)
+    if r == "skinny":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _, k_chunk, n_split = skinny_split(n, kd, sms)
+        rc = build.library().rt_fused_linear_q_skinny(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+            None if idx is None else idx.data_ptr(), None if val is None else val.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            m, n, kd, k, block, _QDTYPES[qdtype][0], v_dtype, k_chunk, n_split, stream,
+        )
+        build.check(rc, "fused_linear_q")
+        counter.launched(r)
+        return y
     rc = build.library().rt_fused_linear_q(
         x.data_ptr(), data.data_ptr(), scales.data_ptr(),
         None if idx is None else idx.data_ptr(), None if val is None else val.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
-        m, n, kd, k, block, _QDTYPES[qdtype][0], _DTYPES[x.dtype],
-        _DTYPES[x.dtype if val is None else val.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        m, n, kd, k, block, _QDTYPES[qdtype][0], _DTYPES[x.dtype], v_dtype, stream,
     )
     build.check(rc, "fused_linear_q")
-    counter.kernel += 1
+    counter.launched(r)
     return y
