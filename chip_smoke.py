@@ -4,11 +4,14 @@
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --reduced-train-distances
     python3 chip_smoke.py --decode-row-variants
+    python3 chip_smoke.py --linear-variants
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
 third only times the decode-row ``fused_linear_q`` with one part of its
-source removed at a time (where its time goes).
+source removed at a time (where its time goes); the fourth does the same
+for the TMA + wgmma route of ``fused_linear`` and ``fused_linear_q`` at M
+= 2048, and times it at every tile height the plan chooses among.
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
@@ -22,10 +25,16 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    pages), the int8 bodies of the paged decode and prefill (int8 pools,
    an all-zero page) at the same shapes, the dense decode over an (8,
    Smax, 2, 128) slot cache with bf16 and int8 KV (frontiers 0, 1 and
-   Smax, an fp Smax of 1000), ``fused_linear`` and ``sparse_delta_dval`` on ragged shapes
-   (row, column and K tails) and at every projection of a training step
-   (M = 4 x 512 rows; wdown's K = 8960 included), ``fused_linear_q`` (int8
-   and NF4) on ragged shapes (scale blocks 2-128 crossing K tiles, k 0-3),
+   Smax, an fp Smax of 1000), ``fused_linear`` and ``sparse_delta_dval`` on edge shapes
+   (row, column and K tails, K 77 and a misaligned x on the WMMA kernel,
+   the rest on the TMA + wgmma one: every launch on the route the wrapper
+   names, two bf16 calls identical bit for bit) and at every projection of a
+   training step (M = 4 x 512 rows; wdown's K = 8960 included; all on the
+   wgmma route, also timed at k = 0, on the WMMA kernel and for the host's
+   tensor-map encodes), ``fused_linear_q`` (int8
+   and NF4) on edge shapes (scale blocks 2-128 crossing K tiles, k 0-3, the
+   route checked as for fused_linear; M = 2048 also timed at k = 0 and on
+   the tiled WMMA kernel),
    at the decode rows (M 1/3/8/16 on the split-K kernel, K 78-8960, two
    bf16 calls identical bit for bit) and at every projection at M = 2048
    (training, bypass k = 1) and M = 8 (decode rows, no bypass); the paged
@@ -68,7 +77,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    same tenants, prompts and settings on an int8 and on an NF4 base
    (``ServeEngine(base_dtype=...)``): the gate run (every base matmul
    through ``fused_linear_q``, 7 a layer-forward, decode steps on the
-   split-K kernel), its profile and one window run;
+   split-K kernel, mixed steps on the TMA + wgmma one), its profile and one
+   window run;
    between them, the same tenants, prompts and settings on the paged pool
    with int8 KV and on the dense slot cache with bf16 and int8 KV: the
    gate run (its attention kernels launched and no other, pool bytes as
@@ -83,8 +93,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 7. full training: qwen2-1.5b at full width and depth in bf16, NeuroAda
    k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 10
    measured (losses, step time, tokens/s, peak memory, launches per step:
-   196 of each training kernel, no plain call), one profiled step (device
-   busy share); then the trained adapter is exported and served as a
+   196 of each training kernel, no plain call, every fused_linear(_q) launch
+   on the TMA + wgmma route), one profiled step (device busy share); then the trained adapter is exported and served as a
    tenant beside the base. The same on an int8 and on an NF4 base
    (``fused_linear_q`` in place of ``fused_linear``, the packed base
    unchanged by every step, peak memory below the bf16 base's). Each
@@ -113,7 +123,8 @@ the thirteen kernels; the rows of kernels olmoe also runs carry an ``olmoe``
 entry (ms, plain ms and bound at olmoe's shapes, launches in its training
 steps or serving gate run). Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
-``chiprun_out/window*.json``. Exits non-zero without CUDA, and
+``chiprun_out/window*.json``, every line printed to
+``chiprun_out/chip_smoke.log``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
 The training phases write ``train*.json`` and ``train*_profile.txt`` to
 the same directory, the MoE serving ``full_profile_olmoe.txt`` and
@@ -216,8 +227,12 @@ LONG_BATCH, LONG_SEQ = 1, 4096
 REDUCED_FLASH, REDUCED_FLASH_SHAPE = dict(flash_threshold=32, flash_block=16), (4, 64)
 
 
+LOG = []  # every line log() printed, written to chiprun_out/chip_smoke.log at the end
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    LOG.append(msg)
 
 
 def card_line() -> str:
@@ -917,11 +932,14 @@ def moe_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, p
     for dt in (torch.bfloat16, torch.float32):
         q, kp, vp, table, _, vl = paged_case(gen, [0] * SLOTS, dec_vl, 1, dt, dev, num_blocks,
                                              arch=MOE_ARCH)
+        s_len = table.shape[1] * PAGE
+        dmask = (torch.arange(s_len, device=dev)[None, :] < vl[:, None])[:, None, None, :]
         timed(
             "paged_decode_attention", "q (8,1,16,128), group 1",
             lambda: dec_mod.paged_decode_attention(q, kp, vp, table, vl),
             lambda: dec_mod.paged_decode_attention_plain(q, kp, vp, table, vl), dt,
-            lambda: decode_cost(q, kp, table, vl))
+            lambda: decode_cost(q, kp, table, vl),
+            lib=sdpa_yardstick(q, kp, vp, table, dmask))
         q, kp, vp, table, qoff, vl = paged_case(gen, pre_off, pre_len, PREFILL_CHUNK, dt, dev,
                                                 num_blocks, arch=MOE_ARCH)
         mask = prefill_mask(qoff, vl, table, dev)
@@ -949,11 +967,14 @@ def moe_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, p
         w = (torch.randn(d, d, generator=gen, device=dev) * d**-0.5).to(dt)
         idx = torch.randint(0, d, (TRAIN_K, d), generator=gen, device=dev, dtype=torch.int32)
         val = (torch.randn(TRAIN_K, d, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        reset_counters()
         timed(
             "fused_linear", "2048 x 2048 x 2048, no bias, k=1",
             lambda: fl_mod.fused_linear(x, w, idx, val, None),
             lambda: fl_mod.fused_linear_plain(x, w, idx, val, None), dt,
-            lambda: linear_cost(x, w, idx, val, None))
+            lambda: linear_cost(x, w, idx, val, None), lib=lambda: torch.mm(x, w))
+        want_route = "wgmma" if dt == torch.bfloat16 else "f32"
+        assert set(COUNTERS["fused_linear"].routes) == {want_route}, COUNTERS["fused_linear"].routes
         # a mixed step's expert buffers: 64 experts x 320 rows, each row's
         # adapter the stacked (tenant, expert) pair tenant * 64 + expert
         n_ad = (N_TENANTS + 1) * e
@@ -998,37 +1019,83 @@ def dval_cost(x, idx, dy) -> tuple[float, float]:
     return nbytes, 2.0 * x.shape[0] * k * n
 
 
+def old_fused_linear(x, w, idx, val, bias):
+    """The WMMA kernel that bf16 took at every shape before the TMA + wgmma
+    route (the wrapper now sends it only shapes TMA cannot describe):
+    called directly, timed beside the new route in the same run."""
+    m, kd = x.shape
+    y = torch.empty((m, w.shape[1]), dtype=x.dtype, device=x.device)
+
+    def run():
+        build.check(build.library().rt_fused_linear(
+            x.data_ptr(), w.data_ptr(), idx.data_ptr(), val.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), m, w.shape[1], kd,
+            idx.shape[0], 1, 1 if val.dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream().cuda_stream), "fused_linear (WMMA)")
+        return y
+    return run
+
+
+def expect_route(counter, want: str, n: int, what: str) -> None:
+    """Every one of the last ``n`` launches counted by ``counter`` (reset
+    before them) took route ``want``."""
+    assert counter.routes == {want: n}, f"{what}: routes {counter.routes}, want {want} x {n}"
+
+
+# edge shapes of the TMA + wgmma route beside the WMMA kernel's ragged ones:
+# (M, K, N, k, x offset in elements). K 77 / 4500, N 129 and an x that
+# starts 4 elements (8 bytes) into its buffer take the WMMA kernel; rows
+# past a 32-row tile (130, 2047), K = 1000 (a partial last K tile), N = 264
+# (a partial last column tile) take the new one
+LINEAR_EDGE = ((130, 77, 129, 1, 0), (200, 1000, 264, 2, 0), (7, 4500, 520, 3, 0),
+               (130, 1000, 256, 1, 0), (2047, 1536, 256, 2, 0), (200, 1000, 264, 1, 4))
+
+
 def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
     """``fused_linear`` and ``sparse_delta_dval`` at every projection of a
     full-width training step (M = batch x seq rows; qkv carry a bias; k =
     1 magnitude selection gives one distinct index per column), bf16 and
-    fp32; the bf16 calls timed, summed over the layer's 7 projections."""
-    # ragged shapes first (untimed): row, column and K tails, K not a
-    # multiple of 8 (the kernel's unaligned load path), k > 1, both value
-    # dtypes — the path shapes below all tile evenly
-    for rm, rk, rn, kk in ((130, 77, 129, 1), (200, 1000, 264, 2), (7, 4500, 520, 3)):
+    fp32; the bf16 calls timed, summed over the layer's 7 projections, with
+    fused_linear's k = 0 time (the bypass's share), the WMMA kernel's on
+    the same inputs and the host time of the launch's tensor-map encodes."""
+    # edge shapes first (untimed): row, column and K tails, K not a multiple
+    # of 8 and a misaligned x (the WMMA kernel), k > 1, both value dtypes;
+    # every launch on the route the wrapper names, two bf16 calls the same bits
+    counter = COUNTERS["fused_linear"]
+    for rm, rk, rn, kk, off in LINEAR_EDGE:
         for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn(rm, rk, generator=gen, device=dev).to(dt)
+            x = torch.randn(rm * rk + off, generator=gen, device=dev).to(dt)[off:].view(rm, rk)
             w = (torch.randn(rk, rn, generator=gen, device=dev) * rk**-0.5).to(dt)
             idx = torch.randint(0, rk, (kk, rn), generator=gen, device=dev, dtype=torch.int32)
             b = torch.randn(rn, generator=gen, device=dev).to(dt)
             dy = (torch.randn(rm, rn, generator=gen, device=dev) * rm**-0.5).to(dt)
+            want_route = fl_mod.route(rm, rk, rn, dt, (x.data_ptr(), w.data_ptr()))
             for vdt in (torch.bfloat16, torch.float32):
                 val = (torch.randn(kk, rn, generator=gen, device=dev) * 0.05).to(vdt)
                 for bias in (b, None):
+                    counter.reset()
                     got = fl_mod.fused_linear(x, w, idx, val, bias)
                     want = fl_mod.fused_linear_plain(x, w, idx, val, bias)
                     torch.cuda.synchronize()
-                    check_close(f"fused_linear ragged M={rm} K={rk} N={rn}", got, want, dt)
-            got = sd_mod.sparse_delta_dval(x, idx, dy)
-            want = sd_mod.sparse_delta_dval_plain(x, idx, dy)
-            torch.cuda.synchronize()
-            check_close(f"sparse_delta_dval ragged M={rm} d_in={rk} d_out={rn}", got, want, dt)
-    log(f"[kernels] fused_linear and sparse_delta_dval ok on ragged shapes (M 7/130/200, "
-        f"K 77/1000/4500, N 129/264/520, k 1-3; bf16 2e-2, fp32 2e-5)")
+                    name = f"fused_linear edge M={rm} K={rk} N={rn} k={kk} offset {off} {dt}"
+                    check_close(name, got, want, dt)
+                    expect_route(counter, want_route, 1, name)
+                    if dt == torch.bfloat16:
+                        assert torch.equal(got, fl_mod.fused_linear(x, w, idx, val, bias)), \
+                            f"{name}: two calls differ"
+            if off == 0:
+                got = sd_mod.sparse_delta_dval(x, idx, dy)
+                want = sd_mod.sparse_delta_dval_plain(x, idx, dy)
+                torch.cuda.synchronize()
+                check_close(f"sparse_delta_dval ragged M={rm} d_in={rk} d_out={rn}", got, want,
+                            dt)
+    log(f"[kernels] fused_linear and sparse_delta_dval ok on edge shapes (M 7/130/200/2047, "
+        f"K 77/1000/1536/4500, N 129/256/264/520, k 1-3, an x 8 bytes off; each on the "
+        f"route fused_linear.route names: wgmma, wmma or f32; bf16 2e-2, fp32 2e-5; two bf16 "
+        f"calls identical bit for bit)")
     m = TRAIN_BATCH * TRAIN_SEQ
     layer = {n: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "lib": 0.0,
-                 "err": 0.0} for n in TRAINING}
+                 "err": 0.0, "k0_ms": 0.0, "old_ms": 0.0, "encode_us": 0.0} for n in TRAINING}
     for name, d_in, d_out in projections:
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(m, d_in, generator=gen, device=dev).to(dt)
@@ -1042,6 +1109,7 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
             # the gradient of a mean over the rows: dval stays O(1), so the
             # float32 tolerance measures rounding, not the size of a sum
             dy = (torch.randn(m, d_out, generator=gen, device=dev) * m**-0.5).to(dt)
+            counter.reset()
             got = fl_mod.fused_linear(x, w, idx, val, bias)
             want = fl_mod.fused_linear_plain(x, w, idx, val, bias)
             gd = sd_mod.sparse_delta_dval(x, idx, dy)
@@ -1049,6 +1117,8 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
             torch.cuda.synchronize()
             e_fl = check_close(f"fused_linear {name} K={d_in} N={d_out}", got, want, dt)
             e_dv = check_close(f"sparse_delta_dval {name}", gd, wd, dt)
+            expect_route(counter, "wgmma" if dt == torch.bfloat16 else "f32", 1,
+                         f"fused_linear {name}")
             assert torch.equal(gd, sd_mod.sparse_delta_dval(x, idx, dy)), \
                 f"sparse_delta_dval {name}: two launches on the same inputs differ"
             rows = [{"kernel": "fused_linear", "proj": name, "M": m, "K": d_in, "N": d_out,
@@ -1056,6 +1126,8 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                     {"kernel": "sparse_delta_dval", "proj": name, "M": m, "d_in": d_in,
                      "d_out": d_out, "dtype": str(dt), "max_abs_err": e_dv}]
             if dt == torch.bfloat16:
+                assert torch.equal(got, fl_mod.fused_linear(x, w, idx, val, bias)), \
+                    f"fused_linear {name}: two calls differ"
                 for row, fn, plain, cost in (
                         (rows[0], lambda: fl_mod.fused_linear(x, w, idx, val, bias),
                          lambda: fl_mod.fused_linear_plain(x, w, idx, val, bias),
@@ -1076,14 +1148,25 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                 lib = ((lambda: torch.addmm(bias, x, w)) if bias is not None
                        else (lambda: torch.mm(x, w)))
                 rows[0]["library_ms"] = cuda_ms(lib)
-                layer["fused_linear"]["lib"] += rows[0]["library_ms"]
+                # the bypass's share: the same call with no bypass entries
+                idx0, val0 = idx[:0], val[:0]
+                rows[0]["k0_ms"] = cuda_ms(lambda: fl_mod.fused_linear(x, w, idx0, val0, bias))
+                rows[0]["old_ms"] = cuda_ms(old_fused_linear(x, w, idx, val, bias))
+                rows[0]["tile_rows"] = fl_mod.linear_plan(m, d_out, d_in,
+                                                          dec_mod.sm_count(x.device))[1]
+                rows[0]["encode_us"] = fl_mod.encode_ns(x, w, rows[0]["tile_rows"]) / 1e3
+                fl_acc = layer["fused_linear"]
+                for key in ("k0_ms", "old_ms", "encode_us"):
+                    fl_acc[key] += rows[0][key]
+                fl_acc["lib"] += rows[0]["library_ms"]
                 r0, r1 = rows
                 log(f"[kernels] {name} K={d_in} N={d_out}: fused_linear {r0['ms']:.4f} ms "
-                    f"(plain {r0['plain_ms']:.4f}, torch.addmm dense part "
-                    f"{r0['library_ms']:.4f}, bound {r0['bound_ms']:.4f} by "
-                    f"{r0['bound_by']}); sparse_delta_dval {r1['ms']:.4f} ms (plain "
-                    f"{r1['plain_ms']:.4f}, bound {r1['bound_ms']:.4f} by {r1['bound_by']}) "
-                    f"[{card}]")
+                    f"(k=0 {r0['k0_ms']:.4f}, WMMA kernel {r0['old_ms']:.4f}, plain "
+                    f"{r0['plain_ms']:.4f}, torch.addmm dense part {r0['library_ms']:.4f}, "
+                    f"bound {r0['bound_ms']:.4f} by {r0['bound_by']}; {r0['tile_rows']}-row "
+                    f"tiles, tensor-map encode {r0['encode_us']:.3f} us on the host); "
+                    f"sparse_delta_dval {r1['ms']:.4f} ms (plain {r1['plain_ms']:.4f}, bound "
+                    f"{r1['bound_ms']:.4f} by {r1['bound_by']}) [{card}]")
             detail.extend(rows)
     shape = (f"7 projections of one layer of qwen2-1.5b, M={m} bf16 rows, k={TRAIN_K}, "
              f"qkv bias")
@@ -1097,10 +1180,16 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": acc["lib"] if name == "fused_linear" else None, "shape": shape,
         }
-        lib = f", torch.addmm/mm dense part {acc['lib']:.4f}" if name == "fused_linear" else ""
+        extra = ""
+        if name == "fused_linear":
+            summary[name].update(launch_route="wgmma", k0_ms=acc["k0_ms"],
+                                 old_ms=acc["old_ms"], encode_us=acc["encode_us"])
+            extra = (f", k=0 {acc['k0_ms']:.4f}, WMMA kernel {acc['old_ms']:.4f}, torch.addmm/mm "
+                     f"dense part {acc['lib']:.4f}, tensor-map encodes {acc['encode_us']:.3f} us "
+                     f"of host time")
         log(f"[kernels] {name} ok (bf16 2e-2, fp32 2e-5 at all 7 shapes): max|err| bf16 "
             f"{acc['err']:.3e}; one layer {acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}"
-            f"{lib}, bound {b_ms:.4f} by {b_by}) [{card}]")
+            f"{extra}, bound {b_ms:.4f} by {b_by}) [{card}]")
 
 
 def flash_cost(q, k, causal: bool) -> tuple[float, float]:
@@ -1359,15 +1448,49 @@ def skinny_cases(gen, dev) -> None:
         f"2e-5; two bf16 calls identical bit for bit)")
 
 
+def old_fused_linear_q(x, qt, idx, val, bias, qd):
+    """The tiled WMMA kernel that bf16 took past the decode rows before the
+    TMA + wgmma route (now only for shapes TMA cannot describe): called
+    directly, timed beside the new route in the same run."""
+    m, kd = x.shape
+    n = qt.shape[-1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    k = 0 if idx is None else idx.shape[0]
+
+    def run():
+        build.check(build.library().rt_fused_linear_q(
+            x.data_ptr(), qt.data.data_ptr(), qt.scales.data_ptr(),
+            None if idx is None else idx.data_ptr(), None if val is None else val.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), m, n, kd, k, qt.block,
+            0 if qd == "int8" else 1, 1, 1 if val is None or val.dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream().cuda_stream), "fused_linear_q (tiled)")
+        return y
+    return run
+
+
+# (M, K, N, k, block): rows, columns and K off every tile. K 78 and 1002
+# and N 129 and 264 take the tiled WMMA kernel (K = 1002 leaves NF4 an odd
+# 21 packed rows in its last tile: the TMA route's K % 8 == 0 never does),
+# the rest past the decode rows the TMA + wgmma one: blocks 48 and 2 cross
+# K tiles (scale rows from global memory), K = 1064 leaves 20 packed rows in
+# the last tile, N = 48 one column chunk, M = 2047 a 63-row last tile
+PACKED_EDGE = ((130, 78, 129, 2, 32), (7, 4500, 520, 3, 128), (200, 1000, 264, 0, 6),
+               (33, 96, 48, 1, 2), (130, 1000, 256, 1, 48), (2047, 1064, 272, 2, 64),
+               (200, 1000, 48, 0, 2), (130, 1002, 256, 1, 2))
+
+
 def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
-    """``fused_linear_q`` (int8 and NF4) against its plain version: ragged
+    """``fused_linear_q`` (int8 and NF4) against its plain version: edge
     shapes first (row, column and K tails, scale blocks that cross K tiles,
-    k 0-3), then every projection at the training rows (M = batch x seq,
-    bypass k = 1, qkv bias) and at the decode rows (M = slots, no bypass:
-    the serving base matmul), bf16 and fp32; the bf16 calls timed and
-    summed over the layer's 7 projections per (scheme, M)."""
-    for rm, rk, rn, kk, block in ((130, 78, 129, 2, 32), (7, 4500, 520, 3, 128),
-                                  (200, 1000, 264, 0, 6), (33, 96, 48, 1, 2)):
+    k 0-3; each launch on the route ``quant_linear.route`` names, two bf16
+    calls identical bit for bit), then every projection at the training
+    rows (M = batch x seq, bypass k = 1, qkv bias; also timed at k = 0 and
+    on the tiled WMMA kernel) and at the decode
+    rows (M = slots, no bypass: the serving base matmul), bf16 and fp32; the
+    bf16 calls timed and summed over the layer's 7 projections per (scheme,
+    M)."""
+    counter = COUNTERS["fused_linear_q"]
+    for rm, rk, rn, kk, block in PACKED_EDGE:
         for qd in PACKED:
             for dt in (torch.bfloat16, torch.float32):
                 w = torch.randn(rk, rn, generator=gen, device=dev) * rk**-0.5
@@ -1376,26 +1499,35 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                 b = torch.randn(rn, generator=gen, device=dev).to(dt)
                 idx = torch.randint(0, rk, (kk, rn), generator=gen, device=dev,
                                     dtype=torch.int32) if kk else None
+                want_route = ql_mod.route(rm, rk, rn, dt, (x.data_ptr(), qt.data.data_ptr(),
+                                                           qt.scales.data_ptr()))
                 for vdt in (torch.bfloat16, torch.float32):
                     val = (torch.randn(kk, rn, generator=gen, device=dev) * 0.05).to(vdt) \
                         if kk else None
                     for bias in (b, None):
                         args = (x, qt.data, qt.scales, idx, val, bias)
+                        counter.reset()
                         got = ql_mod.fused_linear_q(*args, qdtype=qd, block=block)
                         want = ql_mod.fused_linear_q_plain(*args, qdtype=qd, block=block)
                         torch.cuda.synchronize()
-                        check_close(f"fused_linear_q {qd} ragged M={rm} K={rk} N={rn} k={kk} "
-                                    f"block={block}", got, want, dt)
-    log("[kernels] fused_linear_q ok on ragged shapes, int8 and NF4 (M 7/33/130/200, "
-        "K 78/96/1000/4500, N 48/129/264/520, blocks 2/6/32/128, k 0-3; bf16 2e-2, "
-        "fp32 2e-5)")
+                        name = (f"fused_linear_q {qd} edge M={rm} K={rk} N={rn} k={kk} "
+                                f"block={block} {dt}")
+                        check_close(name, got, want, dt)
+                        expect_route(counter, want_route, 1, name)
+                        if dt == torch.bfloat16:
+                            again = ql_mod.fused_linear_q(*args, qdtype=qd, block=block)
+                            assert torch.equal(got, again), f"{name}: two calls differ"
+    log("[kernels] fused_linear_q ok on edge shapes, int8 and NF4 (M 7/33/130/200/2047, "
+        "K 78/96/1000/1002/1064/4500, N 48/129/256/264/272/520, blocks 2/6/32/48/64/128, k 0-3; "
+        "each on the route quant_linear.route names: wgmma, tiled or f32; bf16 2e-2, fp32 "
+        "2e-5; two bf16 calls identical bit for bit)")
     skinny_cases(gen, dev)
     m_train, m_dec = TRAIN_BATCH * TRAIN_SEQ, SLOTS
     cases = {}
     for qd in PACKED:
         for m in (m_train, m_dec):
             acc = {"ms": 0.0, "plain_ms": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0,
-                   "err": 0.0}
+                   "err": 0.0, "k0_ms": 0.0, "old_ms": 0.0}
             for name, d_in, d_out in projections:
                 w = torch.randn(d_in, d_out, generator=gen, device=dev) * d_in**-0.5
                 for dt in (torch.bfloat16, torch.float32):
@@ -1415,14 +1547,18 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                     fn = lambda: ql_mod.fused_linear_q(*args, qdtype=qd, block=QUANT_BLOCK)  # noqa: E731
                     plain = lambda: ql_mod.fused_linear_q_plain(*args, qdtype=qd,  # noqa: E731
                                                                 block=QUANT_BLOCK)
+                    counter.reset()
                     got, want = fn(), plain()
                     torch.cuda.synchronize()
                     err = check_close(f"fused_linear_q {qd} {name} M={m}", got, want, dt)
-                    if dt == torch.bfloat16 and m == m_dec:
+                    route = ("f32" if dt == torch.float32 else
+                             "skinny" if m == m_dec else "wgmma")
+                    expect_route(counter, route, 1, f"fused_linear_q {qd} {name} M={m}")
+                    if dt == torch.bfloat16:
                         assert torch.equal(got, fn()), f"fused_linear_q {qd} {name}: two calls differ"
                     row = {"kernel": "fused_linear_q", "qdtype": qd, "proj": name, "M": m,
                            "K": d_in, "N": d_out, "k": k, "bias": bias is not None,
-                           "dtype": str(dt), "max_abs_err": err}
+                           "dtype": str(dt), "route": route, "max_abs_err": err}
                     if dt == torch.bfloat16:
                         cost = packed_cost(x, qt, k, val, bias)
                         row["ms"] = cuda_ms(fn)
@@ -1433,6 +1569,13 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                         lib = ((lambda: torch.addmm(bias, x, wd)) if bias is not None
                                else (lambda: torch.mm(x, wd)))
                         row["library_ms"] = cuda_ms(lib)
+                        if m == m_train:  # the bypass's share, the tiled kernel
+                            row["k0_ms"] = cuda_ms(lambda: ql_mod.fused_linear_q(
+                                x, qt.data, qt.scales, None, None, bias, qdtype=qd,
+                                block=QUANT_BLOCK))
+                            row["old_ms"] = cuda_ms(old_fused_linear_q(x, qt, idx, val, bias, qd))
+                            for key in ("k0_ms", "old_ms"):
+                                acc[key] += row[key]
                         for key, v in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
                                        ("lib", row["library_ms"]), ("bytes", cost[0]),
                                        ("flops", cost[1])):
@@ -1440,13 +1583,18 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                         acc["err"] = max(acc["err"], err)
                     detail.append(row)
             b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
-            cases[f"{qd} M={m}"] = {"ms": acc["ms"], "plain_ms": acc["plain_ms"],
-                                    "library_ms": acc["lib"], "bound_ms": b_ms,
-                                    "bound_by": b_by, "max_abs_err": acc["err"]}
-            log(f"[kernels] fused_linear_q {qd} one layer at M={m} (k={TRAIN_K if m == m_train else 0}): "
-                f"{acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, torch.mm dense bf16 part "
-                f"{acc['lib']:.4f}, bound {b_ms:.4f} by {b_by}); max|err| bf16 "
-                f"{acc['err']:.3e} [{card}]")
+            case = {"ms": acc["ms"], "plain_ms": acc["plain_ms"], "library_ms": acc["lib"],
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": acc["err"],
+                    "launch_route": "wgmma" if m == m_train else "skinny"}
+            extra = ""
+            if m == m_train:
+                case.update(k0_ms=acc["k0_ms"], old_ms=acc["old_ms"])
+                extra = f", k=0 {acc['k0_ms']:.4f}, tiled WMMA kernel {acc['old_ms']:.4f}"
+            cases[f"{qd} M={m}"] = case
+            log(f"[kernels] fused_linear_q {qd} one layer at M={m} (k={TRAIN_K if m == m_train else 0}, "
+                f"{case['launch_route']} route): {acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, "
+                f"torch.mm dense bf16 part {acc['lib']:.4f}{extra}, bound {b_ms:.4f} by {b_by}); "
+                f"max|err| bf16 {acc['err']:.3e} [{card}]")
     head = cases[f"int8 M={m_train}"]
     summary["fused_linear_q"] = {
         "source": ql_mod.SOURCE, "replaces": ql_mod.REPLACES,
@@ -1458,7 +1606,8 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
         "cases": cases,
     }
     log(f"[kernels] fused_linear_q ok (bf16 2e-2, fp32 2e-5 at all 7 shapes, int8 and NF4, "
-        f"M={m_train} and M={m_dec}) [{card}]")
+        f"M={m_train} on the wgmma route and M={m_dec} on the split-K route; two bf16 calls "
+        f"identical bit for bit) [{card}]")
 
 
 # --------------------------------------------------------------- engine runs
@@ -1734,10 +1883,11 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
         assert c.plain == 0, f"{qd} serving called the plain version of {name} {c.plain} times"
     forwards = n["paged_decode_attention"] + n["paged_prefill_attention"]  # one a layer-forward
     assert n["fused_linear_q"] == 7 * forwards > 0, (n, forwards)
-    # decode steps (M = slots rows) on the split-K kernel, mixed steps on the tiled one
+    # decode steps (M = slots rows) on the split-K kernel, mixed steps (M = 8
+    # slots x 256 rows) on the TMA + wgmma one
     routes = COUNTERS["fused_linear_q"].routes
     assert routes == {"skinny": 7 * n["paged_decode_attention"],
-                      "tiled": 7 * n["paged_prefill_attention"]}, routes
+                      "wgmma": 7 * n["paged_prefill_attention"]}, routes
     assert n["sparse_delta_batched"] > 0 and n["fused_linear"] == 0, n
     for r in reqs:
         assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
@@ -1805,8 +1955,9 @@ BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("paged_decode_attention", ("paged_decode",)),
            ("sparse_delta_batched", ("idsfromarray",)),
            ("sparse_delta", ("idsfromrow",)),
-           ("fused_linear_q", ("fused_linear_q",)),
-           ("fused_linear", ("fused_linear",)),
+           # the TMA + wgmma kernel carries its weight policy in its name
+           ("fused_linear_q", ("fused_linear_q", "packedw")),
+           ("fused_linear", ("fused_linear", "densew")),
            ("sparse_delta_dval", ("dval_",)),
            ("flash_attention_fwd", ("flash_fwd",)),
            ("topk_select", ("topk_kernel",)),
@@ -2071,6 +2222,114 @@ def decode_row_variants(card: str) -> None:
         json.dump(result, f, indent=1)
 
 
+# where the TMA + wgmma kernels' time goes: csrc/ rebuilt with one part
+# removed (each marker must be found in the file it names)
+_GATHER_COPY = "#pragma unroll\n            for (int q = 0; q < R / 32; ++q) dst["
+_FRAGMENTS = "          W::fragments(fa[h], ring"
+LINEAR_VARIANTS = {
+    "as built": (),
+    "no bypass gather copies": (("linear.cuh", _GATHER_COPY,
+                                 "            for (int q = 0; q < 0; ++q) dst["),),
+    "no dequantize": (("linear.cuh", _FRAGMENTS, "          if (t < 0) W::fragments(fa[h], ring"),),
+}
+
+
+def linear_variants(card: str) -> None:
+    """``fused_linear`` and ``fused_linear_q`` (int8, NF4) on the TMA +
+    wgmma route at qwen2-1.5b's M = 2048 path shapes (wq, wk, wgate, wdown),
+    with k = 1 and k = 0, timed with ``csrc/`` as built and with one part
+    removed at a time (the gather warps' copies of the bypass columns; the
+    packed kernel's dequantize), all built here in one call: the time a part
+    takes is the difference. Then the as-built kernels at every tile height
+    of ``fused_linear.TMA_ROWS``, beside the one ``linear_plan`` picks. Only
+    the unchanged build is checked against the plain versions (the others
+    are wrong by construction). Writes ``chiprun_out/linear_variants.json``."""
+    import ctypes
+    import shutil
+    nvcc = build.nvcc_path()
+    procs, libs = {}, {}
+    for name, edits in LINEAR_VARIANTS.items():
+        d = build.BUILD_DIR / "variants" / name.replace(" ", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        for fname, old, new in edits:
+            text = (d / fname).read_text()
+            assert old in text, f"marker of {name!r} not in {fname}"
+            (d / fname).write_text(text.replace(old, new))
+        procs[name] = subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(d / "v.so"), str(d / "fused_linear.cu"),
+             str(d / "fused_linear_q.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"variant {name!r} did not build:\n{out[-3000:]}"
+        lib = ctypes.CDLL(str(build.BUILD_DIR / "variants" / name.replace(" ", "_") / "v.so"))
+        for fn_name in ("rt_fused_linear_wgmma", "rt_fused_linear_q_wgmma"):
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = build.SIGNATURES[fn_name], ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cfg = get_config("qwen2-1.5b")
+    d_model, dkv, dff = cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim, cfg.d_ff
+    shapes = (("wq", d_model, d_model), ("wk", d_model, dkv), ("wgate", d_model, dff),
+              ("wdown", dff, d_model))
+    m = TRAIN_BATCH * TRAIN_SEQ
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    bf = torch.bfloat16
+    result = {"card": card, "M": m}
+    for weight in ("bf16",) + PACKED:
+        table = {}
+        for pname, k_in, n_out in shapes:
+            w = torch.randn(k_in, n_out, generator=gen, device=dev) * k_in**-0.5
+            x = torch.randn(m, k_in, generator=gen, device=dev).to(bf)
+            idx = torch.randint(0, k_in, (TRAIN_K, n_out), generator=gen, device=dev,
+                                dtype=torch.int32)
+            val = (torch.randn(TRAIN_K, n_out, generator=gen, device=dev) * 0.05).to(bf)
+            y = torch.empty(m, n_out, dtype=bf, device=dev)
+            plan_rows = fl_mod.linear_plan(m, n_out, k_in, sms)[1]
+            if weight == "bf16":
+                wd = w.to(bf)
+                want = fl_mod.fused_linear_plain(x, wd, idx, val)
+
+                def call(lib, k, rows, wd=wd, x=x, idx=idx, val=val, y=y, n_out=n_out, k_in=k_in):
+                    build.check(lib.rt_fused_linear_wgmma(
+                        x.data_ptr(), wd.data_ptr(), idx.data_ptr(), val.data_ptr(), None,
+                        y.data_ptr(), m, n_out, k_in, k, rows, 1, stream), "fused_linear variant")
+            else:
+                qt = quantize(w.to(bf), weight, QUANT_BLOCK)
+                want = ql_mod.fused_linear_q_plain(x, qt.data, qt.scales, idx, val, qdtype=weight,
+                                                   block=QUANT_BLOCK)
+
+                def call(lib, k, rows, qt=qt, x=x, idx=idx, val=val, y=y, n_out=n_out, k_in=k_in,
+                         qd=weight):
+                    build.check(lib.rt_fused_linear_q_wgmma(
+                        x.data_ptr(), qt.data.data_ptr(), qt.scales.data_ptr(), idx.data_ptr(),
+                        val.data_ptr(), None, y.data_ptr(), m, n_out, k_in, k, QUANT_BLOCK,
+                        0 if qd == "int8" else 1, 1, rows, stream), "fused_linear_q variant")
+            row = {"tile_rows": plan_rows}
+            for name, lib in libs.items():
+                if weight == "bf16" and name == "no dequantize":
+                    continue
+                for k in (TRAIN_K, 0):
+                    if name == "as built" and k:
+                        call(lib, k, plan_rows)
+                        torch.cuda.synchronize()
+                        check_close(f"{weight} {pname} as built", y, want, bf)
+                    row[f"{name}, k={k}"] = cuda_ms(lambda: call(lib, k, plan_rows))
+            for rows in fl_mod.TMA_ROWS:  # the tile heights the plan chooses among
+                row[f"tile_rows={rows}, k={TRAIN_K}"] = cuda_ms(
+                    lambda: call(libs["as built"], TRAIN_K, rows))
+            table[pname] = row
+            log(f"[linear variants] {weight} {pname} K={k_in} N={n_out} M={m}: " + ", ".join(
+                f"{key} {v:.4f}" if isinstance(v, float) else f"{key} {v}"
+                for key, v in row.items()) + f" ms [{card}]")
+        result[weight] = table
+    with open(os.path.join(OUT_DIR, "linear_variants.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
 def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
                         flash: bool = False) -> None:
     """Reduced ``arch`` in fp32 (fp32 values too), the same params and
@@ -2184,6 +2443,11 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
         per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
         want = step_launches(cfg, base, long)
         assert per_step == want, (per_step, want)
+        # every base matmul of a step (M = batch x seq rows) on the TMA + wgmma route
+        routes = {n: dict(COUNTERS[n].routes) for n in ("fused_linear", "fused_linear_q")
+                  if COUNTERS[n].kernel}
+        assert routes and all(r == {"wgmma": COUNTERS[n].kernel} for n, r in routes.items()), \
+            routes
         assert all(np.isfinite(losses)), losses
         prof = f"{tag.replace('-', '_')}_profile.txt"
         buckets = {}
@@ -2196,11 +2460,11 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
     log(f"[{tag}] {TRAIN_STEPS} steps of batch {batch} x seq {seq}: step time "
         f"median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
         f"{tok / med:.0f} training tokens/s; peak memory {peak / 2**30:.2f} GiB; base "
-        f"{base_bytes:,} bytes; launches per step {json.dumps(per_step)}, plain 0; device "
-        f"busy {busy:.1%} of a profiled step [{card}]")
+        f"{base_bytes:,} bytes; launches per step {json.dumps(per_step)} (routes "
+        f"{json.dumps(routes)}), plain 0; device busy {busy:.1%} of a profiled step [{card}]")
     result = {"card": card, "base": base, "base_bytes": base_bytes, "losses": losses,
               "step_s": times, "tokens_per_step": tok, "peak_bytes": peak,
-              "launches_per_step": per_step, "busy_share": busy,
+              "launches_per_step": per_step, "routes": routes, "busy_share": busy,
               "trainable": st["trainable"], "fraction": st["fraction"],
               "select_s": select_s, "select_launches": n_select,
               "select_peak_bytes_above_held": select_peak,
@@ -2319,6 +2583,9 @@ def main() -> int:
     if sys.argv[1:] == ["--decode-row-variants"]:
         decode_row_variants(card)
         return 0
+    if sys.argv[1:] == ["--linear-variants"]:
+        linear_variants(card)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2326,7 +2593,7 @@ def main() -> int:
     secs, build_log = build.timed_build()
     with open(os.path.join(OUT_DIR, "kernel_build.log"), "w") as f:
         f.write(build_log)
-    log(f"[build] {len(build.SIGNATURES)} kernel entry points built in {secs:.1f} s "
+    log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s "
         f"(sm_90a, nvcc; log in chiprun_out/kernel_build.log)")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
@@ -2409,6 +2676,8 @@ def main() -> int:
         }
         if name == "fused_linear_q":
             row.update(launches_by_phase=by_phase, cases=s["cases"])
+        if name == "fused_linear":
+            row.update({key: s[key] for key in ("launch_route", "k0_ms", "old_ms", "encode_us")})
         if name == "flash_attention_fwd":
             row["backward_plain_ms"] = s["backward_plain_ms"]
         if name == "topk_select":
@@ -2420,6 +2689,8 @@ def main() -> int:
             row.update(olmoe=dict(s["olmoe"], launches=olmoe_launches.get(name, 0)))
         kernels.append(row)
     log(f"[card] {card}")
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+        f.write("\n".join(LOG) + "\n")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

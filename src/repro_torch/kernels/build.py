@@ -56,6 +56,11 @@ SIGNATURES = {
     "rt_decode_attention_q": [_P] * 8 + [_I] * 9 + [_P],
     # x, w, idx, val, bias (may be null), y | M, N, K, k, x_dtype, v_dtype | stream
     "rt_fused_linear": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, idx, val, bias (may be null), y | M, N, K, k, tile_rows, v_dtype | stream
+    # (bf16, the TMA + wgmma route)
+    "rt_fused_linear_wgmma": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w | M, N, K, tile_rows, iters (returns the encodes' nanoseconds, or -1)
+    "rt_linear_encode_ns": [_P] * 2 + [_I] * 5,
     # x, idx, val, y | B, M, d_in, d_out, k, x_dtype, v_dtype | stream
     "rt_sparse_delta": [_P] * 4 + [_I] * 7 + [_P],
     # x, idx, dy, partials, dval | B, M, d_in, d_out, k, rows_per_split, n_split,
@@ -67,6 +72,9 @@ SIGNATURES = {
     # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
     # block, qdtype, v_dtype, k_chunk, n_split | stream (bf16 x, M <= 16)
     "rt_fused_linear_q_skinny": [_P] * 7 + [_I] * 9 + [_P],
+    # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
+    # block, qdtype, v_dtype, tile_rows | stream (bf16 x, the TMA + wgmma route)
+    "rt_fused_linear_q_wgmma": [_P] * 7 + [_I] * 8 + [_P],
     # q, k, v, out, lse | B, Sq, Skv, H, Hkv, hd, causal, dtype, the batch,
     # sequence and head strides of q, k and v | stream
     "rt_flash_attention_fwd": [_P] * 5 + [_I] * 17 + [_P],

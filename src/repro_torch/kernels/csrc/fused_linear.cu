@@ -3,30 +3,53 @@
 //   y[m, n] = sum_c x[m, c] * W[c, n] + sum_j val[j, n] * x[m, idx[j, n]] (+ b[n])
 // with float32 accumulation and one cast to x's dtype at the end.
 //
-// Replaces the TPU kernel src/repro/kernels/fused_linear.py
+// Replaces the TPU kernel src/repro/kernels/fused_linear.py:54
 // fused_linear_pallas (body _fused_kernel). That kernel walks K in tiles of
 // 512 and adds, per K tile, the bypass entries whose index falls inside it
-// (a masked lane gather), so it needs K to divide by 512 — qwen2-1.5b's
-// wdown (K = d_ff = 8960) does not. Here the base product runs over K in
-// 32-wide tiles with a masked tail, any M, N and K, and the whole bypass is
-// added once in the epilogue, reading x's rows from L2: the same function.
+// (a masked lane gather), so it needs K to divide by 512 -- qwen2-1.5b's
+// wdown (K = 8960) does not. Here any M, N and K: the same function.
 //
-// Bound: operations. At the training shapes (M = 2048 rows, K and N of
-// 256..8960) the product does 2*M*K*N flops on M*K + K*N + M*N elements,
-// far above the card's ~295 bf16 flops per byte of HBM; the k*N bypass
-// terms per row are negligible. Design, a simple first version:
-// - bf16: one 128x128 output tile per block of 8 warps; each warp owns a
-//   64x32 sub-tile as 4x2 WMMA 16x16x16 bf16 fragments with float32
-//   accumulators. x and W tiles (128x32 and 32x128) are double-buffered in
-//   shared memory with cp.async when rows are 16-byte aligned (K and N
-//   multiples of 8), with plain loads otherwise; out-of-range elements
-//   load as zeros. No wgmma or TMA yet.
-// - float32: a plain FMA kernel (64x64 tile, 4x4 outputs per thread), so
-//   the result is a true float32 product (no TF32).
-// - epilogue: each warp stages one 16x16 accumulator fragment at a time in
-//   shared memory; each lane then adds its elements' k bypass terms and the
-//   bias, casts once and stores.
+// Bound: operations. A training step's layer at M = 2048 rows (batch 4 x
+// seq 512) does 2 * 2048 * 46.8 M flops on 0.2 GB: 0.194 ms of bf16 tensor
+// work on an H100 against 0.06 ms of HBM traffic; the k * N bypass terms of
+// a row are negligible. Three kernels, chosen by fused_linear.route before
+// the launch:
+//
+// bf16 where TMA can describe x and W (K and N multiples of 8, both 16-byte
+// aligned): the Hopper mainloop of linear.cuh with DenseW below, tiles from
+// fused_linear.linear_plan. What it does about the four limits of the WMMA
+// kernel below (12 % of the bf16 peak at M = 2048):
+// - tensor path: wgmma m64nRk16 from shared memory (R = the block's x rows,
+//   up to 256; W's TMA box is the MN-major A operand as it lands), issued a
+//   warpgroup at a time with one group in flight while the next is issued,
+//   instead of warp-level 16x16x16 fragments reloaded by load_matrix_sync;
+// - depth and barriers: 64-deep K tiles in a ring of 3-4 TMA stages fed by
+//   one producer warp; consumers meet the producer only at the stages'
+//   mbarriers, never at a block-wide barrier in the loop (wdown's 140 tiles);
+// - waves: a block owns 128 columns and R rows picked per shape, so qwen2's
+//   N = 1536 projections make 12 x 11 blocks of 192 rows (one wave on 132
+//   SMs), N = 256 makes 2 x 64 of 32 rows, N = 8960 70 x 11 (5.8 waves);
+// - the bypass: three otherwise idle warps copy each entry's x column out of
+//   the staged tile it falls in, so the epilogue reads it from shared memory
+//   instead of gathering x's rows from L2.
+// The tensor maps of x and W are encoded on the host per call.
+//
+// bf16 otherwise (the ragged shapes, K = 77 or 4500, an x not 16-byte
+// aligned): the first version, one 128x128 output tile per block of 8 warps;
+// each warp owns a 64x32 sub-tile as 4x2 WMMA 16x16x16 bf16 fragments with
+// float32 accumulators; x and W tiles (128x32 and 32x128) double-buffered in
+// shared memory with cp.async when rows are 16-byte aligned, plain loads
+// otherwise; out-of-range elements load as zeros.
+//
+// float32: a plain FMA kernel (64x64 tile, 4x4 outputs per thread), so the
+// result is a true float32 product (no TF32).
+//
+// Epilogue of the WMMA and FMA kernels: each warp stages one 16x16
+// accumulator fragment at a time in shared memory; each lane then adds its
+// elements' k bypass terms and the bias, casts once and stores.
 #include <mma.h>
+
+#include <chrono>
 
 #include "linear.cuh"
 
@@ -215,6 +238,23 @@ cudaError_t launch_f32(const void* x, const void* w, const void* idx, const void
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16, TMA + wgmma
+
+// The weight operand of the Hopper mainloop: W's (64, 128) bf16 tile as two
+// 64-column TMA boxes with the 128-byte swizzle, each one consumer
+// warpgroup's MN-major A operand as it lands.
+struct DenseW {
+  static constexpr bool kDequant = false;
+  static constexpr int kStageBytes = 2 * kTmaBox;
+  static constexpr int kScaleBytes = 0;
+  __device__ static float code(int) { return 0.f; }
+  __device__ static void load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int n0,
+                              int t) {
+    tma_load_2d(dst, map, bar, n0, t * kTmaBK);
+    tma_load_2d(dst + kTmaBox, map, bar, n0 + 64, t * kTmaBK);
+  }
+};
+
 }  // namespace
 
 // bias may be null. x, w, bias and y share x_dtype; val has v_dtype.
@@ -234,4 +274,44 @@ extern "C" int rt_fused_linear(const void* x, const void* w, const void* idx, co
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The Hopper route: x, w, bias and y bf16; K and N multiples of 8, x and w
+// 16-byte aligned; tile_rows one of linear.cuh's tma_rows_ok.
+extern "C" int rt_fused_linear_wgmma(const void* x, const void* w, const void* idx,
+                                     const void* val, const void* bias, void* y, int M, int N,
+                                     int K, int k, int tile_rows, int v_dtype, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || k < 0 || K % 8 || N % 8 || !tma_rows_ok(tile_rows) ||
+      (reinterpret_cast<uintptr_t>(x) & 15) || (reinterpret_cast<uintptr_t>(w) & 15) ||
+      (v_dtype != RT_F32 && v_dtype != RT_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, wm;
+  cudaError_t err = encode_x(&xm, x, M, K, tile_rows);
+  if (err == cudaSuccess)
+    err = encode_2d(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, K, N, 2, kTmaBK, 64, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WgmmaArgs a{static_cast<const __nv_bfloat16*>(x), nullptr,
+                    static_cast<const int32_t*>(idx), val,
+                    static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y),
+                    M, N, K, k, 0, v_dtype == RT_F32, 0};
+  return static_cast<int>(
+      launch_wgmma<DenseW>(tile_rows, xm, wm, wm, a, static_cast<cudaStream_t>(stream)));
+}
+
+// Host time of the tensor-map encodes of one rt_fused_linear_wgmma call (x
+// and W), repeated `iters` times: total nanoseconds (iters of at most a few
+// thousand), or -1 on a failed encode.
+extern "C" int rt_linear_encode_ns(const void* x, const void* w, int M, int N, int K,
+                                         int tile_rows, int iters) {
+  CUtensorMap xm, wm;
+  if (encode_tiled() == nullptr) return -1;  // the entry point is looked up once, untimed
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    if (encode_x(&xm, x, M, K, tile_rows) != cudaSuccess ||
+        encode_2d(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, K, N, 2, kTmaBK, 64, true) !=
+            cudaSuccess)
+      return -1;
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return static_cast<int>(std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count());
 }

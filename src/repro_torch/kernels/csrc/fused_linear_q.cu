@@ -5,15 +5,34 @@
 //   deq(c, n) = code(c, n) * scales[c / block, n]   (float32, cast to x's dtype)
 // with float32 accumulation and one cast to x's dtype at the end.
 //
-// Replaces the TPU kernel src/repro/kernels/quant_linear.py
+// Replaces the TPU kernel src/repro/kernels/quant_linear.py:86
 // fused_linear_q_pallas (body _fused_q_kernel, dequant _dequant_tile). That
 // kernel dequantizes each 512-deep K tile in VMEM and needs K to divide by
 // 512 and the tile by the scale block; qwen2-1.5b's wdown (K = 8960) does
 // not. Here any M, N and K, any even block >= 2 (a tile may cross scale
-// blocks: each row reads the scale row of its own global k), and the bypass
-// is added once in the epilogue from x's rows, as in fused_linear.cu.
+// blocks: each row reads the scale row of its own global k).
 //
-// Three kernels, chosen by the wrapper (kernels/quant_linear.py):
+// Four kernels, chosen by quant_linear.route before the launch:
+//
+// bf16 past the decode rows where TMA can describe x and the codes (K a
+// multiple of 8, N of 16, x, codes and scales 16-byte aligned; the training
+// rows and the serving mixed step, M = 2048): the Hopper mainloop of
+// linear.cuh with PackedW below, tiles from fused_linear.linear_plan.
+// Bound: operations at M = 2048, as fused_linear (2 * 2048 * 46.8 M flops a
+// qwen2-1.5b layer, 0.194 ms of bf16 tensor work), while the codes are 50 /
+// 25 % of the dense weight's bytes. What it does about the four limits of
+// the tiled WMMA kernel below:
+// - tensor path: wgmma m64nRk16 with A from registers and B (x) from the
+//   swizzled stage, one group in flight, as fused_linear.cu's;
+// - the dequantize in series: each thread dequantizes tile t's codes into
+//   its own A fragments while tile t - 1's products run, with no shared
+//   tile, barrier or proxy fence between the two (the tiled kernel
+//   dequantized into one bf16 tile between two block barriers, then
+//   reloaded it through load_matrix_sync), and a tile's weight columns are
+//   dequantized once for R = 192 rows, not 128;
+// - waves and the bypass: the tiles and the gather warps of fused_linear.cu.
+// The tensor maps of x, the codes and the scales are encoded on the host per
+// call.
 //
 // bf16, decode rows (M <= 16, rt_fused_linear_q_skinny). Bound: bytes. One
 // layer of qwen2-1.5b reads 49.7 MB of int8 codes (26.3 MB NF4) plus 4
@@ -54,9 +73,9 @@
 // block an SM); no spills. 38 KB of static shared memory at M <= 8, 42 KB
 // at M <= 16 (warp reduction, partial tile, codebook).
 //
-// bf16, more rows (training at M = batch x seq, the mixed serving step),
-// bound by operations at M = 2048 (as fused_linear), a simple first version
-// built on fused_linear.cu:
+// bf16 past the decode rows on shapes TMA cannot describe (K = 78 or
+// 1002, N = 129 or 264, a misaligned pointer): the first version, built on
+// fused_linear.cu:
 // - the dense weight never exists in device memory: each K tile's packed
 //   codes (int8 (32, 128) or NF4 uint8 (16, 128)) land in shared memory by
 //   cp.async (plain loads when rows are not 16-byte aligned), 2 stages deep;
@@ -71,7 +90,7 @@
 //   __constant__ at block start: per-thread indices would serialize reads
 //   of constant memory);
 // - WMMA 16x16x16 fragments with float32 accumulators (128x128 block tile,
-//   8 warps of 64x32), as fused_linear; wgmma and TMA are later work.
+//   8 warps of 64x32), as the WMMA kernel of fused_linear.cu.
 //
 // float32 (the reduced card-vs-CPU runs): plain FMA (64x64 tile, 4x4 per
 // thread), a true float32 product (no TF32).
@@ -636,6 +655,119 @@ __global__ void __launch_bounds__(kThreadsF)
   }
 }
 
+// ------------------------------------------------- bf16, TMA + wgmma
+
+// The weight operand of the Hopper mainloop on a packed base: the codes of
+// a 64-row K tile by TMA with the 128-byte swizzle, (64, 128) int8 or
+// (32, 128) NF4 bytes (a tile starts at an even row, so no NF4 byte
+// straddles two), and, when one scale row serves the whole tile (`uniform`:
+// the block a multiple of 64), that row by TMA into the stage's slot of a
+// small ring. Each consumer thread dequantizes its two columns col, col + 1
+// (A rows g and g + 8 of its warp) of the tile straight into the wgmma A
+// fragments, 4 registers a 16-deep step: code * scale in float32, one
+// rounding to bf16 (the plain version's arithmetic). A fragment register
+// holds rows k, k + 1 of one column: two int8 code rows, or one NF4 byte
+// (low nibble row k). Its reads are 2-byte loads of columns col, col + 1 of
+// one code row (int8: rows k, k + 1, k + 8, k + 9 of a step; NF4: packed
+// rows k / 2, + 4), which the swizzle keeps free of bank conflicts. Each row
+// takes the scale row of its own global k (any even block: a tile may cross
+// scale blocks, whose rows are then read from global memory). Rows at or
+// past K give 0: NF4's code 0 is -1, and the codes' zero fill past the end
+// must not count; only a tile at the edge of the weight takes that branch.
+template <int QT>
+struct PackedW {
+  static constexpr bool kDequant = true;
+  static constexpr int kPRows = QT == RT_Q_NF4 ? kTmaBK / 2 : kTmaBK;  // packed rows a tile
+  static constexpr int kStageBytes = kPRows * kTmaCols;
+  static constexpr int kScaleBytes = kTmaCols * 4;  // one float32 scale row
+  __device__ static float code(int i) { return QT == RT_Q_NF4 ? kNF4[i] : 0.f; }
+  __device__ static void load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int n0,
+                              int t) {
+    tma_load_2d(dst, map, bar, n0, t * kPRows);
+  }
+  // bytes (row r, col) and (r, col + 1) of the swizzled code tile, col even
+  __device__ static uint32_t pair(const uint8_t* codes, int r, int col) {
+    return *reinterpret_cast<const uint16_t*>(codes + r * kTmaCols +
+                                              ((((col >> 4) ^ (r & 7))) << 4) + (col & 15));
+  }
+  // int8 code byte `sel` (0 or 1) of a pair as a float, exactly: 2^23 + code +
+  // 128 as float bits, minus 2^23 + 128 (as the decode-row kernel)
+  __device__ static float code8(uint32_t pr, int sel) {
+    return __int_as_float(__byte_perm(pr ^ 0x8080u, 0x4B000000u, 0x7440u + sel)) - 8388736.f;
+  }
+  __device__ static void fragments(uint32_t (&f)[kTmaBK / 16][4], const uint8_t* codes,
+                                   const float* srow, const float* nf4, const WgmmaArgs& a,
+                                   int t, int n0, int col, int t4) {
+    // an interior tile with one scale row (all but the last K tile and column
+    // tile on the path shapes) takes the branch-free body
+    if (a.uniform && (t + 1) * kTmaBK <= a.K && n0 + kTmaCols <= a.N)
+      frag<false>(f, codes, srow, nf4, a, t, n0, col, t4);
+    else
+      frag<true>(f, codes, srow, nf4, a, t, n0, col, t4);
+  }
+  template <bool EDGE>
+  __device__ static void frag(uint32_t (&f)[kTmaBK / 16][4], const uint8_t* codes,
+                              const float* srow, const float* nf4, const WgmmaArgs& a, int t,
+                              int n0, int col, int t4) {
+    const int k0 = t * kTmaBK, gn = n0 + col;
+    const bool col_ok = gn < a.N;  // N % 16 == 0: both columns in, or both out
+    float s0 = 0.f, s1 = 0.f;
+    if (a.uniform) {
+      const float2 sv = *reinterpret_cast<const float2*>(srow + col);
+      s0 = sv.x;
+      s1 = sv.y;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kTmaBK / 16; ++ks) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * ks + 2 * t4 + 8 * h;  // this register pair's rows r, r + 1
+        if (EDGE) {
+          if (!col_ok || k0 + r >= a.K) {  // K % 8 == 0: row r + 1 < K with r
+            f[ks][2 * h] = f[ks][2 * h + 1] = 0u;
+            continue;
+          }
+          if (!a.uniform) {
+            const float2 sv = __ldg(reinterpret_cast<const float2*>(
+                a.scales + static_cast<size_t>((k0 + r) / a.block) * a.N + gn));
+            s0 = sv.x;
+            s1 = sv.y;
+          }
+        }
+        if (QT == RT_Q_NF4) {
+          const uint32_t b = pair(codes, r / 2, col);  // col: rows r (low), r + 1; then col + 1
+          f[ks][2 * h] = pack_bf16(nf4[b & 0xF] * s0, nf4[(b >> 4) & 0xF] * s0);
+          f[ks][2 * h + 1] = pack_bf16(nf4[(b >> 8) & 0xF] * s1, nf4[(b >> 12) & 0xF] * s1);
+        } else {
+          const uint32_t lo = pair(codes, r, col), hi = pair(codes, r + 1, col);
+          f[ks][2 * h] = pack_bf16(code8(lo, 0) * s0, code8(hi, 0) * s0);
+          f[ks][2 * h + 1] = pack_bf16(code8(lo, 1) * s1, code8(hi, 1) * s1);
+        }
+      }
+    }
+  }
+};
+
+template <int QT>
+cudaError_t launch_wgmma_q(const void* x, const void* data, const void* scales, const void* idx,
+                           const void* val, const void* bias, void* y, int M, int N, int K,
+                           int k, int block, int v_dtype, int tile_rows, cudaStream_t stream) {
+  CUtensorMap xm, cm, sm;
+  cudaError_t err = encode_x(&xm, x, M, K, tile_rows);
+  if (err == cudaSuccess)
+    err = encode_2d(&cm, CU_TENSOR_MAP_DATA_TYPE_UINT8, data, QT == RT_Q_NF4 ? K / 2 : K, N, 1,
+                    PackedW<QT>::kPRows, kTmaCols, true);
+  if (err == cudaSuccess)  // one scale row of the block's 128 columns a box
+    err = encode_2d(&sm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, (K + block - 1) / block, N, 4,
+                    1, kTmaCols, false);
+  if (err != cudaSuccess) return err;
+  const WgmmaArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scales),
+                    static_cast<const int32_t*>(idx), val,
+                    static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y),
+                    M, N, K, k, block, v_dtype == RT_F32, block % kTmaBK == 0};
+  return launch_wgmma<PackedW<QT>>(tile_rows, xm, cm, sm, a, stream);
+}
+
 // ----------------------------------------------------------------- launch
 
 template <int QT, typename TV>
@@ -734,6 +866,31 @@ extern "C" int rt_fused_linear_q_skinny(const void* x, const void* data, const v
   else if (qdtype == RT_Q_NF4)
     err = launch_skinny<RT_Q_NF4>(x, data, scales, idx, val, bias, y, M, N, K, k, block,
                                   v_dtype, k_chunk, n_split, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The Hopper route: x, bias and y bf16, M > 16; K % 8 == 0 and N % 16 == 0
+// (TMA row strides), x, data and scales 16-byte aligned; tile_rows one of
+// linear.cuh's tma_rows_ok. idx/val null when k = 0.
+extern "C" int rt_fused_linear_q_wgmma(const void* x, const void* data, const void* scales,
+                                       const void* idx, const void* val, const void* bias,
+                                       void* y, int M, int N, int K, int k, int block,
+                                       int qdtype, int v_dtype, int tile_rows, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || k < 0 || block < 2 || block % 2 || K % 8 || N % 16 ||
+      !tma_rows_ok(tile_rows) || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(data) & 15) || (reinterpret_cast<uintptr_t>(scales) & 15) ||
+      (v_dtype != RT_F32 && v_dtype != RT_BF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (qdtype == RT_Q_INT8)
+    err = launch_wgmma_q<RT_Q_INT8>(x, data, scales, idx, val, bias, y, M, N, K, k, block,
+                                    v_dtype, tile_rows, s);
+  else if (qdtype == RT_Q_NF4)
+    err = launch_wgmma_q<RT_Q_NF4>(x, data, scales, idx, val, bias, y, M, N, K, k, block,
+                                   v_dtype, tile_rows, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -16,11 +16,16 @@ CUDA source (``csrc/fused_linear_q.cu``) carries the design note. The dense
 weight never exists in device memory, over any M, N and K and any even
 scale block (the Pallas kernel needs K to divide by its 512-deep tile,
 which qwen2-1.5b's ``wdown``, K = 8960, does not). :func:`route` picks one
-of three kernels: bf16 decode rows (M <= :data:`SKINNY_ROWS`) go to a
-split-K kernel that dequantizes in registers into swapped mma.sync
-operands, with K chunks from :func:`skinny_split` that a thread-block
-cluster sums in a fixed order; more bf16 rows to a 128 × 128 WMMA tile that
-dequantizes in shared memory; float32 to an FMA kernel.
+of four kernels by shape before the launch: bf16 decode rows (M <=
+:data:`SKINNY_ROWS`) go to a split-K kernel that dequantizes in registers
+into swapped mma.sync operands, with K chunks from :func:`skinny_split`
+that a thread-block cluster sums in a fixed order; more bf16 rows, where
+TMA can describe x and the codes, to the Hopper mainloop of
+``csrc/linear.cuh`` (the codes by TMA, dequantized by the consumer
+warpgroups into wgmma operands while the previous tile's products run;
+tiles from :func:`repro_torch.kernels.fused_linear.linear_plan`); other
+bf16 shapes to a 128 × 128 WMMA tile that dequantizes in shared memory;
+float32 to an FMA kernel.
 
 :func:`fused_linear_q` launches a kernel for a CUDA tensor and uses the
 plain version only for a CPU tensor; a build or launch failure raises.
@@ -33,6 +38,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.counters import LaunchCounter
+from repro_torch.kernels.decode_attention import sm_count
+from repro_torch.kernels.fused_linear import linear_plan
 
 counter = LaunchCounter("fused_linear_q")
 REPLACES = "src/repro/kernels/quant_linear.py:86"
@@ -54,12 +61,20 @@ SKINNY_COLS, SKINNY_WARPS, SKINNY_STEP, SKINNY_BLOCKS_PER_SM = 128, 8, 16, 2
 SKINNY_MAX_SPLIT = 16
 
 
-def route(m: int, dtype: torch.dtype) -> str:
-    """Which kernel serves (M, dtype) on the card: ``"skinny"`` (bf16 decode
-    rows), ``"tiled"`` (more bf16 rows) or ``"f32"``."""
+def route(m: int, k: int, n: int, dtype: torch.dtype, ptrs=()) -> str:
+    """Which kernel serves x (m, k) on packed codes of n columns on the
+    card: ``"skinny"`` (bf16 decode rows), ``"wgmma"`` (more bf16 rows where
+    TMA can describe x and the codes: ``k`` a multiple of 8, the codes' row
+    stride ``n`` of 16 bytes, every pointer in ``ptrs`` — x, codes, scales —
+    16-byte aligned), ``"tiled"`` (other bf16 shapes) or ``"f32"``. Chosen
+    by shape before the launch, never as a fallback."""
     if dtype == torch.float32:
         return "f32"
-    return "skinny" if m <= SKINNY_ROWS else "tiled"
+    if m <= SKINNY_ROWS:
+        return "skinny"
+    if k % 8 == 0 and n % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "tiled"
 
 
 def skinny_split(n: int, k: int, sms: int) -> tuple[int, int, int]:
@@ -148,10 +163,20 @@ def fused_linear_q(x, data, scales, idx=None, val=None, bias=None, *, qdtype: st
     k = 0 if idx is None else idx.shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     v_dtype = _DTYPES[x.dtype if val is None else val.dtype]
-    r = route(m, x.dtype)
+    r = route(m, kd, n, x.dtype, (x.data_ptr(), data.data_ptr(), scales.data_ptr()))
+    if r == "wgmma":
+        _, rows, _, _ = linear_plan(m, n, kd, sm_count(x.device))
+        rc = build.library().rt_fused_linear_q_wgmma(
+            x.data_ptr(), data.data_ptr(), scales.data_ptr(),
+            None if idx is None else idx.data_ptr(), None if val is None else val.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            m, n, kd, k, block, _QDTYPES[qdtype][0], v_dtype, rows, stream,
+        )
+        build.check(rc, "fused_linear_q")
+        counter.launched(r)
+        return y
     if r == "skinny":
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        _, k_chunk, n_split = skinny_split(n, kd, sms)
+        _, k_chunk, n_split = skinny_split(n, kd, sm_count(x.device))
         rc = build.library().rt_fused_linear_q_skinny(
             x.data_ptr(), data.data_ptr(), scales.data_ptr(),
             None if idx is None else idx.data_ptr(), None if val is None else val.data_ptr(),

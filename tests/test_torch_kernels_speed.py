@@ -4,7 +4,8 @@ prefill: what the CPU can hold of them.
 ``quant_linear.skinny_split`` (the split-K plan of the decode-row kernel)
 is pure Python: every K row in exactly one chunk, chunks starting at even
 rows, a tile's chunks within one cluster, one wave of blocks and the split
-at one of its limits, over qwen2-1.5b's seven projections. ``quant_linear.route`` sends bf16 decode rows to that kernel.
+at one of its limits, over qwen2-1.5b's seven projections. ``quant_linear.route`` sends bf16 decode rows to that kernel
+(more rows: see ``test_torch_linear.py``).
 
 The plain versions the card's kernels are held to: ``fused_linear_q`` at
 the decode rows (M 1, 8 and 16, no bypass and k = 2, int8 and NF4) against
@@ -107,10 +108,14 @@ def test_skinny_split_fills_the_card_where_k_allows():
 
 
 def test_route_sends_bf16_decode_rows_to_the_split_k_kernel():
-    assert [ql.route(m, torch.bfloat16) for m in (1, 8, ql.SKINNY_ROWS)] == ["skinny"] * 3
-    assert ql.route(ql.SKINNY_ROWS + 1, torch.bfloat16) == "tiled"
-    assert ql.route(2048, torch.bfloat16) == "tiled"
-    assert ql.route(8, torch.float32) == "f32"
+    k, n = QWEN2["wdown"]
+    assert [ql.route(m, k, n, torch.bfloat16) for m in (1, 8, ql.SKINNY_ROWS)] == ["skinny"] * 3
+    # past the decode rows: the TMA + wgmma kernel where TMA can describe the
+    # operands, the tiled WMMA kernel otherwise (K = 78 is no multiple of 8)
+    assert ql.route(ql.SKINNY_ROWS + 1, k, n, torch.bfloat16) == "wgmma"
+    assert ql.route(2048, k, n, torch.bfloat16) == "wgmma"
+    assert ql.route(2048, 78, n, torch.bfloat16) == "tiled"
+    assert ql.route(8, k, n, torch.float32) == "f32"
 
 
 # ------------------------------------- fused_linear_q at the decode rows
