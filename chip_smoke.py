@@ -5,20 +5,26 @@
     python3 chip_smoke.py --reduced-train-distances
     python3 chip_smoke.py --decode-row-variants
     python3 chip_smoke.py --linear-variants
+    python3 chip_smoke.py --attention-variants
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
 third only times the decode-row ``fused_linear_q`` with one part of its
 source removed at a time (where its time goes); the fourth does the same
 for the TMA + wgmma route of ``fused_linear`` and ``fused_linear_q`` at M
-= 2048, and times it at every tile height the plan chooses among.
+= 2048, and times it at every tile height the plan chooses among; the
+fifth times the two attention kernels redesigned for Hopper at their path
+shapes under the launch choices their planners pick among (the flash
+forward's key tile and stages, and rebuilt without its warpgroups' turns
+or with a part removed; the decode kernel's blocks an SM, stages, warps
+and heads a block).
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile the hand-written CUDA kernels from the nine sources in
-   ``src/repro_torch/kernels/csrc`` (timed; fourteen C entry points for
-   the thirteen kernels);
+   ``src/repro_torch/kernels/csrc`` (timed; eighteen C entry points for
+   the thirteen kernels, one of them the tensor-map encode timer);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
@@ -47,11 +53,17 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    buffers, the untied head over 2048 rows; dval's 2-D call equal to its
    B = 1 call bit for bit), and the earlier kernels at olmoe's shapes
    (paged attention with 16/16 heads, ``fused_linear`` 2048², the batched
-   apply over 256 stacked (tenant, expert) adapters); ``flash_attention_fwd``
-   (out and lse; causal and full, bf16 and fp32, hd 16/64/128, GQA groups 1
-   and 6, S 130 and 2000) and at the path shapes, qwen2's (1, 4096, 12/2,
-   128) and olmoe's (1, 2048, 16/16, 128), with the plain backward timed
-   at qwen2's; ``topk_select`` equal to the sort, indices and order
+   apply over 256 stacked (tenant, expert) adapters); the decode kernel
+   (paged and dense, fp and int8, route ``ring``) at its edges: GQA groups
+   1-16, hd 64-256, frontiers 0, 1, 15, 16, 17 and the table's full width,
+   sentinel entries, a dense Smax of 1000, two calls bit for bit;
+   ``flash_attention_fwd`` (out and lse; causal and full, bf16 and fp32, hd
+   16/64/128, GQA groups 1 and 6, S 130 and 2000; the wgmma route's edges:
+   Sq and Skv off the 128-row tiles, Skv != Sq, q/k/v as strided views of
+   one fused projection; every case twice, bit for bit, on the route
+   ``route`` names) and at the path shapes, qwen2's (1, 4096, 12/2, 128)
+   and olmoe's (1, 2048, 16/16, 128) on the wgmma route (timed beside the
+   mma route), with the plain backward timed at qwen2's; ``topk_select`` equal to the sort, indices and order
    (ragged d_in and d_out, k 1-64 and k = d_in, tie-heavy bf16), and over
    every stack qwen2 (7) and olmoe (8) select on — then timed beside
    its plain version, its bound and a one-call PyTorch yardstick where
@@ -67,9 +79,10 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 5. full serving: qwen2-1.5b at full published width in bf16, random
    weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
    ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
-   three serving kernels launched, no plain version called, one
-   device-to-host transfer per step (every forward and token draw under
-   ``torch.cuda.set_sync_debug_mode("error")``, so no hidden one), the
+   three serving kernels launched, no plain version called, every decode
+   launch on the ring route, one device-to-host transfer per step (every
+   forward and token draw under ``torch.cuda.set_sync_debug_mode("error")``,
+   so no hidden one), the
    block pool fully free at the end;
    the same run again under ``torch.profiler`` (device time by kernel);
    then a longer, decode-dominated window (16 requests x 128 new tokens)
@@ -102,7 +115,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    stack; 196 on a packed base, one a layer) and peak memory. Then
    long-context training: full-width qwen2-1.5b, bf16, k = 1, task ``lm``,
    batch 1 x seq 4096, 2 + 10 steps as above with 28 ``flash_attention_fwd``
-   launches a step beside the 196 of each training kernel, one profiled
+   launches a step (every one on the wgmma route) beside the 196 of each
+   training kernel, one profiled
    step (the flash forward's device time beside the plain backward's);
 8. MoE: reduced olmoe-1b-7b in fp32 trained three steps on the card and
    on the CPU (losses within 1e-5, values within 1e-4 relative; again on
@@ -547,6 +561,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
         f"bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
     detail.extend(prefill_cases(gen, dev, num_blocks))
     kv_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
+    detail.extend(decode_cases(gen, dev, num_blocks))
     train_kernels(gen, projections, dev, summary, detail, card)
     packed_kernels(gen, projections, dev, summary, detail, card)
     moe_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
@@ -747,6 +762,76 @@ def kv_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, pr
         log(f"[kernels] {name} ok (Smax {', '.join(map(str, smaxes))}): max|err| bf16 "
             f"{r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}{lib}, bound "
             f"{r['bound_ms']:.5f} by {r['bound_by']}) [{card}]")
+
+
+# the decode kernel's edges beside the path shapes: GQA groups 1, 2, 3, 6, 8
+# and 16 (H, Hkv, hd; hd 64, 80 and 256 beside 128), frontiers 0, 1, 15, 16,
+# 17 and the table's full width (MAX_LEN), sentinel entries past every
+# other frontier
+DECODE_HEADS = ((16, 16, 128), (4, 2, 128), (12, 2, 128), (8, 1, 64), (32, 2, 128),
+                (6, 2, 80), (8, 4, 256))
+DECODE_EDGE_VL = [0, 1, 15, 16, 17, MAX_LEN, 300, 33]
+DENSE_EDGE_SMAX = ((1000, False), (MAX_LEN, True))  # (Smax, int8): fp 1000 is no multiple of 16
+
+
+def decode_cases(gen, dev, num_blocks) -> list:
+    """The decode kernel (route ``ring``) against its plain version at
+    DECODE_HEADS x DECODE_EDGE_VL: the paged fp and int8 bodies (one int8
+    page all zero) and the dense ones (DENSE_EDGE_SMAX, frontiers capped at
+    Smax), bf16 within 2e-2 and fp32 within 2e-5; the idle slot gives
+    zeros, two calls on the same inputs the same bits, every launch the
+    ring route."""
+    rows = []
+    for heads in DECODE_HEADS:
+        h, hkv, hd = heads
+        for dt in (torch.bfloat16, torch.float32):
+            q, kp, vp, table, _, vl = paged_case(gen, [0] * SLOTS, DECODE_EDGE_VL, 1, dt, dev,
+                                                 num_blocks, heads=heads)
+            kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev, zero_group=int(table[5, 1]))
+            vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
+            cases = [("paged_decode_attention", f"paged {heads}", dec_mod.paged_decode_attention,
+                      dec_mod.paged_decode_attention_plain, (q, kp, vp, table, vl)),
+                     ("paged_decode_attention_q", f"paged int8 {heads}",
+                      dec_mod.paged_decode_attention, dec_mod.paged_decode_attention_plain,
+                      (q, kc, vc, table, vl, ks, vs))]
+            for smax, quant in DENSE_EDGE_SMAX:
+                dvl = vl.clamp(max=smax).contiguous()
+                if quant:
+                    shape = (SLOTS, smax // dd_mod.TILE, dd_mod.TILE, hkv, hd)
+                    dk, dks = quantized(gen, shape, dev, zero_group=(1, 0))
+                    dv, dvs = quantized(gen, shape, dev)
+                    args = (q, dk.reshape(SLOTS, smax, hkv, hd), dv.reshape(SLOTS, smax, hkv, hd),
+                            dvl, dks, dvs)
+                else:
+                    dk, dv = (torch.randn(SLOTS, smax, hkv, hd, generator=gen, device=dev).to(dt)
+                              for _ in range(2))
+                    args = (q, dk, dv, dvl)
+                cases.append(("decode_attention_q" if quant else "decode_attention",
+                              f"dense Smax {smax} {heads}", dd_mod.decode_attention,
+                              dd_mod.decode_attention_plain, args))
+            for name, tag, fn, plain, args in cases:
+                counter = COUNTERS[name]
+                counter.reset()
+                got = fn(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                label = f"{name} {tag} {dt}"
+                err = check_close(label, got, want, dt)
+                assert torch.equal(got, fn(*args)), f"{label}: two calls differ"
+                expect_route(counter, dec_mod.ROUTE, 2, label)
+                idle = (args[4] if name.startswith("paged") else args[3]) == 0
+                for s_ in idle.nonzero().flatten().tolist():
+                    assert float(got[s_].float().abs().max()) == 0.0, f"{label}: idle slot {s_}"
+                rows.append({"kernel": name, "case": "edge", "layout": tag, "dtype": str(dt),
+                             "max_abs_err": err})
+    errs = {dt: max(r["max_abs_err"] for r in rows if r["dtype"] == dt)
+            for dt in ("torch.bfloat16", "torch.float32")}
+    log(f"[kernels] decode (paged and dense, fp and int8) ok at {len(rows)} edge cases (H/Hkv/hd "
+        f"{list(DECODE_HEADS)}; kv_valid_len {DECODE_EDGE_VL}; dense Smax 1000 fp and 1024 int8): "
+        f"max|err| bf16 {errs['torch.bfloat16']:.3e} (2e-2), fp32 {errs['torch.float32']:.3e} "
+        f"(2e-5); idle slots zero; two calls identical bit for bit; every launch on the "
+        f"{dec_mod.ROUTE} route")
+    return rows
 
 
 # ------------------------------------------------------------------- MoE
@@ -1042,6 +1127,24 @@ def expect_route(counter, want: str, n: int, what: str) -> None:
     assert counter.routes == {want: n}, f"{what}: routes {counter.routes}, want {want} x {n}"
 
 
+DECODE_NAMES = ("paged_decode_attention", "paged_decode_attention_q", "decode_attention",
+                "decode_attention_q")
+
+
+def decode_routes(what: str) -> dict:
+    """Every decode launch since the counters were reset (at least one)
+    took the decode kernel's route; returns the launches by kernel."""
+    n = {}
+    for name in DECODE_NAMES:
+        c = COUNTERS[name]
+        if c.kernel:
+            expect_route(c, dec_mod.ROUTE, c.kernel, f"{what}: {name}")
+            n[name] = c.kernel
+    assert n, f"{what}: no decode launch"
+    log(f"[{what}] every decode launch on the {dec_mod.ROUTE} route: {json.dumps(n)}")
+    return n
+
+
 # edge shapes of the TMA + wgmma route beside the WMMA kernel's ragged ones:
 # (M, K, N, k, x offset in elements). K 77 / 4500, N 129 and an x that
 # starts 4 elements (8 bytes) into its buffer take the WMMA kernel; rows
@@ -1222,13 +1325,36 @@ def check_flash(name: str, q, k, v, causal: bool, out, lse) -> dict:
     return row
 
 
+# the wgmma route's edges: (B, Sq, Skv, H, Hkv, hd, causal, q/k/v as strided
+# views of one fused (B, S, (H + 2 Hkv) hd) projection); Sq and Skv off the
+# 128-row tiles, Skv != Sq (full and causal), Sq below one tile
+FLASH_WGMMA_EDGE = ((1, 200, 200, 4, 2, 64, True, False), (2, 300, 300, 12, 2, 128, True, True),
+                    (1, 130, 333, 6, 6, 128, False, False), (1, 517, 517, 8, 2, 64, False, True),
+                    (1, 64, 1000, 4, 1, 128, False, False), (1, 333, 200, 4, 2, 128, True, False))
+
+
+def flash_call(name, q, k, v, causal: bool) -> tuple:
+    """``flash_attention_fwd`` twice on the same inputs: the same bits, both
+    launches on the route ``route`` names. Returns (out, lse)."""
+    counter = COUNTERS["flash_attention_fwd"]
+    counter.reset()
+    out, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal)
+    out2, lse2 = fa_mod.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2), f"{name}: two calls differ"
+    expect_route(counter, fa_mod.route(q, k, v), 2, name)
+    return out, lse
+
+
 def flash_cases(gen, dev) -> tuple[list, dict]:
-    """``flash_attention_fwd`` against its plain version (``check_flash``):
-    causal and full, bf16 and fp32, hd 16 / 64 / 128, GQA groups 1 and 6,
-    ragged S (130, 2000); then the path shapes, bf16 causal — qwen2-1.5b's
-    (1, 4096, 12/2, 128) and olmoe-1b-7b's (1, 2048, 16/16, 128). Returns
-    every case's readings and, by arch, the path shape's (q, k, v, out,
-    lse, readings)."""
+    """``flash_attention_fwd`` against its plain version (``check_flash``),
+    every case called twice (``flash_call``: the same bits, the route
+    ``route`` names): causal and full, bf16 and fp32, hd 16 / 64 / 128, GQA
+    groups 1 and 6, ragged S (130, 2000); the wgmma route's edges
+    (FLASH_WGMMA_EDGE); then the path shapes, bf16 causal — qwen2-1.5b's
+    (1, 4096, 12/2, 128) and olmoe-1b-7b's (1, 2048, 16/16, 128), both on
+    the wgmma route. Returns every case's readings and, by arch, the path
+    shape's (q, k, v, out, lse, readings)."""
     def qkv(b, s, h, hkv, hd, dt):
         return (torch.randn(b, s, n, hd, generator=gen, device=dev).to(dt) for n in (h, hkv, hkv))
 
@@ -1239,26 +1365,48 @@ def flash_cases(gen, dev) -> tuple[list, dict]:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = qkv(b, s, h, hkv, hd, dt)
             for causal in (True, False):
-                out, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal)
                 name = f"flash_attention_fwd {(b, s, h, hkv, hd)} {dt} causal={causal}"
+                out, lse = flash_call(name, q, k, v, causal)
                 checked.append({"kernel": "flash_attention_fwd", "shape": [b, s, h, hkv, hd],
                                 "dtype": str(dt), "causal": causal,
+                                "route": fa_mod.route(q, k, v),
                                 **check_flash(name, q, k, v, causal, out, lse)})
+    for b, sq, skv, h, hkv, hd, causal, fused in FLASH_WGMMA_EDGE:
+        if fused:
+            qkv_ = torch.randn(b, sq, (h + 2 * hkv) * hd, generator=gen, device=dev).to(
+                torch.bfloat16)
+            q, k, v = (qkv_[..., a * hd:(a + n) * hd].unflatten(-1, (n, hd))
+                       for a, n in ((0, h), (h, hkv), (h + hkv, hkv)))
+        else:
+            q = torch.randn(b, sq, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+        name = f"flash_attention_fwd wgmma edge {(b, sq, skv, h, hkv, hd)} causal={causal}" + (
+            " fused qkv" if fused else "")
+        assert fa_mod.route(q, k, v) == "wgmma", name
+        out, lse = flash_call(name, q, k, v, causal)
+        checked.append({"kernel": "flash_attention_fwd", "case": "wgmma edge",
+                        "shape": [b, sq, skv, h, hkv, hd], "fused": fused,
+                        "dtype": "torch.bfloat16", "causal": causal, "route": "wgmma",
+                        **check_flash(name, q, k, v, causal, out, lse)})
     for arch, (b, s, h, hkv, hd) in (("qwen2-1.5b", (LONG_BATCH, LONG_SEQ, 12, 2, 128)),
                                      (MOE_ARCH, (1, 2048, 16, 16, 128))):
         cfg = get_config(arch)
         assert (h, hkv, hd) == (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
         q, k, v = qkv(b, s, h, hkv, hd, torch.bfloat16)
-        out, lse = fa_mod.flash_attention_fwd(q, k, v, causal=True)
+        assert fa_mod.route(q, k, v) == "wgmma", arch
+        out, lse = flash_call(f"flash_attention_fwd {arch}", q, k, v, True)
         row = {"kernel": "flash_attention_fwd", "arch": arch, "shape": [b, s, h, hkv, hd],
-               "dtype": "torch.bfloat16", "causal": True,
+               "dtype": "torch.bfloat16", "causal": True, "route": "wgmma",
                **check_flash(f"flash_attention_fwd {arch}", q, k, v, True, out, lse)}
         checked.append(row)
         path[arch] = (q, k, v, out, lse, row)
     bf16 = [r for r in checked if "rel_err" in r]
     log(f"[kernels] flash_attention_fwd ok on out and lse at {len(checked)} cases (causal and "
-        f"full, bf16 and fp32, hd 16/64/128, GQA groups 1 and 6, S 130 and 2000, both path "
-        f"shapes): lse max|err| {max(r['lse_max_abs_err'] for r in checked):.3e} (bound "
+        f"full, bf16 and fp32, hd 16/64/128, GQA groups 1 and 6, S 130 and 2000, the wgmma "
+        f"route's edges {[c[:7] for c in FLASH_WGMMA_EDGE]} (fused qkv views among them), both "
+        f"path shapes; two calls identical bit for bit, each on the route route() names): lse "
+        f"max|err| {max(r['lse_max_abs_err'] for r in checked):.3e} (bound "
         f"{FLASH_LSE_ATOL}); bf16 out relative error at most "
         f"{max(r['rel_err'] / r['rounding'] for r in bf16):.2f} roundings (bound "
         f"{FLASH_BF16_ROUNDINGS}), max|err| {max(r['max_abs_err'] for r in bf16):.3e} (2e-2); "
@@ -1279,6 +1427,7 @@ def long_context_kernels(gen, dev, summary, detail, card: str) -> None:
         cfg = get_config(arch)
         b, s, h, hkv, hd = row["shape"]
         row["ms"] = cuda_ms(lambda: fa_mod.flash_attention_fwd(q, k, v, causal=True))
+        row["mma_ms"] = cuda_ms(mma_flash(q, k, v, True))
         row["plain_ms"] = cuda_ms(lambda: fa_mod.flash_attention_fwd_plain(q, k, v, causal=True),
                                   iters=3)
         row["bound_ms"], row["bound_by"] = bound(*flash_cost(q, k, True), torch.bfloat16)
@@ -1293,7 +1442,8 @@ def long_context_kernels(gen, dev, summary, detail, card: str) -> None:
         log(f"[kernels] flash_attention_fwd {arch} {(b, s, h, hkv, hd)} bf16 causal: max|err| "
             f"{row['max_abs_err']:.3e}, relative {row['rel_err']:.3e} "
             f"({row['rel_err'] / row['rounding']:.2f} roundings), lse {row['lse_max_abs_err']:.3e}; {row['ms']:.4f} ms "
-            f"(plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
+            f"(mma route {row['mma_ms']:.4f}, plain {row['plain_ms']:.4f}, sdpa "
+            f"{row['library_ms']:.4f}, bound "
             f"{row['bound_ms']:.4f} by {row['bound_by']})"
             + (f"; plain backward {row['backward_plain_ms']:.4f} ms"
                if "backward_plain_ms" in row else "") + f" [{card}]")
@@ -1305,8 +1455,9 @@ def long_context_kernels(gen, dev, summary, detail, card: str) -> None:
         "backward_plain_ms": r["backward_plain_ms"],
         "shape": f"one layer of qwen2-1.5b: q ({LONG_BATCH}, {LONG_SEQ}, 12, 128), k/v "
                  f"({LONG_BATCH}, {LONG_SEQ}, 2, 128) bf16, causal",
-        "olmoe": {k: o[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                    "max_abs_err")},
+        "launch_route": "wgmma", "mma_ms": r["mma_ms"],
+        "olmoe": {k: o[k] for k in ("ms", "mma_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_abs_err")},
     }
 
 
@@ -1756,6 +1907,7 @@ def phase_full(card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: COUNTERS[n].kernel for n in SERVING}
+    decode_routes("full")
     for name, c in COUNTERS.items():
         assert name not in SERVING or c.kernel > 0, f"full run never launched {name}"
         assert c.plain == 0, f"full run called the plain version of {name} {c.plain} times"
@@ -1826,6 +1978,7 @@ def phase_full_kv(model, params, tenants, prompts, max_new, kw, card: str, paged
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = {c.name: c.kernel for c in COUNTERS.values()}
+    decode_routes(f"full-{name}")
     for c in COUNTERS.values():
         assert c.plain == 0, f"{name} serving called the plain version of {c.name}"
         assert c.name not in others or c.kernel == 0, f"{name} serving launched {c.name}"
@@ -1888,6 +2041,7 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
     routes = COUNTERS["fused_linear_q"].routes
     assert routes == {"skinny": 7 * n["paged_decode_attention"],
                       "wgmma": 7 * n["paged_prefill_attention"]}, routes
+    decode_routes(f"full-{qd}")
     assert n["sparse_delta_batched"] > 0 and n["fused_linear"] == 0, n
     for r in reqs:
         assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
@@ -1952,7 +2106,8 @@ def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WIN
 
 
 BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
-           ("paged_decode_attention", ("paged_decode",)),
+           # the ring decode kernel serves the paged and the dense cache
+           ("decode attention (paged or dense)", ("decode_ring",)),
            ("sparse_delta_batched", ("idsfromarray",)),
            ("sparse_delta", ("idsfromrow",)),
            # the TMA + wgmma kernel carries its weight policy in its name
@@ -2330,6 +2485,160 @@ def linear_variants(card: str) -> None:
         json.dump(result, f, indent=1)
 
 
+def mma_flash(q, k, v, causal: bool):
+    """The mma.sync kernel that bf16 took at every head dim before the wgmma
+    route (the wrapper now sends it the other head dims): called directly,
+    timed beside the new route in the same run."""
+    b, sq, h, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+
+    def run():
+        build.check(build.library().rt_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
+            k.shape[1], h, k.shape[2], hd, int(causal), 1, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], torch.cuda.current_stream().cuda_stream), "flash (mma route)")
+        return out, lse
+    return run
+
+
+# the launch choices --attention-variants times beside the chosen ones
+FLASH_VARIANTS = ((128, 2), (128, 3), (64, 2), (64, 3))  # (key tile, stages)
+DECODE_VARIANTS = tuple((bps, st, w, nh) for bps in (4, 8, 16) for st in (1, 2, 4)
+                        for w in (2, 4) for nh in (1, 2, 4))
+# the flash wgmma kernel rebuilt with one part changed: name -> (whether it
+# still computes the function, (marker, replacement), ...). Without its
+# warpgroups' turns (named barriers 1 and 2) each warpgroup issues its
+# products when it is ready; the others remove the exponentials, the P V
+# products or the Q K^T products (where the time goes)
+_TURN = "  auto turn_begin = [&] { rt::named_bar(bar_mine, 256); };\n"
+_PASS = '    if (cw == 0 || u < T) asm volatile("bar.arrive %0, 256;\\n" ::"r"(bar_other) : "memory");\n'
+_FIRST = '  if (cw == 1) asm volatile("bar.arrive %0, 256;\\n" ::"r"(bar_other) : "memory");\n'
+_EX2 = '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n'
+_PV = "      rt::WgmmaRS<HD>::template mma<1>(o, pa[kk],"
+_QK = "      rt::Wgmma<BK>::template mma<0, 0>("
+FLASH_SOURCE_VARIANTS = {
+    "no turns": (True, ((_TURN, "  auto turn_begin = [&] {};\n"), (_PASS, ""), (_FIRST, ""))),
+    "no exp2": (False, ((_EX2, "  y = x;\n"),)),
+    "no P V products": (False, ((_PV, "      if (kk < 0) " + _PV.lstrip()),)),
+    "no Q K^T products": (False, ((_QK, "      if (ks < 0) " + _QK.lstrip()),)),
+}
+
+
+def flash_source_variants() -> dict:
+    """FLASH_SOURCE_VARIANTS built (flash_attention.cu alone, each marker
+    found), in parallel: name -> the variant's rt_flash_attention_fwd_wgmma."""
+    import ctypes
+    import shutil
+    nvcc = build.nvcc_path()
+    procs, fns = {}, {}
+    for name, (_, edits) in FLASH_SOURCE_VARIANTS.items():
+        d = build.BUILD_DIR / "variants" / name.replace(" ", "_").replace("^", "")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(build.CSRC, d)
+        text = (d / "flash_attention.cu").read_text()
+        for old, new in edits:
+            assert old in text, f"marker of {name!r} not in flash_attention.cu: {old!r}"
+            text = text.replace(old, new)
+        (d / "flash_attention.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(d / "v.so"),
+             str(d / "flash_attention.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"variant {name!r} did not build:\n{out[-3000:]}"
+        fn = ctypes.CDLL(str(build.BUILD_DIR / "variants" / name.replace(" ", "_").replace("^", "")
+                             / "v.so"))
+        fn = fn.rt_flash_attention_fwd_wgmma
+        fn.argtypes = build.SIGNATURES["rt_flash_attention_fwd_wgmma"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def attention_variants(card: str) -> None:
+    """The two redesigned kernels at their path shapes (bf16) with the
+    launch choices their planners pick among: ``flash_attention_fwd``'s
+    wgmma route at every (key tile, stages) of FLASH_VARIANTS and rebuilt
+    per FLASH_SOURCE_VARIANTS (without the warpgroups' turns, checked; with
+    a part removed, timed only), beside the mma route and one SDPA call; the decode kernel at
+    qwen2's and olmoe's serving shapes under every distinct plan of
+    DECODE_VARIANTS (blocks an SM, most stages, warps and heads a block;
+    each checked). Writes ``chiprun_out/attention_variants.json``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    build.library()
+    rebuilt = flash_source_variants()
+    result = {"card": card, "flash": {}, "decode": {}}
+    for arch, (b, s, h, hkv, hd) in (("qwen2-1.5b", (LONG_BATCH, LONG_SEQ, 12, 2, 128)),
+                                     (MOE_ARCH, (1, 2048, 16, 16, 128))):
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (h, hkv, hkv))
+        out = torch.empty_like(q)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+
+        def wgmma(fn, bk=fa_mod.BLOCK_KEYS, st=fa_mod.STAGES):
+            """The wgmma route's C entry point ``fn`` at (key tile, stages)."""
+            return lambda: build.check(fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
+                s, s, h, hkv, hd, 1, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], bk,
+                st, torch.cuda.current_stream().cuda_stream), "flash_attention_fwd (wgmma)")
+
+        row = {}
+        for bk, st in FLASH_VARIANTS:
+            run = wgmma(build.library().rt_flash_attention_fwd_wgmma, bk, st)
+            run()
+            check_flash(f"flash {arch} key tile {bk} stages {st}", q, k, v, True, out, lse)
+            key = f"block_keys={bk}, stages={st}" + (
+                " (chosen)" if (bk, st) == (fa_mod.BLOCK_KEYS, fa_mod.STAGES) else "")
+            row[key] = cuda_ms(run)
+        row["mma route"] = cuda_ms(mma_flash(q, k, v, True))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["sdpa (yardstick)"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        for name, fn in rebuilt.items():
+            run = wgmma(fn)
+            run()
+            if FLASH_SOURCE_VARIANTS[name][0]:  # a schedule change: still the function
+                check_flash(f"flash {arch} {name}", q, k, v, True, out, lse)
+            row[name] = cuda_ms(run)
+        result["flash"][arch] = row
+        log(f"[attention variants] flash {arch} {(b, s, h, hkv, hd)} causal: " + ", ".join(
+            f"{key} {ms:.4f}" for key, ms in row.items()) + f" ms [{card}]")
+    num_blocks = SLOTS * (-(-MAX_LEN // PAGE))
+    sms = dec_mod.sm_count(dev)
+    dec_vl = [1, 17, 300, MAX_LEN - 1, 512, 0, 640, 33]
+    for arch in ("qwen2-1.5b", MOE_ARCH):
+        q, kp, vp, table, _, vl = paged_case(gen, [0] * SLOTS, dec_vl, 1, torch.bfloat16, dev,
+                                             num_blocks, arch=arch)
+        h, hkv, hd = q.shape[2], kp.shape[2], q.shape[3]
+        want = dec_mod.paged_decode_attention_plain(q, kp, vp, table, vl)
+        chosen = dec_mod.decode_plan(SLOTS, hkv, h // hkv, table.shape[1], sms, kp.dtype, hd)
+        row, seen = {}, set()
+        for bps, st, w, nh in DECODE_VARIANTS:
+            plan = dec_mod.decode_plan(SLOTS, hkv, h // hkv, table.shape[1], sms, kp.dtype, hd,
+                                       blocks_per_sm=bps, max_stages=st, max_warps=w,
+                                       max_heads=nh)
+            if plan in seen:
+                continue
+            seen.add(plan)
+            got = dec_mod.launch(q, kp, vp, table, vl, None, None, plan)
+            torch.cuda.synchronize()
+            check_close(f"decode {arch} plan {plan}", got, want, torch.bfloat16)
+            key = (f"{plan.threads // 32} warps, {plan.heads} heads a block, {plan.ranges} "
+                   f"ranges of {plan.per} pages, {plan.stages} stages"
+                   + (" (chosen)" if plan == chosen else ""))
+            row[key] = cuda_ms(lambda: dec_mod.launch(q, kp, vp, table, vl, None, None, plan))
+        result["decode"][arch] = row
+        best = min(row, key=row.get)
+        log(f"[attention variants] decode {arch} q {tuple(q.shape)}: fastest {best} "
+            f"{row[best]:.4f} ms; chosen {[f'{k_} {v_:.4f}' for k_, v_ in row.items() if 'chosen' in k_]} "
+            f"[{card}]")
+    with open(os.path.join(OUT_DIR, "attention_variants.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
 def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
                         flash: bool = False) -> None:
     """Reduced ``arch`` in fp32 (fp32 values too), the same params and
@@ -2448,6 +2757,10 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
                   if COUNTERS[n].kernel}
         assert routes and all(r == {"wgmma": COUNTERS[n].kernel} for n, r in routes.items()), \
             routes
+        if long:  # every flash launch of the long-context steps on the wgmma route
+            fr = dict(COUNTERS["flash_attention_fwd"].routes)
+            assert fr == {"wgmma": launches["flash_attention_fwd"]}, fr
+            routes["flash_attention_fwd"] = fr
         assert all(np.isfinite(losses)), losses
         prof = f"{tag.replace('-', '_')}_profile.txt"
         buckets = {}
@@ -2532,6 +2845,7 @@ def serve_moe(model, params, trainer, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = {name: c.kernel for name, c in COUNTERS.items()}
+    decode_routes("serve-olmoe")
     for name, c in COUNTERS.items():
         assert c.plain == 0, f"olmoe serving called the plain version of {name}"
         assert name in SERVING or c.kernel == 0, f"olmoe serving launched {name}"
@@ -2585,6 +2899,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--linear-variants"]:
         linear_variants(card)
+        return 0
+    if sys.argv[1:] == ["--attention-variants"]:
+        attention_variants(card)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -2679,7 +2996,9 @@ def main() -> int:
         if name == "fused_linear":
             row.update({key: s[key] for key in ("launch_route", "k0_ms", "old_ms", "encode_us")})
         if name == "flash_attention_fwd":
-            row["backward_plain_ms"] = s["backward_plain_ms"]
+            row.update({key: s[key] for key in ("backward_plain_ms", "launch_route", "mma_ms")})
+        if name in DECODE_NAMES:
+            row["launch_route"] = dec_mod.ROUTE
         if name == "topk_select":
             row["launches_by_phase"] = select_by_phase
         if "olmoe" in s:

@@ -36,24 +36,25 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, idx, val, aid, y | M, d_in, d_out, n_ad, k, x_dtype, v_dtype | stream
     "rt_sparse_delta_batched": [_P] * 5 + [_I] * 7 + [_P],
-    # q, k_pool, v_pool, table, kv_valid_len, out, partials | B, n_blocks, page, hkv,
-    # hd, g, n_pages, pages_per_split, n_split, dtype | stream
-    "rt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
-    # q, k_pool, v_pool, k_scale, v_scale, table, kv_valid_len, out, partials |
-    # the same ints | stream (int8 pools, float32 scales)
-    "rt_paged_decode_attention_q": [_P] * 9 + [_I] * 10 + [_P],
+    # q, k_pool, v_pool, table, kv_valid_len, out, partials, tickets | B, n_blocks,
+    # page, hkv, hd, g, heads a block, n_pages, pages_per_range, ranges, stages, warps,
+    # smem, dtype | stream
+    "rt_paged_decode_attention": [_P] * 8 + [_I] * 14 + [_P],
+    # q, k_pool, v_pool, k_scale, v_scale, table, kv_valid_len, out, partials,
+    # tickets | the same ints | stream (int8 pools, float32 scales)
+    "rt_paged_decode_attention_q": [_P] * 10 + [_I] * 14 + [_P],
     # q, k_pool, v_pool, table, q_offset, kv_valid_len, out | B, C, n_blocks, page,
     # hkv, hd, g, n_pages, dtype | stream
     "rt_paged_prefill_attention": [_P] * 7 + [_I] * 9 + [_P],
     # q, k_pool, v_pool, k_scale, v_scale, table, q_offset, kv_valid_len, out |
     # the same ints | stream (int8 pools, float32 scales)
     "rt_paged_prefill_attention_q": [_P] * 9 + [_I] * 9 + [_P],
-    # q, k, v, kv_valid_len, out, partials | B, smax, tile, hkv, hd, g,
-    # tiles_per_split, n_split, dtype | stream
-    "rt_decode_attention": [_P] * 6 + [_I] * 9 + [_P],
-    # q, k, v, k_scale, v_scale, kv_valid_len, out, partials | the same ints |
-    # stream (int8 cache, float32 scales)
-    "rt_decode_attention_q": [_P] * 8 + [_I] * 9 + [_P],
+    # q, k, v, kv_valid_len, out, partials, tickets | B, smax, tile, hkv, hd, g,
+    # heads a block, tiles_per_range, ranges, stages, warps, smem, dtype | stream
+    "rt_decode_attention": [_P] * 7 + [_I] * 13 + [_P],
+    # q, k, v, k_scale, v_scale, kv_valid_len, out, partials, tickets | the same
+    # ints | stream (int8 cache, float32 scales)
+    "rt_decode_attention_q": [_P] * 9 + [_I] * 13 + [_P],
     # x, w, idx, val, bias (may be null), y | M, N, K, k, x_dtype, v_dtype | stream
     "rt_fused_linear": [_P] * 6 + [_I] * 6 + [_P],
     # x, w, idx, val, bias (may be null), y | M, N, K, k, tile_rows, v_dtype | stream
@@ -78,6 +79,10 @@ SIGNATURES = {
     # q, k, v, out, lse | B, Sq, Skv, H, Hkv, hd, causal, dtype, the batch,
     # sequence and head strides of q, k and v | stream
     "rt_flash_attention_fwd": [_P] * 5 + [_I] * 17 + [_P],
+    # q, k, v, out, lse | B, Sq, Skv, H, Hkv, hd, causal, the batch, sequence and
+    # head strides of q, k and v, key tile, stages | stream (bf16, the TMA +
+    # wgmma route)
+    "rt_flash_attention_fwd_wgmma": [_P] * 5 + [_I] * 18 + [_P],
     # w, idx | batch, d_in, d_out, k, dtype | stream
     "rt_topk_select": [_P] * 2 + [_I] * 5 + [_P],
 }

@@ -50,6 +50,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use (227 KB)
+
 // Dynamic shared memory above the 48 KB default needs an explicit opt-in.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -17,26 +17,49 @@
 // multiple of 16 up to 128, and the logsumexp is a second output.
 //
 // Bound: operations. A causal layer of qwen2-1.5b at S = 4096 does 51.5
-// GFLOP on 29.5 MB. Design, a simple first version:
-// - bf16: FlashAttention-2's split. A block of 4 warps owns 64 query rows
-//   of one (batch, head), each warp 16 rows; q stays in registers as
-//   mma.sync m16n8k16 A fragments for the whole sweep. 64-key K and V tiles
-//   stream through shared memory with cp.async, two stages deep (tails
-//   zero-filled). S = q k^T and O += P V run on the tensor cores (bf16 in,
-//   float32 accumulators), their K and V fragments read by ldmatrix (V
-//   transposed); the scores, the running max and sum, and the output
-//   accumulator stay in registers, the row reductions are shuffles among
-//   the 4 lanes that share a row, and the softmax runs in exp2 with the
-//   scale folded in. P is rounded to bf16 for the P V product (the Pallas
-//   body multiplies in float32); the row sum l adds the unrounded p.
-//   Causal: a block stops at the tile holding its last row's diagonal, a
-//   warp skips tiles wholly above its rows, masks are built only on the
-//   tiles that cross the diagonal or the Skv tail, and the heaviest query
-//   tiles launch first.
-// - float32: a plain FMA kernel (one warp a query row, 8 rows a block,
-//   32-key tiles in shared memory; lane j scores key j, each lane owns
-//   hd / 32 output columns), expf and true divides: the reduced card-vs-CPU
-//   checks compare it with the plain version at 2e-5.
+// GFLOP on 29.5 MB (0.0521 ms at the H100's 989 TFLOP/s). Three routes,
+// picked by shape in flash_attention.route and never traded for another:
+// - wgmma (bf16, hd 64 and 128: the path's): FlashAttention-3's forward.
+//   A block of three warpgroups owns 128 query rows of one (batch, head)
+//   (q/k/v as the wrapper passes them are views a tensor map can
+//   describe: strides in whole 16 bytes). Warpgroup 0 gives its registers
+//   to the others (setmaxnreg) and its first thread is the producer: the Q
+//   tile by TMA once, then 128-key K and V tiles into two rings of two
+//   stages, K one tile ahead of V as they are consumed (mbarriers: full,
+//   and empty once both consumer warpgroups are done with that K or V),
+//   through 4-D tensor maps over the strided (B, S, H, hd) views with the
+//   128-byte swizzle (an hd-128 row is two 64-element boxes; rows past S
+//   load as zeros). Warpgroups 1 and 2 own 64 rows each. In its turn u a
+//   warpgroup issues S = Q K^T of tile u (wgmma from shared memory, both
+//   K-major) and O += P V of tile u - 1 (P from registers, V the MN-major
+//   B operand), then passes the turn to the other warpgroup (named
+//   barriers), so one's softmax runs while the other's products do; its own
+//   softmax of tile u then runs behind its P V (FlashAttention-3's ping-pong
+//   and intra-warpgroup overlap). The softmax works on the accumulator
+//   fragment in registers: row max and sum over the 4 lanes of a row, one
+//   FFMA and one EX2 a score (log2 units, scale folded in), P rounded to
+//   bf16 straight into the A fragments of the next P V; the row sum adds
+//   the unrounded p. The steady turns issue both products unconditionally
+//   and the epilogue divides by MUFU.RCP: a product issued under a branch,
+//   or an IEEE divide's subroutine call, makes ptxas serialise every wgmma
+//   of the kernel (a wait for all after each one in the SASS).
+//   Causal: heaviest query tiles first, a warpgroup skips tiles wholly
+//   above its rows (still taking its turns and releasing their stages),
+//   masks only the tiles that cross its diagonal or the Skv tail.
+// - mma (bf16, the other head dims, multiples of 16 up to 112):
+//   FlashAttention-2's split. A
+//   block of 4 warps owns 64 query rows of one (batch, head), each warp 16
+//   rows; q stays in registers as mma.sync m16n8k16 A fragments for the
+//   whole sweep. 64-key K and V tiles stream through shared memory with
+//   cp.async, two stages deep (tails zero-filled), their fragments read by
+//   ldmatrix (V transposed); scores, running max and sum and the output
+//   accumulator stay in registers, the softmax in exp2 with the scale
+//   folded in, P rounded to bf16 for P V. Causal as above.
+// - fma (float32): a plain FMA kernel (one warp a query row, 8 rows a
+//   block, 32-key tiles in shared memory; lane j scores key j, each lane
+//   owns hd / 32 output columns), expf and true divides: the reduced
+//   card-vs-CPU checks compare it with the plain version at 2e-5.
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -46,6 +69,12 @@ using rt::mma_bf16;
 using rt::pack_bf16;
 
 constexpr float kNeg = -1e30f;  // the Pallas body's mask value
+
+using rt::gmma_desc;
+using rt::mbar_arrive;
+using rt::mbar_expect_tx;
+using rt::mbar_wait;
+using rt::smem_addr;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -238,6 +267,274 @@ __global__ void __launch_bounds__(kThreadsTC)
   }
 }
 
+// ---------------------------------------------- bf16, TMA + wgmma (Hopper)
+
+constexpr int kWgRows = 128;        // query rows a block: two consumer warpgroups of 64
+constexpr int kWgThreads = 384;     // warpgroup 0: the producer; 1 and 2: consumers
+constexpr int kBoxBytes = 64 * 2;   // a 128-byte swizzle row: 64 bf16 of hd
+
+template <int HD, int BK, int S>
+struct FlashSmem {
+  static constexpr int kQBox = kWgRows * kBoxBytes, kKVBox = BK * kBoxBytes;
+  static constexpr int kQ = HD / 64 * kQBox, kKV = HD / 64 * kKVBox;
+  static constexpr int kBars = 8 * (1 + 4 * S);
+  static constexpr int kBytes = kQ + 2 * S * kKV + kBars + 1024;  // + alignment slack
+  static_assert(kBytes <= rt::kSmemMax, "the ring fits");
+};
+
+// 2^x in one instruction (MUFU.EX2; denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD, int BK, int S>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                           int Skv, int H, int group, int causal, float scale_log2) {
+  using L = FlashSmem<HD, BK, S>;
+  constexpr int NB = HD / 64, KS = HD / 16, PK = BK / 16;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = base;
+  uint8_t* ring = base + L::kQ;  // K stages (S x kKV bytes), then V stages
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + 2 * S * L::kKV);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
+
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int q0 = qt * kWgRows;
+  const int kv_end = causal ? min(Skv, q0 + kWgRows) : Skv;  // keys any row of the block sees
+  const int T = (kv_end + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    rt::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      rt::mbar_init(&k_full[s], 1);
+      rt::mbar_init(&v_full[s], 1);
+      rt::mbar_init(&k_empty[s], 8);  // one arrival from each consumer warp
+      rt::mbar_init(&v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---------------------------------------------- producer
+    rt::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      // K runs one tile ahead of V, as the consumers take them: K_0, K_1,
+      // V_0, K_2, V_1, ...
+      auto load = [&](const CUtensorMap* map, uint64_t* full, uint64_t* empty, uint8_t* dst,
+                      int t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(&empty[s], (t / S - 1) & 1);
+        mbar_expect_tx(&full[s], L::kKV);
+        for (int c = 0; c < NB; ++c)
+          rt::tma_load_4d(dst + s * L::kKV + c * L::kKVBox, map, &full[s], 64 * c, hk, t * BK, b);
+      };
+      mbar_expect_tx(q_full, L::kQ);
+      for (int c = 0; c < NB; ++c)
+        rt::tma_load_4d(Qs + c * L::kQBox, &q_map, q_full, 64 * c, h, q0, b);
+      load(&k_map, k_full, k_empty, ring, 0);
+      for (int t = 1; t < T; ++t) {
+        load(&k_map, k_full, k_empty, ring, t);
+        load(&v_map, v_full, v_empty, ring + S * L::kKV, t - 1);
+      }
+      load(&v_map, v_full, v_empty, ring + S * L::kKV, T - 1);
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  rt::setmaxnreg_inc<232>();
+  const int cw = wg - 1;  // rows q0 + 64 cw ..
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int first = q0 + 64 * cw, row0 = first + 16 * warp + g, row1 = row0 + 8;
+  // tiles this warpgroup computes; the rest lie wholly above its rows
+  const int Tw = causal ? min(T, (first + 63) / BK + 1) : T;
+  const uint32_t qa = smem_addr(Qs) + cw * 64 * kBoxBytes;
+  const uint32_t ka0 = smem_addr(ring), va0 = ka0 + S * L::kKV;
+  // the two warpgroups take turns at issuing their products (named barriers
+  // 1 and 2: "warpgroup 1 / 2 may issue"), so one's softmax runs while the
+  // other's products do; warpgroup 2 lets warpgroup 1 go first
+  const int bar_mine = 1 + cw, bar_other = 2 - cw;
+  if (cw == 1) asm volatile("bar.arrive %0, 256;\n" ::"r"(bar_other) : "memory");
+
+  float o[HD / 2], sc[BK / 2];
+  uint32_t pa[PK][4];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  // m: the running row max of the scaled scores (log2 units); l: this
+  // lane's share of the row sum
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+
+  // turn u: issue S = Q K^T of tile u (u < Tw) and O += P V of tile u - 1
+  // (1 <= u <= Tw), pass the turn, then the softmax of tile u while P V
+  // runs; turns past Tw release the tiles wholly above this warpgroup's
+  // rows. The steady turns issue both products unconditionally, so ptxas
+  // can see which commit group each wait retires and keeps the products
+  // pipelined (products issued under a branch get serialised).
+  auto turn_begin = [&] { rt::named_bar(bar_mine, 256); };
+  auto turn_end = [&](int u) {
+    if (cw == 0 || u < T) asm volatile("bar.arrive %0, 256;\n" ::"r"(bar_other) : "memory");
+  };
+  auto issue_qk = [&](int u) {  // both operands K-major from shared memory
+    rt::wgmma_fence();
+    const uint32_t ka = ka0 + (u % S) * L::kKV;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)  // the first k step overwrites sc
+      rt::Wgmma<BK>::template mma<0, 0>(
+          sc, gmma_desc(qa + (ks / 4) * L::kQBox + (ks % 4) * 32, 16, 1024),
+          gmma_desc(ka + (ks / 4) * L::kKVBox + (ks % 4) * 32, 16, 1024), ks > 0);
+    rt::wgmma_commit();
+  };
+  auto issue_pv = [&](int u) {  // V MN-major: 64 hd columns a box, the next box LBO away
+    rt::wgmma_fence();
+    const uint32_t va = va0 + (u % S) * L::kKV;
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+      rt::WgmmaRS<HD>::template mma<1>(o, pa[kk],
+                                       gmma_desc(va + kk * 16 * kBoxBytes, L::kKVBox, 1024));
+    rt::wgmma_commit();
+  };
+  auto pin_sc = [&] {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) asm volatile("" : "+f"(sc[i])::"memory");
+  };
+  auto pin_o = [&] {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) asm volatile("" : "+f"(o[i])::"memory");
+  };
+  float a0, a1;  // the rescale of o that tile u's softmax asks for
+  auto softmax = [&](int u) {  // sc: tile u's scores -> p, in place; m, l, a0, a1
+    const int kv0 = u * BK;
+    // a tile crossing this warpgroup's diagonal or the Skv tail: masked
+    // scores are kNeg, whose p below is 0 (a row always sees key 0 in tile
+    // 0, so its running max is a real score from then on)
+    if (kv0 + BK > Skv || (causal && kv0 + BK - 1 > first)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = kv0 + 8 * (i / 4) + 2 * tq + (i & 1);
+        if (col >= Skv || (causal && col > ((i & 2) ? row1 : row0))) sc[i] = kNeg;
+      }
+    }
+    // row maxima, then row sums, in four interleaved partials (i % 8 / 4
+    // and i % 2 pick one): short dependency chains
+    float mx[4] = {kNeg, kNeg, kNeg, kNeg};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i & 2) >> 1, c = ((i >> 2) & 1);
+      mx[2 * r + c] = fmaxf(mx[2 * r + c], sc[i]);
+    }
+    float mx0 = fmaxf(mx[0], mx[1]), mx1 = fmaxf(mx[2], mx[3]);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // p = 2^(s * scale * log2 e - m), one FFMA and one EX2 a score
+    const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+    a0 = ex2(m0 - mn0);
+    a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i & 2) >> 1, c = ((i >> 2) & 1);
+      sc[i] = ex2(fmaf(sc[i], scale_log2, r ? -mn1 : -mn0));
+      ps[2 * r + c] += sc[i];
+    }
+    l0 = l0 * a0 + (ps[0] + ps[1]);
+    l1 = l1 * a1 + (ps[2] + ps[3]);
+  };
+  auto fold = [&] {  // o rescaled, p rounded to bf16 into the A fragments of P V
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = rt::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  };
+
+  mbar_wait(q_full, 0);
+  mbar_wait(&k_full[0], 0);  // the data first, then the turn
+  turn_begin();
+  issue_qk(0);
+  turn_end(0);
+  rt::wgmma_wait<0>();
+  pin_sc();
+  if (lane == 0) mbar_arrive(&k_empty[0]);
+  softmax(0);
+  fold();
+  for (int u = 1; u < Tw; ++u) {
+    mbar_wait(&k_full[u % S], (u / S) & 1);
+    mbar_wait(&v_full[(u - 1) % S], ((u - 1) / S) & 1);
+    turn_begin();
+    issue_qk(u);
+    issue_pv(u - 1);
+    turn_end(u);
+    rt::wgmma_wait<1>();  // the scores are done; P V may still run
+    pin_sc();
+    if (lane == 0) mbar_arrive(&k_empty[u % S]);
+    softmax(u);
+    rt::wgmma_wait<0>();  // tile u - 1's P V is done: its V stage, o and pa are free
+    pin_o();
+    if (lane == 0) mbar_arrive(&v_empty[(u - 1) % S]);
+    fold();
+  }
+  mbar_wait(&v_full[(Tw - 1) % S], ((Tw - 1) / S) & 1);
+  turn_begin();
+  issue_pv(Tw - 1);
+  turn_end(Tw);
+  rt::wgmma_wait<0>();
+  pin_o();
+  if (lane == 0) mbar_arrive(&v_empty[(Tw - 1) % S]);
+  for (int u = Tw + 1; u <= T; ++u) {  // tile u - 1 lies wholly above this warpgroup's rows
+    turn_begin();
+    turn_end(u);
+    mbar_wait(&k_full[(u - 1) % S], ((u - 1) / S) & 1);
+    mbar_wait(&v_full[(u - 1) % S], ((u - 1) / S) & 1);
+    if (lane == 0) {
+      mbar_arrive(&k_empty[(u - 1) % S]);
+      mbar_arrive(&v_empty[(u - 1) % S]);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= Sq) continue;
+    const float d = half ? d1 : d0;
+    // 1 / d by MUFU.RCP: an IEEE divide would bring a slow-path subroutine
+    // call into the kernel, and with it ptxas serialises every wgmma
+    float inv;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(d));
+    __nv_bfloat16* orow = out + (static_cast<size_t>(b) * Sq + row) * H * HD +
+                          static_cast<size_t>(h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+          rt::pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+    if (tq == 0)  // m is in log2 units
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = (half ? m1 : m0) * kLn2 + logf(d);
+  }
+}
+
 // ---------------------------------------------------------------- float32
 
 constexpr int kRowsF = 8, kKeysF = 32;
@@ -338,11 +635,87 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   return cudaGetLastError();
 }
 
+// a (B, S, heads, hd) bf16 view through its element strides as a 4-D tensor
+// map (hd innermost), boxes of 64 hd x `rows` positions of one (batch, head)
+cudaError_t encode_view(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
+                        int s_b, int s_s, int s_h, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(hd), static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {2ull * s_h, 2ull * s_s, 2ull * s_b};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return rt::encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box, true);
+}
+
+template <int HD, int BK, int S>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int Sq, int Skv, int H, int Hkv, int causal, const Layout& ly,
+                         cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  cudaError_t err = encode_view(&qm, q, B, Sq, H, HD, ly.q_b, ly.q_s, ly.q_h, kWgRows);
+  if (err == cudaSuccess) err = encode_view(&km, k, B, Skv, Hkv, HD, ly.k_b, ly.k_s, ly.k_h, BK);
+  if (err == cudaSuccess) err = encode_view(&vm, v, B, Skv, Hkv, HD, ly.v_b, ly.v_s, ly.v_h, BK);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_wgmma_kernel<HD, BK, S>;
+  constexpr int smem = FlashSmem<HD, BK, S>::kBytes;
+  static bool ready = false;  // the shared-memory opt-in, once per instantiation
+  if (!ready) {
+    err = rt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const dim3 grid((Sq + kWgRows - 1) / kWgRows, H, B);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, H / Hkv, causal,
+      1.0f / sqrtf(static_cast<float>(HD)) * kLog2e);
+  return cudaGetLastError();
+}
+
+// the (hd, key tile, stages) instantiations the wgmma route has
+template <int HD>
+cudaError_t launch_wgmma_hd(int bk, int stages, const void* q, const void* k, const void* v,
+                            void* out, float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                            int causal, const Layout& ly, cudaStream_t s) {
+  if (bk == 128 && stages == 2)
+    return launch_wgmma<HD, 128, 2>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, ly, s);
+  if (bk == 128 && stages == 3)
+    return launch_wgmma<HD, 128, 3>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, ly, s);
+  if (bk == 64 && stages == 2)
+    return launch_wgmma<HD, 64, 2>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, ly, s);
+  if (bk == 64 && stages == 3)
+    return launch_wgmma<HD, 64, 3>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, causal, ly, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd) through their element strides (the
-// last dim unit-stride; bf16 rows 16-byte aligned); out (B, Sq, H, hd)
-// contiguous in q's dtype, lse (B, H, Sq) float32. hd a multiple of 16 up to 128.
+// The wgmma route: bf16 q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd) through
+// their element strides (the last dim unit-stride, the others multiples of
+// 8, pointers 16-byte aligned: what a tensor map takes); hd 64 or 128; out
+// (B, Sq, H, hd) contiguous bf16, lse (B, H, Sq) float32. block_keys (64 or
+// 128) and stages (2 or 3) pick the key tile and the ring's depth.
+extern "C" int rt_flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
+                                            void* out, void* lse, int B, int Sq, int Skv, int H,
+                                            int Hkv, int hd, int causal, int q_b, int q_s,
+                                            int q_h, int k_b, int k_s, int k_h, int v_b, int v_s,
+                                            int v_h, int block_keys, int stages, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
+  const Layout ly{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (hd == 64)
+    err = launch_wgmma_hd<64>(block_keys, stages, q, k, v, out, l, B, Sq, Skv, H, Hkv, causal,
+                              ly, s);
+  else if (hd == 128)
+    err = launch_wgmma_hd<128>(block_keys, stages, q, k, v, out, l, B, Sq, Skv, H, Hkv, causal,
+                               ly, s);
+  return static_cast<int>(err);
+}
+
+// The mma and fma routes: q (B, Sq, H, hd), k/v (B, Skv, Hkv, hd) through
+// their element strides (the last dim unit-stride; bf16 rows 16-byte
+// aligned); out (B, Sq, H, hd) contiguous in q's dtype, lse (B, H, Sq)
+// float32. hd a multiple of 16 up to 128.
 extern "C" int rt_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                       void* lse, int B, int Sq, int Skv, int H, int Hkv, int hd,
                                       int causal, int dtype, int q_b, int q_s, int q_h, int k_b,

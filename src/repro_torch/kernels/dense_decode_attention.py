@@ -10,14 +10,16 @@ With ``k_scale``/``v_scale`` (B, Smax // 16, Hkv) float32 the cache is int8
 codes with one scale per (slot, 16-row group, kv-head), dequantized in
 float32 (``code * scale``) before the softmax; Smax is then a whole number
 of groups. The fp body counts on ``decode_attention``, the int8 body on
-``decode_attention_q``.
+``decode_attention_q``, each launch under the paged decode's route ``ring``.
 
 Replaces ``src/repro/kernels/decode_attention.py::decode_attention_pallas``
 (fp body ``_decode_attn_kernel``, int8 body ``_decode_attn_q_kernel``). The
 CUDA source (``csrc/dense_decode_attention.cu``) carries the design note:
-the paged decode's split-range page sweep with each row tile's block
-resolved by arithmetic instead of a table, tiles of 16 rows (the int8 scale
-group), staged only up to the frontier, so Smax need not divide by the tile.
+the paged decode's kernel (warps with their own cp.async rings, ranges
+merged in the block that finishes last) with each row tile's block resolved
+by arithmetic instead of a table, tiles of 16 rows (the int8 scale group),
+copied only up to the frontier, so Smax need not divide by the tile. The
+launch is sized by the paged decode's ``decode_plan`` over the row tiles.
 """
 
 from __future__ import annotations
@@ -26,7 +28,14 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.counters import LaunchCounter
-from repro_torch.kernels.decode_attention import DTYPES, check_kv, page_split, sm_count
+from repro_torch.kernels.decode_attention import (
+    DTYPES,
+    ROUTE,
+    check_kv,
+    decode_plan,
+    scratch,
+    sm_count,
+)
 
 counter = LaunchCounter("decode_attention")
 q_counter = LaunchCounter("decode_attention_q")
@@ -81,21 +90,22 @@ def decode_attention(q, k, v, kv_valid_len, k_scale=None, v_scale=None):
     tiles = -(-smax // TILE)
     if b == 0 or smax == 0:
         return out.zero_()
-    per, n_split = page_split(b, hkv, tiles, sm_count(q.device))
-    part = torch.empty(b * h * n_split * (hd + 2), dtype=torch.float32, device=q.device)
-    ints = (b, smax, TILE, hkv, hd, h // hkv, per, n_split, DTYPES[q.dtype],
+    plan = decode_plan(b, hkv, h // hkv, tiles, sm_count(q.device), k.dtype, hd, TILE)
+    part, tk = scratch(q, hkv, plan)
+    tail = (b, smax, TILE, hkv, hd, h // hkv, plan.heads, plan.per, plan.ranges, plan.stages,
+            plan.threads // 32, plan.smem, DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     lib = build.library()
     if k_scale is None:
         rc = lib.rt_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      kv_valid_len.data_ptr(), out.data_ptr(), part.data_ptr(),
-                                     *ints)
+                                     tk.data_ptr(), *tail)
         build.check(rc, "decode_attention")
-        counter.kernel += 1
+        counter.launched(ROUTE)
         return out
     rc = lib.rt_decode_attention_q(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                                    v_scale.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(),
-                                   part.data_ptr(), *ints)
+                                   part.data_ptr(), tk.data_ptr(), *tail)
     build.check(rc, "decode_attention_q")
-    q_counter.kernel += 1
+    q_counter.launched(ROUTE)
     return out

@@ -13,13 +13,24 @@ Replaces ``src/repro/kernels/flash_attention.py::flash_attention_fwd_pallas``
 ``flash_attention_gqa_pallas``: any Sq and Skv (the Pallas kernel needs
 multiples of 128), GQA by head index where the wrapper repeats k and v, q,
 k and v read through their strides, and the logsumexp as a second output.
-The CUDA source (``csrc/flash_attention.cu``) carries the design note.
+Bound by operations (51.5 GFLOP a causal qwen2-1.5b layer at S = 4096).
 
-Rounding: the bf16 kernel runs q kᵀ and p·v on the tensor cores with
-float32 accumulators, and rounds p to bf16 before the p·v product (the
+Three routes, chosen by shape in :func:`route` and counted under their
+names in ``counter.routes``; a route that fails raises, it never gives way
+to another. ``wgmma`` (bf16, hd 64 and 128, the path's): FlashAttention-3's
+forward — a producer warp feeding Q, K and V by TMA through tensor maps over
+the strided views into an mbarrier ring, two consumer warpgroups of 64 query
+rows on ``wgmma`` (Q Kᵀ from shared memory, P V with P in registers).
+``mma`` (bf16 at the other head dims): FlashAttention-2's split on
+``mma.sync``, 64-row blocks of 4 warps, cp.async tiles. ``fma`` (float32):
+a plain FMA kernel. The CUDA source (``csrc/flash_attention.cu``) carries
+the design notes.
+
+Rounding: the bf16 kernels run q kᵀ and p·v on the tensor cores with
+float32 accumulators, and round p to bf16 before the p·v product (the
 Pallas body multiplies p·v in float32); the row sum adds the unrounded p.
 So bf16 agrees with the plain version to bf16 rounding (2e-2), float32
-(a plain FMA kernel) to 2e-5.
+(the FMA kernel) to 2e-5.
 """
 
 from __future__ import annotations
@@ -35,6 +46,10 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = tuple(range(16, 129, 16))
+WGMMA_HEAD_DIMS = (64, 128)
+# the wgmma route's key tile and ring depth (chip_smoke.py
+# --attention-variants times the others the kernel is built for)
+BLOCK_KEYS, STAGES = 128, 2
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool):
@@ -68,6 +83,16 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name}: bf16 rows must be 16-byte aligned, strides {t.stride()}")
 
 
+def route(q, k, v) -> str:
+    """``wgmma`` for bf16 at hd 64 / 128, ``mma`` for the other bf16 head
+    dims, ``fma`` for float32. Every bf16 input ``_check`` passes is a view
+    a tensor map can describe (strides whole multiples of 16 bytes, the
+    head dim unit-stride, pointers 16-byte aligned)."""
+    if q.dtype == torch.float32:
+        return "fma"
+    return "wgmma" if q.shape[3] in WGMMA_HEAD_DIMS else "mma"
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool):
     """-> (out (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) float32)."""
     if not q.is_cuda:
@@ -79,12 +104,17 @@ def flash_attention_fwd(q, k, v, *, causal: bool):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
         return out, lse
-    rc = build.library().rt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, sq, skv, h, hkv, hd, int(causal), _DTYPES[q.dtype],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "flash_attention_fwd")
-    counter.kernel += 1
+    path = route(q, k, v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = build.library()
+    if path == "wgmma":
+        rc = lib.rt_flash_attention_fwd_wgmma(*ptrs, b, sq, skv, h, hkv, hd, int(causal),
+                                              *strides, BLOCK_KEYS, STAGES, stream)
+    else:
+        rc = lib.rt_flash_attention_fwd(*ptrs, b, sq, skv, h, hkv, hd, int(causal),
+                                        _DTYPES[q.dtype], *strides, stream)
+    build.check(rc, f"flash_attention_fwd ({path})")
+    counter.launched(path)
     return out, lse

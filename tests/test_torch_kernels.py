@@ -148,11 +148,17 @@ def test_decode_plain_matches_jnp_oracle(g):
     assert not got[3].any(), "a slot with an empty frontier gets zeros"
 
 
-@pytest.mark.parametrize("g", [1, 2, 4])
+# (g, hkv, hd): GQA groups 1/2/4 at small heads, and olmoe-1b-7b's layout
+# (16 query heads on 16 kv heads, hd 128)
+DECODE_LAYOUTS = [(1, 2, 16), (2, 2, 16), (4, 2, 16), (1, 16, 128)]
+
+
+@pytest.mark.parametrize("g,hkv,hd", DECODE_LAYOUTS, ids=["1", "2", "4", "olmoe"])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_decode_plain_matches_pallas_interpret(g, dtype):
+def test_decode_plain_matches_pallas_interpret(g, hkv, hd, dtype):
+    """Frontiers cross pages (24, 4 and 10 rows of 4-row pages)."""
     (jq, jk, jv, jt, _, jvl), (tq, tk, tv, tt, _, tvl) = paged_inputs(
-        np.random.default_rng(20 + g), g, 1, dtype, b=3)
+        np.random.default_rng(20 + g), g, 1, dtype, b=3, hkv=hkv, hd=hd)
     want = paged_decode_attention_pallas(jq, jk, jv, jt, jvl, interpret=True)
     got = dec.paged_decode_attention(tq, tk, tv, tt, tvl)
     assert got.dtype == tq.dtype

@@ -292,10 +292,13 @@ def close(got: torch.Tensor, want, tol):
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("g", [1, 6])
-def test_int8_paged_decode_plain_matches_pallas_interpret(g, dtype):
+@pytest.mark.parametrize("g,hkv,hd", [(1, 2, 16), (6, 2, 16), (1, 16, 128)],
+                         ids=["1", "6", "olmoe"])
+def test_int8_paged_decode_plain_matches_pallas_interpret(g, hkv, hd, dtype):
+    """GQA groups 1 and 6, and olmoe-1b-7b's layout (16 query heads on 16
+    kv heads, hd 128); frontiers cross pages."""
     (jq, kc, vc, ks, vs, jt, _, jvl), (tq, tkc, tvc, tks, tvs, tt, _, tvl) = paged_q_inputs(
-        np.random.default_rng(10 + g), g, 1, dtype)
+        np.random.default_rng(10 + g), g, 1, dtype, hkv=hkv, hd=hd)
     want = paged_decode_attention_pallas(jq, kc, vc, jt, jvl, k_scale=ks, v_scale=vs,
                                          interpret=True)
     reset_counters()
