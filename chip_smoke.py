@@ -6,6 +6,7 @@
     python3 chip_smoke.py --decode-row-variants
     python3 chip_smoke.py --linear-variants
     python3 chip_smoke.py --attention-variants
+    python3 chip_smoke.py --delta-variants
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -17,7 +18,10 @@ fifth times the two attention kernels redesigned for Hopper at their path
 shapes under the launch choices their planners pick among (the flash
 forward's key tile and stages, and rebuilt without its warpgroups' turns
 or with a part removed; the decode kernel's blocks an SM, stages, warps
-and heads a block).
+and heads a block); the sixth times the two bypass kernels redesigned for
+Hopper at their path shapes under the plans their planners pick among
+(the apply's rows a tile, stages, blocks an SM, column spans and route;
+the value gradient's rows a tile, stages, blocks an SM and column spans).
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
@@ -28,14 +32,20 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the full-width qwen2-1.5b shapes (bf16 and fp32) — the three serving
    kernels at the serving shapes (ragged frontiers, shared and sentinel
-   pages), the int8 bodies of the paged decode and prefill (int8 pools,
-   an all-zero page) at the same shapes, the dense decode over an (8,
+   pages; the bypass apply at every projection at M = 8 and 2048 with one
+   tenant id a slot, delta only and with the serving epilogue, bit for bit
+   against the kernel's delta plus PyTorch's adds, each on its planned
+   route, and at edge shapes: unaligned rows and x, ragged d_out, k 1-5),
+   the int8 bodies of the paged decode and prefill (int8 pools, an
+   all-zero page) at the same shapes, the dense decode over an (8,
    Smax, 2, 128) slot cache with bf16 and int8 KV (frontiers 0, 1 and
    Smax, an fp Smax of 1000), ``fused_linear`` and ``sparse_delta_dval`` on edge shapes
    (row, column and K tails, K 77 and a misaligned x on the WMMA kernel,
    the rest on the TMA + wgmma one: every launch on the route the wrapper
    names, two bf16 calls identical bit for bit) and at every projection of a
-   training step (M = 4 x 512 rows; wdown's K = 8960 included; all on the
+   training step (M = 4 x 512 rows, and the value gradient also at the
+   1 x 4096 rows of a long-context step, and in the values' dtype, equal
+   to the float32 result cast; wdown's K = 8960 included; all on the
    wgmma route, also timed at k = 0, on the WMMA kernel and for the host's
    tensor-map encodes), ``fused_linear_q`` (int8
    and NF4) on edge shapes (scale blocks 2-128 crossing K tiles, k 0-3, the
@@ -80,7 +90,11 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
    ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
    three serving kernels launched, no plain version called, every decode
-   launch on the ring route, one device-to-host transfer per step (every
+   launch on the ring route, every bypass apply on a fused route (the add
+   and the QKV bias in its epilogue: rows at the decode steps, tiles at the
+   mixed steps, 7 a layer-forward; so in all seven serving gate runs), the
+   profiled run's launches a layer-forward 10 below their count before the
+   epilogue, one device-to-host transfer per step (every
    forward and token draw under ``torch.cuda.set_sync_debug_mode("error")``,
    so no hidden one), the
    block pool fully free at the end;
@@ -107,7 +121,9 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 10
    measured (losses, step time, tokens/s, peak memory, launches per step:
    196 of each training kernel, no plain call, every fused_linear(_q) launch
-   on the TMA + wgmma route), one profiled step (device busy share); then the trained adapter is exported and served as a
+   on the TMA + wgmma route, every value gradient one launch on the
+   ``single`` route, so in every training run), one profiled step (device
+   busy share); then the trained adapter is exported and served as a
    tenant beside the base. The same on an int8 and on an NF4 base
    (``fused_linear_q`` in place of ``fused_linear``, the packed base
    unchanged by every step, peak memory below the bf16 base's). Each
@@ -240,6 +256,13 @@ PACKED, QUANT_BLOCK = ("int8", "nf4"), 64
 LONG_BATCH, LONG_SEQ = 1, 4096
 REDUCED_FLASH, REDUCED_FLASH_SHAPE = dict(flash_threshold=32, flash_block=16), (4, 64)
 
+
+# launches a layer-forward of the qwen2 paged bf16 gate run before the bypass
+# apply took the add and the bias into its epilogue (68.1 and 68.3 in two
+# runs of that tree on an H100 80GB HBM3, PERF.md: the count moves by a few
+# tenths between runs), and the launches a layer-forward that took: the 7
+# adds after the delta and the 3 QKV bias adds
+LAUNCHES_BEFORE, LAUNCHES_SPREAD, ADDS_TAKEN = 68.3, 0.5, 10
 
 LOG = []  # every line log() printed, written to chiprun_out/chip_smoke.log at the end
 
@@ -450,12 +473,21 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     detail = []
     summary = {}
 
-    # -- sparse_delta_batched: every projection, mixed (M = slots * chunk)
-    #    and decode (M = slots) rows, every (x, values) pair of float32 and
-    #    bf16 the wrapper accepts (adapter files keep their own dtype)
+    # -- sparse_delta_batched: every projection at a mixed step's rows (M =
+    #    slots x chunk) and a decode step's (M = slots), with one tenant id a
+    #    slot (read with a rows-per-id stride, as the engine passes them),
+    #    every (x, values) pair of float32 and bf16 the wrapper accepts
+    #    (adapter files keep their own dtype); the delta alone and with the
+    #    serving epilogue (y + delta, then the QKV bias, in place), the fused
+    #    form bit for bit against the kernel's delta plus PyTorch's adds; each
+    #    launch on the route delta_plan names; the bf16 calls timed in both
+    #    forms, each beside its bound
     m_mixed = SLOTS * PREFILL_CHUNK
     err_bf16 = 0.0
-    layer = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    layer = {(m, form): {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "launch_ms": []}
+             for m in (m_mixed, SLOTS) for form in ("delta", "fused")}
+    counter = COUNTERS["sparse_delta_batched"]
+    sms = dec_mod.sm_count(dev)
     for name, d_in, d_out in projections:
         for m in (m_mixed, SLOTS):
             for x_dt, v_dt in ((torch.bfloat16, torch.bfloat16),
@@ -463,37 +495,75 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
                                (torch.float32, torch.bfloat16),
                                (torch.float32, torch.float32)):
                 x, idx, val, aid = delta_case(gen, m, d_in, d_out, x_dt, v_dt, dev)
-                got = sd_mod.sparse_delta_batched(x, idx, val, aid)
+                rpi = m // SLOTS
+                seq = aid[::rpi].contiguous()  # one id a slot
+                y0 = torch.randn(m, d_out, generator=gen, device=dev).to(x_dt)
+                bias = (torch.randn(d_out, generator=gen, device=dev).to(x_dt)
+                        if name in ("wq", "wk", "wv") else None)
+                route = sd_mod.delta_plan(m, d_in, d_out, x.element_size(), sms).route
+                counter.reset()
+                got = sd_mod.sparse_delta_batched(x, idx, val, seq, rpi)
                 want = sd_mod.sparse_delta_batched_plain(x, idx, val, aid)
+                fused = sd_mod.sparse_delta_batched(x, idx, val, seq, rpi, y0.clone(), bias)
                 torch.cuda.synchronize()
-                err = check_close(f"sparse_delta {name} M={m}", got, want, x_dt)
-                row = {"kernel": "sparse_delta_batched", "proj": name, "M": m,
-                       "d_in": d_in, "d_out": d_out, "x": str(x_dt), "val": str(v_dt),
-                       "max_abs_err": err}
+                what = f"sparse_delta {name} M={m} {x_dt}/{v_dt}"
+                err = check_close(what, got, want, x_dt)
+                three = y0 + got
+                if bias is not None:
+                    three = three + bias
+                assert torch.equal(fused, three), f"{what}: the epilogue differs from the adds"
+                assert torch.equal(got, sd_mod.sparse_delta_batched(x, idx, val, seq, rpi)), \
+                    f"{what}: two launches differ"
+                assert counter.routes == {route: 2, route + "-fused": 1}, (what, counter.routes)
+                row = {"kernel": "sparse_delta_batched", "proj": name, "M": m, "d_in": d_in,
+                       "d_out": d_out, "x": str(x_dt), "val": str(v_dt), "route": route,
+                       "bias": bias is not None, "max_abs_err": err}
                 if x_dt == torch.bfloat16 and v_dt == torch.bfloat16:
                     err_bf16 = max(err_bf16, err)
-                    row["ms"] = cuda_ms(lambda: sd_mod.sparse_delta_batched(x, idx, val, aid))
+                    yb = y0.clone()
+                    row["ms"] = cuda_ms(lambda: sd_mod.sparse_delta_batched(x, idx, val, seq, rpi))
+                    row["fused_ms"] = cuda_ms(
+                        lambda: sd_mod.sparse_delta_batched(x, idx, val, seq, rpi, yb, bias))
                     row["plain_ms"] = cuda_ms(
                         lambda: sd_mod.sparse_delta_batched_plain(x, idx, val, aid), iters=3)
                     nbytes, flops = delta_cost(x, idx, val, aid, d_out)
+                    # the epilogue also reads y (and the bias) once
+                    fbytes = nbytes + m * d_out * x.element_size() + (
+                        0 if bias is None else d_out * x.element_size())
                     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, x_dt)
-                    if m == m_mixed:
-                        layer["ms"] += row["ms"]
-                        layer["plain_ms"] += row["plain_ms"]
-                        layer["bytes"] += nbytes
-                        layer["flops"] += flops
+                    row["fused_bound_ms"], row["fused_bound_by"] = bound(fbytes, flops, x_dt)
+                    for form, ms, nb in (("delta", row["ms"], nbytes),
+                                         ("fused", row["fused_ms"], fbytes)):
+                        acc = layer[(m, form)]
+                        acc["ms"] += ms
+                        acc["plain_ms"] += row["plain_ms"]
+                        acc["bytes"] += nb
+                        acc["flops"] += flops
+                        acc["launch_ms"].append(ms)
                 detail.append(row)
-    b_ms, b_by = bound(layer["bytes"], layer["flops"], torch.bfloat16)
+    detail.extend(apply_edge_cases(gen, dev))
+    res = {}
+    for (m, form), acc in layer.items():
+        b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
+        res[(m, form)] = dict(ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                              launch_ms=(min(acc["launch_ms"]), max(acc["launch_ms"])))
+    mix, dec = res[(m_mixed, "delta")], res[(SLOTS, "delta")]
     summary["sparse_delta_batched"] = {
-        "source": sd_mod.SOURCE, "replaces": sd_mod.REPLACES, "max_abs_err": err_bf16, "ms": layer["ms"],
-        "plain_ms": layer["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "source": sd_mod.SOURCE, "replaces": sd_mod.REPLACES, "max_abs_err": err_bf16,
+        "ms": mix["ms"], "plain_ms": mix["plain_ms"], "bound_ms": mix["bound_ms"],
+        "bound_by": mix["bound_by"],
         "library_ms": None,
         "shape": f"7 projections of one layer, M={m_mixed} bf16 rows, k={K_DELTA}, "
-                 f"N={N_TENANTS + 1}",
+                 f"N={N_TENANTS + 1}, delta only",
+        "fused": res[(m_mixed, "fused")], "decode": dec, "decode_fused": res[(SLOTS, "fused")],
     }
-    log(f"[kernels] sparse_delta_batched ok: max|err| bf16 {err_bf16:.3e}, "
-        f"one layer at M={m_mixed}: {layer['ms']:.4f} ms (plain {layer['plain_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms by {b_by}) [{card}]")
+    for (m, form), r in res.items():
+        log(f"[kernels] sparse_delta_batched one layer at M={m} ({form}): {r['ms']:.4f} ms "
+            f"(a launch {r['launch_ms'][0] * 1e3:.2f}-{r['launch_ms'][1] * 1e3:.2f} us; plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}) [{card}]")
+    log(f"[kernels] sparse_delta_batched ok: max|err| bf16 {err_bf16:.3e}; the epilogue bit for "
+        f"bit against the delta plus PyTorch's adds, two launches bit for bit, every launch on "
+        f"the planned route (rows at M={SLOTS}, tiles at M={m_mixed}) [{card}]")
 
     # -- paged decode attention: one query per slot, ragged frontiers
     dec_vl = [1, 17, 300, MAX_LEN - 1, 512, 0, 640, 33]
@@ -563,11 +633,63 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     kv_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     detail.extend(decode_cases(gen, dev, num_blocks))
     train_kernels(gen, projections, dev, summary, detail, card)
+    detail.extend(dval_long(gen, projections, dev, summary, card))
     packed_kernels(gen, projections, dev, summary, detail, card)
     moe_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     long_context_kernels(gen, dev, summary, detail, card)
     selection_kernels(gen, dev, summary, detail, card)
     return summary, detail
+
+
+# the bypass apply's edge cases: (M, d_in, d_out, k, x offset in elements,
+# rows a tenant id covers). d_in 77 makes bf16 rows of 154 bytes (the
+# staged run's ends move by plain loads), an offset of 1 misaligns x itself,
+# d_out 5 / 36 / 129 / 260 leave a ragged last column group (element by
+# element), M 65 and 2047 take the tiles route off its tile height
+APPLY_EDGE = ((8, 77, 36, 1, 0, 1), (8, 300, 129, 3, 1, 2), (65, 1000, 5, 1, 1, 5),
+              (300, 77, 36, 3, 1, 1), (130, 1000, 264, 2, 0, 10), (2047, 300, 260, 2, 1, 23),
+              (2048, 77, 1536, 5, 0, 256))
+
+
+def apply_edge_cases(gen, dev) -> list:
+    """The apply at APPLY_EDGE, every (x, values) dtype pair: against the
+    plain version, the epilogue bit for bit against the adds, two launches
+    bit for bit, on the route delta_plan names."""
+    rows, counter = [], COUNTERS["sparse_delta_batched"]
+    sms = dec_mod.sm_count(dev)
+    for m, d_in, d_out, kk, off, rpi in APPLY_EDGE:
+        for x_dt in (torch.bfloat16, torch.float32):
+            for v_dt in (torch.bfloat16, torch.float32):
+                x = torch.randn(m * d_in + off, generator=gen, device=dev).to(x_dt)[off:].view(
+                    m, d_in)
+                idx = torch.randint(0, d_in, (N_TENANTS + 1, kk, d_out), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                val = (torch.randn(N_TENANTS + 1, kk, d_out, generator=gen, device=dev)
+                       * 0.05).to(v_dt)
+                seq = torch.randint(0, N_TENANTS + 1, (m // rpi,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                y0 = torch.randn(m, d_out, generator=gen, device=dev).to(x_dt)
+                bias = torch.randn(d_out, generator=gen, device=dev).to(x_dt)
+                route = sd_mod.delta_plan(m, d_in, d_out, x.element_size(), sms).route
+                counter.reset()
+                got = sd_mod.sparse_delta_batched(x, idx, val, seq, rpi)
+                want = sd_mod.sparse_delta_batched_plain(x, idx, val, seq, rpi)
+                fused = sd_mod.sparse_delta_batched(x, idx, val, seq, rpi, y0.clone(), bias)
+                torch.cuda.synchronize()
+                what = (f"sparse_delta edge M={m} d_in={d_in} d_out={d_out} k={kk} offset {off} "
+                        f"{x_dt}/{v_dt}")
+                err = check_close(what, got, want, x_dt)
+                assert torch.equal(fused, (y0 + got) + bias), f"{what}: epilogue differs"
+                assert torch.equal(got, sd_mod.sparse_delta_batched(x, idx, val, seq, rpi)), what
+                assert counter.routes == {route: 2, route + "-fused": 1}, (what, counter.routes)
+                rows.append({"kernel": "sparse_delta_batched", "case": "edge", "M": m,
+                             "d_in": d_in, "d_out": d_out, "k": kk, "x_offset": off,
+                             "rows_per_id": rpi, "x": str(x_dt), "val": str(v_dt),
+                             "route": route, "max_abs_err": err})
+    log(f"[kernels] sparse_delta_batched ok on edge shapes ({len(rows)} cases: M 8-2048 on both "
+        f"routes, d_in 77/300/1000 (unaligned rows), d_out 5-1536, k 1-5, x 4/2 bytes off, "
+        f"rows an id 1-256; bf16 2e-2, fp32 2e-5; epilogue and repeats bit for bit)")
+    return rows
 
 
 # the paged prefill's edge cases beside the path shape: chunk offsets off the
@@ -1145,6 +1267,22 @@ def decode_routes(what: str) -> dict:
     return n
 
 
+def apply_routes(what: str, per_forward: int = 0, forwards: int = 0) -> dict:
+    """Every bypass-apply launch since the counters were reset (at least
+    one) took a fused route: the serving epilogue added the bypass (and the
+    bias) into the base product. With ``per_forward``, there were that many
+    a layer-forward. Returns the launches by route (``rows``: decode steps,
+    ``tiles``: mixed steps)."""
+    c = COUNTERS["sparse_delta_batched"]
+    routes = dict(c.routes)
+    assert c.kernel > 0 and sum(routes.values()) == c.kernel, (what, routes)
+    assert all(r.endswith("-fused") for r in routes), f"{what}: apply routes {routes}"
+    assert not per_forward or c.kernel == per_forward * forwards, \
+        (what, c.kernel, per_forward, forwards)
+    log(f"[{what}] every bypass apply on a fused route: {json.dumps(routes)}")
+    return routes
+
+
 # edge shapes of the TMA + wgmma route beside the WMMA kernel's ragged ones:
 # (M, K, N, k, x offset in elements). K 77 / 4500, N 129 and an x that
 # starts 4 elements (8 bytes) into its buffer take the WMMA kernel; rows
@@ -1213,6 +1351,7 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
             # float32 tolerance measures rounding, not the size of a sum
             dy = (torch.randn(m, d_out, generator=gen, device=dev) * m**-0.5).to(dt)
             counter.reset()
+            COUNTERS["sparse_delta_dval"].reset()
             got = fl_mod.fused_linear(x, w, idx, val, bias)
             want = fl_mod.fused_linear_plain(x, w, idx, val, bias)
             gd = sd_mod.sparse_delta_dval(x, idx, dy)
@@ -1224,6 +1363,11 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
                          f"fused_linear {name}")
             assert torch.equal(gd, sd_mod.sparse_delta_dval(x, idx, dy)), \
                 f"sparse_delta_dval {name}: two launches on the same inputs differ"
+            # in the values' dtype: one rounding of the same float32 sums
+            assert torch.equal(sd_mod.sparse_delta_dval(x, idx, dy, val.dtype),
+                               gd.to(val.dtype)), f"sparse_delta_dval {name} in {val.dtype}"
+            expect_route(COUNTERS["sparse_delta_dval"], sd_mod.DVAL_ROUTE, 3,
+                         f"sparse_delta_dval {name}")
             rows = [{"kernel": "fused_linear", "proj": name, "M": m, "K": d_in, "N": d_out,
                      "bias": bias is not None, "dtype": str(dt), "max_abs_err": e_fl},
                     {"kernel": "sparse_delta_dval", "proj": name, "M": m, "d_in": d_in,
@@ -1293,6 +1437,40 @@ def train_kernels(gen, projections, dev, summary, detail, card: str) -> None:
         log(f"[kernels] {name} ok (bf16 2e-2, fp32 2e-5 at all 7 shapes): max|err| bf16 "
             f"{acc['err']:.3e}; one layer {acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}"
             f"{extra}, bound {b_ms:.4f} by {b_by}) [{card}]")
+
+
+def dval_long(gen, projections, dev, summary, card: str) -> list:
+    """``sparse_delta_dval`` at every projection of a long-context step (M
+    = 1 x 4096 rows, k = 1), bf16: against its plain version, timed beside
+    its bound, summed over the layer into the kernel's ``m4096`` entry."""
+    m = LONG_BATCH * LONG_SEQ
+    rows, acc = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+    for name, d_in, d_out in projections:
+        x = torch.randn(m, d_in, generator=gen, device=dev).to(torch.bfloat16)
+        idx = torch.randint(0, d_in, (TRAIN_K, d_out), generator=gen, device=dev,
+                            dtype=torch.int32)
+        dy = (torch.randn(m, d_out, generator=gen, device=dev) * m**-0.5).to(torch.bfloat16)
+        got = sd_mod.sparse_delta_dval(x, idx, dy)
+        err = check_close(f"sparse_delta_dval {name} M={m}", got,
+                          sd_mod.sparse_delta_dval_plain(x, idx, dy), torch.bfloat16)
+        row = {"kernel": "sparse_delta_dval", "proj": name, "M": m, "d_in": d_in, "d_out": d_out,
+               "dtype": str(torch.bfloat16), "max_abs_err": err,
+               "ms": cuda_ms(lambda: sd_mod.sparse_delta_dval(x, idx, dy)),
+               "plain_ms": cuda_ms(lambda: sd_mod.sparse_delta_dval_plain(x, idx, dy), iters=3)}
+        cost = dval_cost(x, idx, dy)
+        row["bound_ms"], row["bound_by"] = bound(*cost, torch.bfloat16)
+        for key, v in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]), ("bytes", cost[0]),
+                       ("flops", cost[1])):
+            acc[key] += v
+        acc["err"] = max(acc["err"], err)
+        rows.append(row)
+    b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
+    summary["sparse_delta_dval"]["m4096"] = {
+        "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": acc["err"], "shape": f"7 projections of one layer, M={m} bf16 rows, k=1"}
+    log(f"[kernels] sparse_delta_dval one layer at M={m}: {acc['ms']:.4f} ms (plain "
+        f"{acc['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}; max|err| {acc['err']:.3e}) [{card}]")
+    return rows
 
 
 def flash_cost(q, k, causal: bool) -> tuple[float, float]:
@@ -1908,6 +2086,12 @@ def phase_full(card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = {n: COUNTERS[n].kernel for n in SERVING}
     decode_routes("full")
+    # decode steps (M = slots rows) on the rows route, mixed steps (M = slots
+    # x chunk) on the tiles route, 7 projections a layer-forward
+    apply_by_route = apply_routes("full", 7, forwards_of(eng))
+    assert apply_by_route == {"rows-fused": 7 * launches["paged_decode_attention"],
+                              "tiles-fused": 7 * launches["paged_prefill_attention"]}, \
+        apply_by_route
     for name, c in COUNTERS.items():
         assert name not in SERVING or c.kernel > 0, f"full run never launched {name}"
         assert c.plain == 0, f"full run called the plain version of {name} {c.plain} times"
@@ -1929,14 +2113,17 @@ def phase_full(card: str) -> dict:
     busy, n_launch, (peng, _) = profile_run(
         lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
         "profile", "full_profile.txt")
-    log(f"[full] {n_launch / forwards_of(peng):.1f} kernel launches per layer-forward "
-        f"(profiled gate run, paged bf16 KV) [{card}]")
+    per_fwd = n_launch / forwards_of(peng)
+    log(f"[full] {per_fwd:.2f} kernel launches per layer-forward (profiled gate run, paged "
+        f"bf16 KV; {LAUNCHES_BEFORE} before the epilogue took {ADDS_TAKEN} adds) [{card}]")
+    assert per_fwd <= LAUNCHES_BEFORE - ADDS_TAKEN + LAUNCHES_SPREAD, (per_fwd, LAUNCHES_BEFORE)
     phase_window(model, params, tenants, card, kw)
     for paged, kv_dtype in KV_CONFIGS:
         launches.update(phase_full_kv(model, params, tenants, prompts, max_new, kw, card, paged,
                                       kv_dtype))
     packed = {qd: phase_full_packed(model, params, tenants, prompts, max_new, kw, card, qd)
               for qd in PACKED}
+    launches["apply_by_route"] = apply_by_route
     return launches, packed
 
 
@@ -1979,6 +2166,7 @@ def phase_full_kv(model, params, tenants, prompts, max_new, kw, card: str, paged
     wall = time.perf_counter() - t0
     n = {c.name: c.kernel for c in COUNTERS.values()}
     decode_routes(f"full-{name}")
+    apply_routes(f"full-{name}", 7, forwards_of(eng))
     for c in COUNTERS.values():
         assert c.plain == 0, f"{name} serving called the plain version of {c.name}"
         assert c.name not in others or c.kernel == 0, f"{name} serving launched {c.name}"
@@ -2042,7 +2230,10 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
     assert routes == {"skinny": 7 * n["paged_decode_attention"],
                       "wgmma": 7 * n["paged_prefill_attention"]}, routes
     decode_routes(f"full-{qd}")
-    assert n["sparse_delta_batched"] > 0 and n["fused_linear"] == 0, n
+    assert apply_routes(f"full-{qd}", 7, forwards) == {
+        "rows-fused": 7 * n["paged_decode_attention"],
+        "tiles-fused": 7 * n["paged_prefill_attention"]}
+    assert n["fused_linear"] == 0, n
     for r in reqs:
         assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
     assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
@@ -2639,6 +2830,140 @@ def attention_variants(card: str) -> None:
         json.dump(result, f, indent=1)
 
 
+# the launch choices --delta-variants times beside the chosen plans (the
+# planners' keywords; {} is the chosen plan). Columns a thread are 8, fixed
+# by the kernels' 16-byte vectors, and are not varied.
+APPLY_VARIANTS = ({}, {"tile_rows": 1}, {"tile_rows": 2}, {"tile_rows": 8}, {"tile_rows": 16},
+                  {"stages": 1}, {"blocks_per_sm": 1}, {"blocks_per_sm": 3},
+                  {"blocks_per_sm": 4}, {"max_threads": 128}, {"rows_max": 1 << 30},
+                  {"rows_max": 0})
+DVAL_VARIANTS = ({}, {"tile_rows": 1}, {"tile_rows": 2}, {"tile_rows": 8}, {"stages": 1},
+                 {"blocks_per_sm": 1}, {"blocks_per_sm": 4}, {"max_threads": 256},
+                 {"max_threads": 128}, {"max_threads": 64})
+
+
+def variant_sweep(kind: str, variants, cases, plan_of, launch, plain) -> dict:
+    """Each distinct set of plans that ``variants`` (planner keywords) give
+    for ``cases``: every launch checked against ``plain``, then the device
+    ms summed over the cases."""
+    want = [plain(c) for c in cases]
+    row, seen = {}, set()
+    for kw in variants:
+        plans = tuple(plan_of(c, kw) for c in cases)
+        if plans in seen:
+            continue
+        seen.add(plans)
+        for c, p, w in zip(cases, plans, want):
+            check_close(f"{kind} {kw} {p}", launch(c, p), w, torch.bfloat16)
+        row[json.dumps(kw) if kw else "chosen"] = {
+            "ms": timed_sum(f"{kind} {kw}", [lambda c=c, p=p: launch(c, p)
+                                              for c, p in zip(cases, plans)]),
+            "plans": [p._asdict() for p in plans]}
+    return row
+
+
+def timed_sum(what: str, calls) -> float | None:
+    """The device ms of ``calls`` summed, or None (logged, with the
+    profiler's complaint) where a timing session recorded no kernel."""
+    try:
+        return sum(cuda_ms(fn) for fn in calls)
+    except RuntimeError as err:
+        log(f"[delta variants] {what}: not timed ({err})")
+        return None
+
+
+def delta_variants(card: str) -> None:
+    """The two bypass kernels at their path shapes (bf16) under the launch
+    choices their planners pick among, each plan checked against the plain
+    version: the multi-tenant apply over qwen2-1.5b's 7 projections at a
+    decode step (M = 8) and a mixed step (M = 2048), delta only and with
+    the epilogue, at every plan of APPLY_VARIANTS (rows a tile, stages,
+    blocks an SM, column spans, the rows route at every M or at none); the
+    single-tenant apply over olmoe-1b-7b's 3 expert stacks and head; the
+    value gradient over qwen2's layer at M = 2048 and olmoe's 4 shapes at
+    every plan of DVAL_VARIANTS. Writes ``chiprun_out/delta_variants.json``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    build.library()
+    sms = dec_mod.sm_count(dev)
+    cfg = get_config("qwen2-1.5b")
+    d, dq, dkv, dff = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim, \
+        cfg.num_kv_heads * cfg.resolved_head_dim, cfg.d_ff
+    projections = [("wq", d, dq), ("wk", d, dkv), ("wv", d, dkv), ("wo", dq, d),
+                   ("wgate", d, dff), ("wup", d, dff), ("wdown", dff, d)]
+    result = {"card": card, "apply": {}, "single": {}, "dval": {}}
+
+    def report(tag, row):
+        log(f"[delta variants] {tag}: " + ", ".join(f"{k_} {v_['ms']}" for k_, v_ in
+                                                    row.items()) + f" ms [{card}]")
+
+    for m in (SLOTS, SLOTS * PREFILL_CHUNK):
+        cases = []
+        for _, d_in, d_out in projections:
+            x, idx, val, aid = delta_case(gen, m, d_in, d_out, torch.bfloat16, torch.bfloat16,
+                                          dev)
+            rpi = m // SLOTS
+            y = torch.randn(m, d_out, generator=gen, device=dev).to(torch.bfloat16)
+            cases.append((x, idx, val, aid[::rpi].contiguous(), rpi, y, aid))
+
+        def plan_of(c, kw):
+            return sd_mod.delta_plan(c[0].shape[0], c[0].shape[1], c[1].shape[2], 2, sms, **kw)
+
+        row = variant_sweep(f"apply M={m}", APPLY_VARIANTS, cases, plan_of,
+                            lambda c, p: sd_mod.launch_batched(*c[:5], None, None, p),
+                            lambda c: sd_mod.sparse_delta_batched_plain(*c[:3], c[6]))
+        # the epilogue under the same plans (timed only: its bits are held
+        # against the adds in the kernel phase)
+        fused = {key: {"ms": timed_sum(f"apply M={m} {key} with the epilogue", [
+            lambda c=c, p=p: sd_mod.launch_batched(*c[:5], c[5], None, sd_mod.DeltaPlan(**p))
+            for c, p in zip(cases, r["plans"])])} for key, r in row.items()}
+        result["apply"][f"M={m}"] = row
+        result["apply"][f"M={m} fused"] = fused
+        report(f"apply, qwen2 layer M={m}, delta only", row)
+        report(f"apply, qwen2 layer M={m}, with the epilogue", fused)
+    ecfg = get_config(MOE_ARCH)
+    m_tok = TRAIN_BATCH * TRAIN_SEQ
+    g = moe_mod.num_groups(m_tok, ecfg.experts_per_token)
+    rows = g * moe_mod.capacity(ecfg, m_tok // g)
+    e, dm, f, v = ecfg.num_experts, ecfg.d_model, ecfg.d_ff, ecfg.padded_vocab
+    single, grads = [], []
+    for b, m, d_in, d_out in ((e, rows, dm, f), (e, rows, dm, f), (e, rows, f, dm),
+                              (1, m_tok, dm, v)):
+        x = torch.randn(b, m, d_in, generator=gen, device=dev).to(torch.bfloat16)
+        idx = torch.randint(0, d_in, (b, TRAIN_K, d_out), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = (torch.randn(b, TRAIN_K, d_out, generator=gen, device=dev) * 0.05).to(
+            torch.bfloat16)
+        dy = (torch.randn(b, m, d_out, generator=gen, device=dev) * m**-0.5).to(torch.bfloat16)
+        single.append((x, idx, val))
+        grads.append((x, idx, dy))
+    row = variant_sweep(
+        "olmoe single-tenant apply", APPLY_VARIANTS, single,
+        lambda c, kw: sd_mod.delta_plan(c[0].shape[0] * c[0].shape[1], c[0].shape[2],
+                                        c[1].shape[2], 2, sms, **kw),
+        lambda c, p: sd_mod.launch_single(*c, p), lambda c: sd_mod.sparse_delta_plain(*c))
+    result["single"]["olmoe 3 expert stacks + head"] = row
+    report("single-tenant apply, olmoe 3 expert stacks + head", row)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    qgrads = []
+    for _, d_in, d_out in projections:
+        x = torch.randn(1, m, d_in, generator=gen, device=dev).to(torch.bfloat16)
+        idx = torch.randint(0, d_in, (1, TRAIN_K, d_out), generator=gen, device=dev,
+                            dtype=torch.int32)
+        dy = (torch.randn(1, m, d_out, generator=gen, device=dev) * m**-0.5).to(torch.bfloat16)
+        qgrads.append((x, idx, dy))
+    for tag, cases in ((f"qwen2 layer M={m}", qgrads), ("olmoe 3 expert stacks + head", grads)):
+        row = variant_sweep(
+            f"dval {tag}", DVAL_VARIANTS, cases,
+            lambda c, kw: sd_mod.dval_plan(*c[0].shape, c[1].shape[2], 2, sms, **kw),
+            lambda c, p: sd_mod.launch_dval(*c, torch.float32, p),
+            lambda c: sd_mod.sparse_delta_dval_plain(*c))
+        result["dval"][tag] = row
+        report(f"dval, {tag}", row)
+    with open(os.path.join(OUT_DIR, "delta_variants.json"), "w") as f_:
+        json.dump(result, f_, indent=1)
+
+
 def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
                         flash: bool = False) -> None:
     """Reduced ``arch`` in fp32 (fp32 values too), the same params and
@@ -2757,6 +3082,10 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
                   if COUNTERS[n].kernel}
         assert routes and all(r == {"wgmma": COUNTERS[n].kernel} for n, r in routes.items()), \
             routes
+        # every value gradient in one launch a call (the ranges merged inside)
+        dv = COUNTERS["sparse_delta_dval"]
+        assert dv.kernel > 0 and dv.routes == {sd_mod.DVAL_ROUTE: dv.kernel}, dv.routes
+        routes["sparse_delta_dval"] = dict(dv.routes)
         if long:  # every flash launch of the long-context steps on the wgmma route
             fr = dict(COUNTERS["flash_attention_fwd"].routes)
             assert fr == {"wgmma": launches["flash_attention_fwd"]}, fr
@@ -2846,6 +3175,7 @@ def serve_moe(model, params, trainer, card: str) -> dict:
     wall = time.perf_counter() - t0
     n = {name: c.kernel for name, c in COUNTERS.items()}
     decode_routes("serve-olmoe")
+    apply_routes("serve-olmoe")
     for name, c in COUNTERS.items():
         assert c.plain == 0, f"olmoe serving called the plain version of {name}"
         assert name in SERVING or c.kernel == 0, f"olmoe serving launched {name}"
@@ -2902,6 +3232,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--attention-variants"]:
         attention_variants(card)
+        return 0
+    if sys.argv[1:] == ["--delta-variants"]:
+        delta_variants(card)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -2999,6 +3332,13 @@ def main() -> int:
             row.update({key: s[key] for key in ("backward_plain_ms", "launch_route", "mma_ms")})
         if name in DECODE_NAMES:
             row["launch_route"] = dec_mod.ROUTE
+        if name == "sparse_delta_batched":
+            # the gate run's launches by route: rows at the decode steps (M =
+            # slots), tiles at the mixed steps, both with the serving epilogue
+            row.update({key: s[key] for key in ("fused", "decode", "decode_fused")},
+                       launches_by_route=launches["apply_by_route"])
+        if name == "sparse_delta_dval":
+            row.update(m4096=s["m4096"], launch_route=sd_mod.DVAL_ROUTE)
         if name == "topk_select":
             row["launches_by_phase"] = select_by_phase
         if "olmoe" in s:

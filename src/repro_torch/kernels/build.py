@@ -34,8 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every function returns an int cudaError_t
 SIGNATURES = {
-    # x, idx, val, aid, y | M, d_in, d_out, n_ad, k, x_dtype, v_dtype | stream
-    "rt_sparse_delta_batched": [_P] * 5 + [_I] * 7 + [_P],
+    # x, idx, val, aid, bias (may be null), y | M, d_in, d_out, n_ad, k, rows_per_id,
+    # accumulate, x_dtype, v_dtype, route, threads, blocks, tile rows, groups a span,
+    # lanes, spans, stages | stream
+    "rt_sparse_delta_batched": [_P] * 6 + [_I] * 17 + [_P],
     # q, k_pool, v_pool, table, kv_valid_len, out, partials, tickets | B, n_blocks,
     # page, hkv, hd, g, heads a block, n_pages, pages_per_range, ranges, stages, warps,
     # smem, dtype | stream
@@ -62,11 +64,13 @@ SIGNATURES = {
     "rt_fused_linear_wgmma": [_P] * 6 + [_I] * 6 + [_P],
     # x, w | M, N, K, tile_rows, iters (returns the encodes' nanoseconds, or -1)
     "rt_linear_encode_ns": [_P] * 2 + [_I] * 5,
-    # x, idx, val, y | B, M, d_in, d_out, k, x_dtype, v_dtype | stream
-    "rt_sparse_delta": [_P] * 4 + [_I] * 7 + [_P],
-    # x, idx, dy, partials, dval | B, M, d_in, d_out, k, rows_per_split, n_split,
-    # dtype | stream
-    "rt_sparse_delta_dval": [_P] * 5 + [_I] * 8 + [_P],
+    # x, idx, val, y | B, M, d_in, d_out, k, x_dtype, v_dtype, and the plan as for
+    # rt_sparse_delta_batched | stream
+    "rt_sparse_delta": [_P] * 4 + [_I] * 15 + [_P],
+    # x, idx, dy, partials, group sums, dval, tickets | B, M, d_in, d_out, k, dtype,
+    # out_dtype, threads, rows a range, ranges, tile rows, groups a span, lanes, spans,
+    # stages | stream
+    "rt_sparse_delta_dval": [_P] * 7 + [_I] * 15 + [_P],
     # x, data, scales, idx, val, bias (idx/val/bias may be null), y | M, N, K, k,
     # block, qdtype, x_dtype, v_dtype | stream
     "rt_fused_linear_q": [_P] * 7 + [_I] * 8 + [_P],

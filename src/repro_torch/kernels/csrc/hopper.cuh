@@ -1,11 +1,15 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (linear.cuh's
-// fused linear mainloop, flash_attention.cu's wgmma route): mbarriers, TMA
-// tile loads, warpgroup register hand-off, wgmma descriptors and the
-// m64nNk16 bf16 products with operands in shared memory (Wgmma) or A in
-// registers (WgmmaRS), and the host-side tensor-map encoders.
+// fused linear mainloop, flash_attention.cu's wgmma route) and the bypass
+// kernels (sparse_delta.cu, sparse_delta_dval.cu): mbarriers, TMA tile
+// loads, 1-D bulk copies of row runs, warpgroup register hand-off, wgmma
+// descriptors and the m64nNk16 bf16 products with operands in shared
+// memory (Wgmma) or A in registers (WgmmaRS), and the host-side tensor-map
+// encoders.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, nothing more is linked
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -60,6 +64,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// one contiguous run of `bytes` (a multiple of 16; src and dst 16-byte
+// aligned) into shared memory; completes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Stage the `bytes` at `src` (an address and a length in whole ES-byte
+// elements, 16-byte aligned or not) into `buf` (16-byte aligned, at least
+// bytes + 16 long); the copy of src[i] lands at buf + (src & 15) + i. The
+// 16-byte-aligned middle goes by one bulk copy that thread 0 issues on
+// `bar` (one arrival a phase; with no middle, a bare arrival); the head
+// and tail around it, under 16 bytes each, by plain loads and stores of
+// the block's threads. A reader waits on `bar` and a block barrier (for
+// the plain stores).
+template <int ES>
+__device__ __forceinline__ void stage_run(unsigned char* buf, const void* src, size_t bytes,
+                                          uint64_t* bar) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src), e = s + bytes, base = s & ~uintptr_t(15);
+  uintptr_t a = (s + 15) & ~uintptr_t(15), b = e & ~uintptr_t(15);
+  if (b <= a) a = b = e;  // no aligned middle: all of it plain
+  if (threadIdx.x == 0) {
+    if (b > a) {
+      mbar_expect_tx(bar, static_cast<uint32_t>(b - a));
+      bulk_load(buf + (a - base), reinterpret_cast<const void*>(a), static_cast<uint32_t>(b - a),
+                bar);
+    } else {
+      mbar_arrive(bar);
+    }
+  }
+  const int nh = static_cast<int>((a - s) / ES), nt = static_cast<int>((e - b) / ES);
+  using W = typename std::conditional<ES == 2, uint16_t, uint32_t>::type;
+  for (int i = threadIdx.x; i < nh + nt; i += blockDim.x) {
+    const uintptr_t g = i < nh ? s + static_cast<uintptr_t>(i) * ES
+                               : b + static_cast<uintptr_t>(i - nh) * ES;
+    *reinterpret_cast<W*>(buf + (g - base)) = *reinterpret_cast<const W*>(g);
+  }
 }
 
 __device__ __forceinline__ void named_bar(int id, int threads) {

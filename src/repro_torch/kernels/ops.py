@@ -16,6 +16,8 @@ function in ``models.attention`` around ``kernels.flash_attention``.)
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import fused_linear as _fl
@@ -29,21 +31,35 @@ from repro_torch.kernels.topk_select import topk_select as _topk_select
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize
 
 
-def delta_apply_batched(x, idx, val, aid):
+def delta_apply_batched(x, idx, val, aid, y=None, bias=None):
     """Multi-tenant bypass: x (..., d_in) × stacks (N, k, d_out) selected per
     row by ``aid`` -> (..., d_out). ``aid`` broadcasts left-aligned against
-    ``x.shape[:-1]`` (the engine passes (B,) ids for (B, S, d_in) rows)."""
+    ``x.shape[:-1]`` (the engine passes (B,) ids for (B, S, d_in) rows): where
+    its shape leads x's, the kernel reads one id for every row it covers, and
+    no per-row copy is made. With ``y`` (..., d_out), the base product x @ W
+    in x's dtype, the bypass and then ``bias`` are added into ``y`` in place
+    in the kernel's epilogue — the bits of ``y + delta`` then ``+
+    bias.to(y.dtype)``, one launch — and ``y`` comes back (serving only: a
+    ``y`` that requires grad is refused)."""
     lead = x.shape[:-1]
-    aid = aid.reshape(tuple(aid.shape) + (1,) * (len(lead) - aid.ndim))
-    aid = aid.expand(lead).reshape(-1).to(torch.int32).contiguous()
-    y = sparse_delta_batched(x.reshape(-1, x.shape[-1]).contiguous(), idx, val, aid)
-    return y.reshape(*lead, idx.shape[-1])
+    if tuple(aid.shape) == tuple(lead[:aid.ndim]):  # an id for every row or sequence
+        rows_per_id = math.prod(lead[aid.ndim:])
+    else:
+        aid = aid.reshape(tuple(aid.shape) + (1,) * (len(lead) - aid.ndim)).expand(lead)
+        rows_per_id = 1
+    aid = aid.reshape(-1).to(torch.int32).contiguous()
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    if y is None:
+        out = sparse_delta_batched(x2d, idx, val, aid, rows_per_id)
+        return out.reshape(*lead, idx.shape[-1])
+    sparse_delta_batched(x2d, idx, val, aid, rows_per_id, y.view(-1, y.shape[-1]), bias)
+    return y
 
 
 class _DeltaApply(torch.autograd.Function):
     """Forward: the single-tenant bypass kernel over a leading batch axis.
     Backward, as the reference's ``_delta_bwd``: ``dval`` from the
-    value-gradient kernel (one launch for the whole batch), cast to the
+    value-gradient kernel (one launch for the whole batch), written in the
     values' dtype; ``dx`` by the plain scatter of ``sparse_delta_dx_ref``."""
 
     @staticmethod
@@ -60,7 +76,7 @@ class _DeltaApply(torch.autograd.Function):
         if need_x:
             dx = ref.sparse_delta_dx_ref(idx, val, dy, x3.shape[2]).to(x3.dtype)
         if need_val:
-            dval = sparse_delta_dval(x3, idx, dy).to(val.dtype)
+            dval = sparse_delta_dval(x3, idx, dy, val.dtype)
         return dx, None, dval
 
 
@@ -107,7 +123,7 @@ class _FusedLinear(torch.autograd.Function):
     ``_fused_bwd``: ``dx = dy @ Wᵀ`` (a plain matmul, as the reference
     leaves it to XLA) plus the sparse scatter of the bypass (plain
     ``index_add_``, as the reference's ``sparse_delta_dx_ref``); ``dval``
-    from the value-gradient kernel, cast to the values' dtype; ``dbias =
+    from the value-gradient kernel, written in the values' dtype; ``dbias =
     Σ_m dy``; a ``dw`` only for a W declared trainable. Gradients are
     computed only for the inputs that need them."""
 
@@ -129,7 +145,7 @@ class _FusedLinear(torch.autograd.Function):
         if need_w and not ctx.w_frozen:
             dw = (x2d.T @ dy).to(w.dtype)
         if need_val:
-            dval = sparse_delta_dval(x2d, idx, dy).to(val.dtype)
+            dval = sparse_delta_dval(x2d, idx, dy, val.dtype)
         if need_b:
             dbias = dy.sum(dim=0).to(ctx.bias_dtype)
         return dx, dw, None, dval, dbias, None
@@ -185,7 +201,7 @@ class _FusedLinearQ(torch.autograd.Function):
             if idx is not None:
                 dx = dx + ref.sparse_delta_dx_ref(idx, val, dy, x2d.shape[1]).to(x2d.dtype)
         if need_val:
-            dval = sparse_delta_dval(x2d, idx, dy).to(val.dtype)
+            dval = sparse_delta_dval(x2d, idx, dy, val.dtype)
         if need_b:
             dbias = dy.sum(dim=0).to(ctx.bias_dtype)
         return dx, None, None, None, dval, dbias, None, None, None

@@ -67,8 +67,8 @@ def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
         # a Delta bypass implies the NeuroAda contract: W is frozen
         return ops.fused_linear(x, w, d.idx, d.val, b, w_frozen=True)
     y = ops.matmul_q(x, w)
-    if d is not None:
-        y = y + ops.delta_apply_batched(x, d.idx, d.val, d.aid)
+    if d is not None:  # the bypass and the bias in the kernel's epilogue, into y
+        return ops.delta_apply_batched(x, d.idx, d.val, d.aid, y, b)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -150,10 +150,10 @@ def _expert_linear_g(p: dict, a, name: str, eh: torch.Tensor, aid_buf=None) -> t
     bypass -> (E, R, Dout)."""
     y = torch.bmm(eh, p[name]["w"])
     d = _delta_of(a, name)
-    if isinstance(d, BatchedDelta):
+    if isinstance(d, BatchedDelta):  # serving: added into y in the kernel's epilogue
         n, e, k, f = d.idx.shape
-        y = y + ops.delta_apply_batched(eh, d.idx.reshape(n * e, k, f),
-                                        d.val.reshape(n * e, k, f), aid_buf)
+        ops.delta_apply_batched(eh, d.idx.reshape(n * e, k, f), d.val.reshape(n * e, k, f),
+                                aid_buf, y)
     elif d is not None:
         y = y + ops.delta_apply(eh, d.idx, d.val)
     return y

@@ -190,15 +190,14 @@ def adapter_views(adapters) -> list[dict] | None:
     return [{name: (d.idx[i], d.val[i]) for name, d in blocks.items()} for i in range(n)]
 
 
-def _bind_adapters(adapters, views, b: int, s: int) -> list[dict | None]:
-    """Each layer's ``{name: BatchedDelta}``, the slots' adapter ids
-    broadcast once to the (B, S) rows every projection sees."""
+def _bind_adapters(adapters, views) -> list[dict | None]:
+    """Each layer's ``{name: BatchedDelta}`` over the slots' (B,) adapter
+    ids: the bypass kernel reads one id for a slot's S rows."""
     views = adapter_views(adapters) if views is None else views
     if views is None:
         return None
-    aid = next(iter(adapters["blocks"].values())).aid
-    rows = aid[:, None].expand(b, s).contiguous()
-    return [{name: BatchedDelta(idx, val, rows) for name, (idx, val) in layer.items()}
+    aid = next(iter(adapters["blocks"].values())).aid.to(torch.int32).contiguous()
+    return [{name: BatchedDelta(idx, val, aid) for name, (idx, val) in layer.items()}
             for layer in views]
 
 
@@ -233,8 +232,8 @@ def _head_logits(cfg, params, adapters, h):
         return h @ params["embed"]["w"].T
     logits = ops.matmul_q(h, params["head"]["w"])
     d = adapters.get("head") if adapters else None
-    if d is not None:
-        logits = logits + ops.delta_apply_batched(h, d.idx, d.val, d.aid)
+    if d is not None:  # added into the logits in the kernel's epilogue
+        ops.delta_apply_batched(h, d.idx, d.val, d.aid, logits)
     return logits
 
 
@@ -311,7 +310,7 @@ def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None
     vl = q_offset + q_len
     n = cache["k"].shape[1] - 1  # real blocks (paged) or slots (dense)
     plan = _write_plan(cache, wtable, q_offset, q_len, c)
-    bound = _bind_adapters(adapters, a_views, b, c)
+    bound = _bind_adapters(adapters, a_views)
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
         lc = _layer_cache(cache, i)
@@ -350,7 +349,7 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
         vl = torch.where(batch["active"], vl, 0)
     n = cache["k"].shape[1] - 1
     plan = _write_plan(cache, table, pos, torch.ones_like(pos), 1)
-    bound = _bind_adapters(adapters, a_views, h.shape[0], 1)
+    bound = _bind_adapters(adapters, a_views)
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
         lc = _layer_cache(cache, i)

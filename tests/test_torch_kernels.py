@@ -283,14 +283,16 @@ def test_training_wrappers_check_their_inputs():
 
 
 @pytest.mark.parametrize("m,d_out,sms,want", [
-    (2048, 256, 132, (8, 256)),      # wk/wv: 2 column tiles, M split 256 ways
-    (2048, 8960, 132, (256, 8)),     # wgate/wup: 70 column tiles
-    (5, 8960, 132, (1, 5)),          # fewer rows than splits wanted
+    (2048, 256, 132, (16, 128)),     # wk/wv: one span, M split 128 ways
+    (2048, 8960, 132, (47, 44)),     # wgate/wup: 3 spans of 2992 columns
+    (5, 8960, 132, (1, 5)),          # fewer rows than ranges wanted
 ])
 def test_dval_split_fills_the_card_and_covers_every_row(m, d_out, sms, want):
-    rows, n_split = sd.dval_split(m, d_out, sms)
+    plan = sd.dval_plan(1, m, 1536, d_out, 2, sms)
+    rows, n_split = plan.rows_per_range, plan.ranges
     assert (rows, n_split) == want
     assert rows * n_split >= m > rows * (n_split - 1)
+    assert plan.spans * n_split >= min(m, 0.9 * sms)  # whole rows a range: one rounding
 
 
 # ------------------------------------------------------ packed base

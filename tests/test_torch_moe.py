@@ -345,13 +345,14 @@ def test_sparse_delta_check_rejects_bad_inputs(case):
 
 
 @pytest.mark.parametrize("m,d_out,sms,batch,want", [
-    (320, 1024, 132, 64, (160, 2)),   # olmoe expert wgate/wup: 512 column tiles
-    (320, 2048, 132, 64, (320, 1)),   # olmoe expert wdown
-    (2048, 50304, 132, 1, (1024, 2)),  # the untied head: 393 column tiles
-    (2048, 256, 132, 1, (8, 256)),    # B = 1 is the 2-D split
+    (320, 1024, 132, 64, (107, 3)),   # olmoe expert wgate/wup: one span each
+    (320, 2048, 132, 64, (107, 3)),   # olmoe expert wdown
+    (2048, 50304, 132, 1, (187, 11)),  # the untied head: 13 spans of 3872 columns
+    (2048, 256, 132, 1, (16, 128)),   # B = 1 is the 2-D split
 ])
 def test_batched_dval_split_covers_every_row(m, d_out, sms, batch, want):
-    rows, n_split = sd.dval_split(m, d_out, sms, batch)
+    plan = sd.dval_plan(batch, m, 2048, d_out, 2, sms)
+    rows, n_split = plan.rows_per_range, plan.ranges
     assert (rows, n_split) == want
     assert rows * n_split >= m > rows * (n_split - 1)
 
