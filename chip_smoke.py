@@ -75,9 +75,13 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    and olmoe's (1, 2048, 16/16, 128) on the wgmma route (timed beside the
    mma route), with the plain backward timed at qwen2's; ``topk_select`` equal to the sort, indices and order
    (ragged d_in and d_out, k 1-64 and k = d_in, tie-heavy bf16), and over
-   every stack qwen2 (7) and olmoe (8) select on — then timed beside
-   its plain version, its bound and a one-call PyTorch yardstick where
-   there is one (the port never calls it);
+   every stack qwen2 (7) and olmoe (8) select on; and the four kernels of
+   a speculative round at its shapes (the bypass apply with the serving
+   epilogue at 40 rows, 5 a tenant id, on ``rows-fused``; the paged
+   prefill at a verify chunk of 5; ``fused_linear_q`` int8 and NF4 at 40
+   rows on ``wgmma``; the dense decode over a drafter's scratch cache) —
+   then timed beside its plain version, its bound and a one-call PyTorch
+   yardstick where there is one (the port never calls it);
 4. reduced serving: reduced qwen2-1.5b in fp32 through the paged
    multi-tenant engine on the card (kernels) and on the CPU (plain
    versions): greedy tokens must be identical; then the same on an int8
@@ -85,22 +89,38 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    through ``fused_linear_q``, 7 a layer-forward); then with int8 KV on the
    paged pool (also on an int8 base) and with bf16 and int8 KV on the dense
    slot cache, each run launching only its own attention bodies; the paged
-   and dense int8 runs' tokens must be identical;
+   and dense int8 runs' tokens must be identical; then speculative
+   decoding with every drafter (ngram, int8, nf4, merged) on the paged
+   pool and the dense cache: tokens identical to draft="off" on the card
+   and to the CPU's under the same drafter, drafted and accepted counts
+   the CPU's;
 5. full serving: qwen2-1.5b at full published width in bf16, random
    weights from a seed, 3 NeuroAda tenants plus the base, 8 slots,
    ``max_len`` 1024, prompts of 40-700 tokens: every request ends, all
    three serving kernels launched, no plain version called, every decode
    launch on the ring route, every bypass apply on a fused route (the add
    and the QKV bias in its epilogue: rows at the decode steps, tiles at the
-   mixed steps, 7 a layer-forward; so in all seven serving gate runs), the
-   profiled run's launches a layer-forward 10 below their count before the
-   epilogue, one device-to-host transfer per step (every
+   mixed steps, 7 a layer-forward; so in all seven serving gate runs), one
+   device-to-host transfer per step (every
    forward and token draw under ``torch.cuda.set_sync_debug_mode("error")``,
    so no hidden one), the
    block pool fully free at the end;
-   the same run again under ``torch.profiler`` (device time by kernel);
+   the same run again under ``torch.profiler`` (device time by kernel),
+   and its host operations (ATen operations dispatched and hand-written
+   kernel launches) counted twice, identical, pinned exactly (GATE_OPS);
+   then speculative
+   decoding, spec_k 4: the gate run with the ngram, int8 and merged
+   drafters (only their kernels, no plain version, one transfer a step
+   with the rounds' device half under the sync guard, the pool drained;
+   the verify's applies ``rows-fused`` at 40 rows, the prefill kernel at
+   a chunk of 5, a model drafter's decode attention ``ring`` on its
+   scratch, the int8 drafter's linears ``skinny``; every bf16 divergence
+   from draft="off" at a near-tie of the teacher-forced logits), the
+   ngram run profiled, and the window with off, ngram, int8 and merged
+   in turn (tok/s, acceptance, forwards a token);
    then a longer, decode-dominated window (16 requests x 128 new tokens)
-   served twice, for the median and spread of tokens/s; then the
+   served once (the speculative window's draft="off" run is a second
+   reading in the same call); then the
    same tenants, prompts and settings on an int8 and on an NF4 base
    (``ServeEngine(base_dtype=...)``): the gate run (every base matmul
    through ``fused_linear_q``, 7 a layer-forward, decode steps on the
@@ -149,11 +169,14 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
-the thirteen kernels; the rows of kernels olmoe also runs carry an ``olmoe``
-entry (ms, plain ms and bound at olmoe's shapes, launches in its training
+the thirteen kernels; the rows of the four kernels a speculative round
+reaches carry a ``spec`` entry (its shape's times and bound, the spec gate
+runs' launches by drafter); the rows of kernels olmoe also runs carry an
+``olmoe`` entry (ms, plain ms and bound at olmoe's shapes, launches in its training
 steps or serving gate run). Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
-``chiprun_out/window*.json``, every line printed to
+``chiprun_out/window*.json`` (the speculative one to ``window_spec.json``),
+every line printed to
 ``chiprun_out/chip_smoke.log``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
 The training phases write ``train*.json`` and ``train*_profile.txt`` to
@@ -175,6 +198,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -257,12 +281,27 @@ LONG_BATCH, LONG_SEQ = 1, 4096
 REDUCED_FLASH, REDUCED_FLASH_SHAPE = dict(flash_threshold=32, flash_block=16), (4, 64)
 
 
-# launches a layer-forward of the qwen2 paged bf16 gate run before the bypass
-# apply took the add and the bias into its epilogue (68.1 and 68.3 in two
-# runs of that tree on an H100 80GB HBM3, PERF.md: the count moves by a few
-# tenths between runs), and the launches a layer-forward that took: the 7
-# adds after the delta and the 3 QKV bias adds
-LAUNCHES_BEFORE, LAUNCHES_SPREAD, ADDS_TAKEN = 68.3, 0.5, 10
+# the qwen2 paged bf16 gate run's host operations, counted exactly: every
+# ATen operation it dispatches (OpCount) plus every launch of a hand-written
+# kernel (COUNTERS; ctypes calls the dispatcher never sees), set-up of its
+# store and engine included. The run is greedy on fixed prompts, so the
+# count is the same every run (203,006 on an H100 80GB HBM3, 105.08 a
+# layer-forward), and it is pinned. It replaces a gate on the kernels
+# torch.profiler records: profiles of one run of one tree differed by
+# records the profiler lost (at a session's start, and blocks of them in
+# its middle), never by a launch. Every profiler session still opens with
+# PROFILE_MARKERS uncounted marker kernels, which take the start's losses
+GATE_OPS, PROFILE_MARKERS, MARKER_KERNEL = 203006, 8, "spin_kernel"
+
+# speculative decoding: the drafters of the reduced phase and the window,
+# those of the full-width gate runs, the drafted tokens a round, and the
+# verify chunk's rows (slots x (spec_k + 1), spec_k + 1 rows a tenant id)
+SPEC_DRAFTERS, SPEC_GATE, SPEC_K = ("ngram", "int8", "nf4", "merged"), ("ngram", "int8", "merged"), 4
+SPEC_ROWS = SLOTS * (SPEC_K + 1)
+# a greedy divergence between a spec run and draft="off" in bf16 must sit at
+# a near-tie of the teacher-forced logits: the top two (the two tokens the
+# runs chose among) at most SPEC_TIE_ULPS bf16 ulps of the top logit apart
+SPEC_TIE_ULPS = 4
 
 LOG = []  # every line log() printed, written to chiprun_out/chip_smoke.log at the end
 
@@ -293,21 +332,28 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: the summed durations of the
     kernels it launches (CUPTI, through ``torch.profiler``), averaged over
     ``iters`` calls. Host time between launches is not counted, so a
-    small kernel's time is its own and not the Python wrapper's."""
+    small kernel's time is its own and not the Python wrapper's. The
+    profiler loses records now and then (a whole session's, once in ~60;
+    a session's first ones; blocks in its middle: PERF.md §6), which
+    would read low: the session opens with uncounted marker kernels, and
+    one in which some kernel was not recorded ``iters`` times over (every
+    call launches the same kernels) is taken again."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a profiling session now and then records no kernel at all (seen once
-    # in a run of ~60 sessions); take the next session then, never a zero
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(self_device_us(e) for e in device_kernels(prof))
-        if total > 0:
+        kernels = [e for e in device_kernels(prof) if MARKER_KERNEL not in e.key]
+        total = sum(self_device_us(e) for e in kernels)
+        if total > 0 and all(e.count % iters == 0 for e in kernels):
             return total / iters / 1e3
-    raise RuntimeError("torch.profiler recorded no device time in 3 sessions")
+    raise RuntimeError("torch.profiler lost records of the timed calls in 3 sessions")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -400,11 +446,11 @@ def attention_bytes(q, kp, table, vl, q_rows: int, n_lengths: int) -> float:
             + n_lengths * 4 * q.shape[0] + q.numel() * es)
 
 
-def prefill_mask(qoff, vl, table, dev):
+def prefill_mask(qoff, vl, table, dev, c: int = PREFILL_CHUNK):
     """(B, 1, C, S) columns each chunk row sees: causal, below its slot's
     frontier."""
     col = torch.arange(table.shape[1] * PAGE, device=dev)[None, None, :]
-    qpos = qoff[:, None, None] + torch.arange(PREFILL_CHUNK, device=dev)[None, :, None]
+    qpos = qoff[:, None, None] + torch.arange(c, device=dev)[None, :, None]
     return ((col <= qpos) & (col < vl[:, None, None]))[:, None]
 
 
@@ -638,6 +684,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     moe_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
     long_context_kernels(gen, dev, summary, detail, card)
     selection_kernels(gen, dev, summary, detail, card)
+    spec_kernels(gen, projections, dev, summary, detail, card, num_blocks)
     return summary, detail
 
 
@@ -1939,6 +1986,168 @@ def packed_kernels(gen, projections, dev, summary, detail, card: str) -> None:
         f"identical bit for bit) [{card}]")
 
 
+# positions of the 8 slots at a speculative round of the full-width gate runs
+# (prompts of 40-700 tokens, a few rounds in), the frontiers the four spec
+# shapes below are held at
+SPEC_POS = [45, 706, 137, 262, 517, 70, 306, 626]
+
+
+def spec_kernels(gen, projections, dev, summary, detail, card: str, num_blocks: int) -> None:
+    """The four kernels of a speculative round at the shapes it gives them,
+    against their plain versions, timed beside their bounds and (where
+    there is one) a one-call PyTorch yardstick: the verify's bypass apply
+    with the serving epilogue at M = slots x (spec_k + 1) = 40 rows, 5 a
+    tenant id (route ``rows-fused``); the paged prefill with a verify chunk
+    of C = 5 columns (one slot cut to 3 at its cache's end, one idle; SDPA
+    on the pre-gathered cache as the yardstick); ``fused_linear_q`` int8 and
+    NF4 at M = 40 (a verify on a packed base, no bypass; ``wgmma``;
+    ``torch.mm`` on the dense weight); the dense decode attention on a model
+    drafter's scratch (the (slots + 1, max_len, 2, 128) bf16 cache without
+    its trash slot; ``ring``; SDPA). Each lands under its kernel's row as
+    ``spec``."""
+    sms = dec_mod.sm_count(dev)
+    c = SPEC_K + 1
+
+    # -- the verify's apply: 7 projections, bf16, one id a slot, the epilogue
+    counter = COUNTERS["sparse_delta_batched"]
+    acc = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+    for name, d_in, d_out in projections:
+        x, idx, val, aid = delta_case(gen, SPEC_ROWS, d_in, d_out, torch.bfloat16,
+                                      torch.bfloat16, dev)
+        seq = aid[::c].contiguous()
+        y0 = torch.randn(SPEC_ROWS, d_out, generator=gen, device=dev).to(torch.bfloat16)
+        bias = (torch.randn(d_out, generator=gen, device=dev).to(torch.bfloat16)
+                if name in ("wq", "wk", "wv") else None)
+        assert sd_mod.delta_plan(SPEC_ROWS, d_in, d_out, 2, sms).route == "rows"
+        counter.reset()
+        got = sd_mod.sparse_delta_batched(x, idx, val, seq, c)
+        fused = sd_mod.sparse_delta_batched(x, idx, val, seq, c, y0.clone(), bias)
+        want = sd_mod.sparse_delta_batched_plain(x, idx, val, aid)
+        torch.cuda.synchronize()
+        what = f"sparse_delta spec {name} M={SPEC_ROWS}"
+        err = check_close(what, got, want, torch.bfloat16)
+        three = y0 + got if bias is None else y0 + got + bias
+        assert torch.equal(fused, three), f"{what}: the epilogue differs from the adds"
+        assert counter.routes == {"rows": 1, "rows-fused": 1}, (what, counter.routes)
+        yb = y0.clone()
+        ms = cuda_ms(lambda: sd_mod.sparse_delta_batched(x, idx, val, seq, c, yb, bias))
+        plain_ms = cuda_ms(lambda: sd_mod.sparse_delta_batched_plain(x, idx, val, aid), iters=3)
+        nbytes, flops = delta_cost(x, idx, val, aid, d_out)
+        nbytes += SPEC_ROWS * d_out * 2 + (0 if bias is None else d_out * 2)  # y (and bias) read
+        detail.append({"kernel": "sparse_delta_batched", "spec": True, "proj": name,
+                       "M": SPEC_ROWS, "rows_per_id": c, "route": "rows-fused",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("flops", flops)):
+            acc[key] += v
+        acc["err"] = max(acc["err"], err)
+    b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
+    summary["sparse_delta_batched"]["spec"] = dict(
+        shape=f"7 projections of one layer, M={SPEC_ROWS} bf16 rows ({c} an id), k={K_DELTA}, "
+              f"N={N_TENANTS + 1}, with the serving epilogue",
+        max_abs_err=acc["err"], ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, launch_route="rows-fused")
+    log(f"[kernels] spec sparse_delta_batched one layer at M={SPEC_ROWS} ({c} rows an id, "
+        f"rows-fused): {acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, bound {b_ms:.4f} by "
+        f"{b_by}); max|err| {acc['err']:.3e}; the epilogue bit for bit [{card}]")
+
+    # -- the verify chunk through the paged prefill, bf16 (and fp32 checked)
+    q_len = [c, c, 3, c, 0, c, c, c]
+    for dt in (torch.float32, torch.bfloat16):  # the bf16 case last: it is timed
+        qb, kb, vb, table, qoff, vl = paged_case(gen, SPEC_POS, q_len, c, dt, dev, num_blocks)
+        readings = check_prefill("paged_prefill_attention spec", qb, kb, vb, table, qoff, vl)
+        detail.append({"kernel": "paged_prefill_attention", "spec": True, "dtype": str(dt),
+                       "q_offset": SPEC_POS, "q_len": q_len, **readings})
+    ms = cuda_ms(lambda: pre_mod.paged_prefill_attention(qb, kb, vb, table, qoff, vl))
+    plain_ms = cuda_ms(lambda: pre_mod.paged_prefill_attention_plain(qb, kb, vb, table, qoff, vl),
+                       iters=3)
+    mask = prefill_mask(qoff, vl, table, dev, c)
+    lib = cuda_ms(sdpa_yardstick(qb, kb, vb, table, mask))
+    b_ms, b_by = bound(*prefill_cost(qb, kb, table, qoff, vl, mask), torch.bfloat16)
+    err = max(r["max_abs_err"] for r in detail[-2:])
+    summary["paged_prefill_attention"]["spec"] = dict(
+        shape=f"q ({SLOTS},{c},12,128) bf16, pool ({num_blocks},16,2,128), q_offset {SPEC_POS}, "
+              f"q_len {q_len}", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
+    log(f"[kernels] spec paged_prefill_attention at C={c}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+        f"sdpa {lib:.4f}, bound {b_ms:.5f} by {b_by}); max|err| {err:.3e} [{card}]")
+
+    # -- fused_linear_q at the verify's rows on a packed base, no bypass
+    counter = COUNTERS["fused_linear_q"]
+    for qd in PACKED:
+        acc = {"ms": 0.0, "plain_ms": 0.0, "lib": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+        for name, d_in, d_out in projections:
+            wd = (torch.randn(d_in, d_out, generator=gen, device=dev) * d_in**-0.5).bfloat16()
+            qt = quantize(wd, qd, QUANT_BLOCK)
+            x = torch.randn(SPEC_ROWS, d_in, generator=gen, device=dev).bfloat16()
+            fn = lambda: ql_mod.fused_linear_q(x, qt.data, qt.scales, qdtype=qd,  # noqa: E731
+                                               block=QUANT_BLOCK)
+            plain = lambda: ql_mod.fused_linear_q_plain(x, qt.data, qt.scales, qdtype=qd,  # noqa: E731
+                                                        block=QUANT_BLOCK)
+            counter.reset()
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            what = f"fused_linear_q spec {qd} {name} M={SPEC_ROWS}"
+            err = check_close(what, got, want, torch.bfloat16)
+            expect_route(counter, "wgmma", 1, what)
+            assert torch.equal(got, fn()), f"{what}: two calls differ"
+            row = {"kernel": "fused_linear_q", "spec": True, "qdtype": qd, "proj": name,
+                   "M": SPEC_ROWS, "route": "wgmma", "max_abs_err": err, "ms": cuda_ms(fn),
+                   "plain_ms": cuda_ms(plain, iters=3),
+                   "library_ms": cuda_ms(lambda: torch.mm(x, wd))}
+            detail.append(row)
+            nbytes, flops = packed_cost(x, qt, 0, None, None)
+            for key, v in (("ms", row["ms"]), ("plain_ms", row["plain_ms"]),
+                           ("lib", row["library_ms"]), ("bytes", nbytes), ("flops", flops)):
+                acc[key] += v
+            acc["err"] = max(acc["err"], err)
+        b_ms, b_by = bound(acc["bytes"], acc["flops"], torch.bfloat16)
+        summary["fused_linear_q"].setdefault("spec", {})[qd] = dict(
+            shape=f"7 projections of one layer, {qd} base (block {QUANT_BLOCK}), M={SPEC_ROWS} "
+                  f"bf16 rows, no bypass", max_abs_err=acc["err"], ms=acc["ms"],
+            plain_ms=acc["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=acc["lib"],
+            launch_route="wgmma")
+        log(f"[kernels] spec fused_linear_q {qd} one layer at M={SPEC_ROWS} (wgmma): "
+            f"{acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, torch.mm dense bf16 "
+            f"{acc['lib']:.4f}, bound {b_ms:.4f} by {b_by}); max|err| {acc['err']:.3e} [{card}]")
+
+    # -- the drafter's step: dense decode over its scratch (trash slot cut)
+    cfg = get_config("qwen2-1.5b")
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    vl = torch.tensor([p + 2 for p in SPEC_POS], dtype=torch.int32, device=dev)
+    vl[4] = 0  # an idle slot reads nothing
+    q = torch.randn(SLOTS, 1, h, hd, generator=gen, device=dev).bfloat16()
+    scratch = torch.randn(2, SLOTS + 1, MAX_LEN, hkv, hd, generator=gen, device=dev).bfloat16()
+    k, v = scratch[0, :SLOTS], scratch[1, :SLOTS]
+    counter = COUNTERS["decode_attention"]
+    counter.reset()
+    got = dd_mod.decode_attention(q, k, v, vl)
+    want = dd_mod.decode_attention_plain(q, k, v, vl)
+    torch.cuda.synchronize()
+    err = check_close("decode_attention spec", got, want, torch.bfloat16)
+    expect_route(counter, dec_mod.ROUTE, 1, "decode_attention spec")
+    ms = cuda_ms(lambda: dd_mod.decode_attention(q, k, v, vl))
+    plain_ms = cuda_ms(lambda: dd_mod.decode_attention_plain(q, k, v, vl), iters=3)
+    rows = int(vl.sum())
+    nbytes = (int((vl > 0).sum()) * h * hd * 2 + 2 * rows * hkv * hd * 2 + 4 * SLOTS
+              + q.numel() * 2)
+    b_ms, b_by = bound(nbytes, 4.0 * rows * h * hd, torch.bfloat16)
+    mask = (torch.arange(MAX_LEN, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    summary["decode_attention"]["spec"] = dict(
+        shape=f"q ({SLOTS},1,12,128) bf16, a drafter's scratch ({SLOTS + 1},{MAX_LEN},2,128) "
+              f"without its trash slot, kv_valid_len {vl.tolist()}", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        launch_route=dec_mod.ROUTE)
+    detail.append({"kernel": "decode_attention", "spec": True, "kv_valid_len": vl.tolist(),
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    log(f"[kernels] spec decode_attention on a drafter's scratch: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, sdpa {lib:.4f}, bound {b_ms:.5f} by {b_by}); max|err| {err:.3e} "
+        f"[{card}]")
+
+
 # --------------------------------------------------------------- engine runs
 
 
@@ -1959,17 +2168,22 @@ def random_tenants(params, n, seed, dtype, device, idx=None):
 
 @contextlib.contextmanager
 def forwards_never_wait(model):
-    """Every forward of ``model`` and every token draw inside runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: one that waits for the
-    device (``.item()``, a device-to-host copy, ``bincount``'s range read)
-    raises, so the engine's fetch stays a step's only transfer."""
+    """Every forward of ``model`` (mixed chunk, decode step, verify chunk,
+    a drafter's chunk), every token draw and distribution, and the whole
+    device half of a speculative megastep (``ServeEngine._spec_rounds``:
+    the drafter's steps, the verify, the accept rule, the ngram lookup)
+    run under ``torch.cuda.set_sync_debug_mode("error")``: one that waits
+    for the device (``.item()``, a device-to-host copy, ``bincount``'s
+    range read) raises, so the engine's fetch stays a step's only
+    transfer."""
     def guarded(fn):
         def call(*args, **kw):
+            before = torch.cuda.get_sync_debug_mode()  # nested guards restore it
             torch.cuda.set_sync_debug_mode("error")
             try:
                 return fn(*args, **kw)
             finally:
-                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.set_sync_debug_mode(before)
         return call
 
     try:  # the mode must catch what it is here for
@@ -1978,24 +2192,36 @@ def forwards_never_wait(model):
         pass
     else:
         raise AssertionError("sync debug mode let bincount's host read through")
-    draw = Sampler.__call__
-    model.prefill_chunk = guarded(model.prefill_chunk)
-    model.decode_step = guarded(model.decode_step)
-    Sampler.__call__ = guarded(draw)
+    names = ("prefill_chunk", "decode_step", "verify_chunk", "ingest_chunk")
+    classes = ((Sampler, "__call__"), (Sampler, "probs"), (ServeEngine, "_spec_rounds"))
+    saved = [getattr(cls, name) for cls, name in classes]
+    for name in names:
+        setattr(model, name, guarded(getattr(model, name)))
+    for (cls, name), fn in zip(classes, saved):
+        setattr(cls, name, guarded(fn))
     try:
         yield
     finally:
-        del model.prefill_chunk, model.decode_step
-        Sampler.__call__ = draw
+        for name in names:
+            delattr(model, name)
+        for (cls, name), fn in zip(classes, saved):
+            setattr(cls, name, fn)
 
 
-def serve(model, params, tenants, prompts, max_new, device, **kw):
+def engine_for(model, params, tenants, prompts, max_new, device, **kw):
+    """An engine with ``tenants`` registered and ``prompts`` submitted, the
+    requests cycling over the base and the tenants."""
     store = AdapterStore(base_params=params)
     for i, (idx, val) in enumerate(tenants):
         store.register(idx, val, name=f"tenant{i + 1}")
     eng = ServeEngine(model, params, adapter_store=store, device=device, **kw)
     for i, p in enumerate(prompts):
         eng.submit(p, max_new=max_new, adapter_id=i % (len(tenants) + 1))
+    return eng
+
+
+def serve(model, params, tenants, prompts, max_new, device, **kw):
+    eng = engine_for(model, params, tenants, prompts, max_new, device, **kw)
     return eng, eng.run_to_completion()
 
 
@@ -2113,10 +2339,24 @@ def phase_full(card: str) -> dict:
     busy, n_launch, (peng, _) = profile_run(
         lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
         "profile", "full_profile.txt")
-    per_fwd = n_launch / forwards_of(peng)
-    log(f"[full] {per_fwd:.2f} kernel launches per layer-forward (profiled gate run, paged "
-        f"bf16 KV; {LAUNCHES_BEFORE} before the epilogue took {ADDS_TAKEN} adds) [{card}]")
-    assert per_fwd <= LAUNCHES_BEFORE - ADDS_TAKEN + LAUNCHES_SPREAD, (per_fwd, LAUNCHES_BEFORE)
+    counted = [host_ops(lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw))
+               for _ in range(2)]
+    (n_ops, tally, _), (n_again, again, _) = counted
+    moved = {k: (tally.get(k, 0), again.get(k, 0)) for k in set(tally) | set(again)
+             if tally.get(k, 0) != again.get(k, 0)}
+    assert not moved, f"two counts of the gate run's host operations differ: {moved}"
+    forwards = forwards_of(peng)
+    log(f"[full] gate run: {n_ops} host operations, twice, op by op the same ({n_ops / forwards:.4f} "
+        f"a layer-forward: {n_ops - sum(COUNTERS[n].kernel for n in SERVING)} ATen operations "
+        f"and {json.dumps({n: COUNTERS[n].kernel for n in SERVING})} hand-written launches; "
+        f"pinned at {GATE_OPS}); the profile recorded {n_launch} device operations "
+        f"({n_launch / forwards:.2f} a layer-forward, a lower bound) [{card}]")
+    with open(os.path.join(OUT_DIR, "gate_ops.json"), "w") as f:
+        json.dump({"card": card, "host_ops": n_ops, "by_op": tally}, f, indent=1)
+    assert n_ops == GATE_OPS, (n_ops, GATE_OPS)
+    off_outs = [r.out for r in reqs]
+    launches["spec"] = phase_full_spec(model, params, tenants, prompts, max_new, kw, card,
+                                       off_outs)
     phase_window(model, params, tenants, card, kw)
     for paged, kv_dtype in KV_CONFIGS:
         launches.update(phase_full_kv(model, params, tenants, prompts, max_new, kw, card, paged,
@@ -2251,9 +2491,11 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
     return n["fused_linear_q"]
 
 
-# a longer, decode-dominated window, repeated: the run above is a smoke
-# figure (20 steps); tokens/s and step times are taken here, with spread
-WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 128, 2
+# a longer, decode-dominated window: the run above is a smoke figure (20
+# steps); tokens/s and step times are taken here. One run: the speculative
+# window's draft="off" run serves the same window in the same call, and one
+# run keeps the script's time
+WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 128, 1
 
 
 def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WINDOW_REPEATS,
@@ -2296,6 +2538,266 @@ def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WIN
         f"(min {m['min']:.2f}, max {m['max']:.2f}) [{card}]")
 
 
+# ----------------------------------------------------- speculative decoding
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Tally the shape every launch of the four kernels a speculative round
+    reaches was given (the paged prefill's q, the apply's rows and rows a
+    tenant id, the dense decode's q and cache, the packed linear's rows),
+    by wrapping the names ``kernels.ops`` calls them through."""
+    seen = {"prefill": {}, "apply": {}, "decode": {}, "linear_q": {}}
+    sites = ((ops, "_prefill", "prefill", lambda q, *a: tuple(q.shape)),
+             (ops, "sparse_delta_batched", "apply", lambda x, i, v, aid, rpi, *a: (x.shape[0], rpi)),
+             (ops, "_dense_decode", "decode", lambda q, k, *a: (tuple(q.shape), tuple(k.shape))),
+             (ql_mod, "fused_linear_q", "linear_q", lambda x, *a, **kw: x.shape[0]))
+    real = [getattr(mod, name) for mod, name, _, _ in sites]
+
+    def tally(fn, key, shape_of):
+        def call(*args, **kw):
+            shape = shape_of(*args, **kw)
+            seen[key][shape] = seen[key].get(shape, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    for (mod, name, key, shape_of), fn in zip(sites, real):
+        setattr(mod, name, tally(fn, key, shape_of))
+    try:
+        yield seen
+    finally:
+        for (mod, name, _, _), fn in zip(sites, real):
+            setattr(mod, name, fn)
+
+
+def spec_forwards(eng) -> dict:
+    """A run's forwards. ``per_token``: a slot's forwards for each token its
+    decode or spec steps emitted, the reckoning's unit (plain decode 1; a
+    spec round one verify row, and for a model drafter spec_k + 1 drafter
+    steps, for 1 + a tokens). ``passes_per_token``: whole-batch passes over
+    those tokens (every round of a megastep runs, live slots or not).
+    ``served`` / ``drafter``: whole-batch passes of the served model (a
+    mixed step, a decode step or a verify round each) and of a model
+    drafter (its head-free chunk steps not counted)."""
+    st, r, k = eng.step_times, eng.decode_chunk, eng.spec_k
+    kind = "spec" if eng.draft != "off" else "decode"
+    emitted = eng.emitted[kind]
+    per_round = 1 + (k + 1 if eng.draft_kv is not None else 0)
+    slot_rounds = eng.spec_drafted / k if kind == "spec" else emitted
+    batch = r * len(st[kind])
+    return {"served": len(st["mixed"]) + batch, "drafter": batch * (per_round - 1),
+            "emitted": emitted, "per_token": per_round * slot_rounds / max(emitted, 1),
+            "passes_per_token": batch * per_round / max(emitted, 1)}
+
+
+def phase_reduced_spec() -> None:
+    """Reduced qwen2-1.5b in fp32, two tenants, the same prompts for every
+    drafter on the paged pool and on the dense cache: greedy tokens on the
+    card identical to draft="off" on the card and to the CPU run's under
+    the same drafter, with the CPU's drafted and accepted counts (a drafter
+    gone wrong would keep the tokens and lose acceptance), one transfer a
+    step, the cache drained, no plain version called on the card."""
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+    model = get_model(cfg)
+    params_cpu = model.init(seed=0, device="cpu")
+    tenants_cpu = random_tenants(params_cpu, 2, seed=5, dtype=torch.float32, device="cpu")
+    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
+    params, tenants = to_cuda(params_cpu), [(to_cuda(i), to_cuda(v)) for i, v in tenants_cpu]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in (5, 37, 12, 70, 3)]
+    for paged in (True, False):
+        kw = dict(slots=3, max_len=128, prefill_chunk=16, decode_chunk=4, eos_id=1 << 20,
+                  paged=paged, spec_k=SPEC_K)
+        _, off = serve(model, params, tenants, prompts, 10, "cuda", **kw)
+        off = [r.out for r in off]
+        rates = {}
+        for draft in SPEC_DRAFTERS:
+            ceng, want = serve(model, params_cpu, tenants_cpu, prompts, 10, "cpu", draft=draft,
+                               **kw)
+            reset_counters()
+            eng, got = serve(model, params, tenants, prompts, 10, "cuda", draft=draft, **kw)
+            where = f"reduced spec {draft} {'paged' if paged else 'dense'}"
+            assert [r.out for r in got] == [r.out for r in want], f"{where}: cuda != cpu"
+            assert (eng.spec_drafted, eng.spec_accepted) == (ceng.spec_drafted,
+                                                             ceng.spec_accepted), where
+            assert [r.out for r in got] == off, f"{where}: != draft='off'"
+            assert all(c.plain == 0 for c in COUNTERS.values()), f"{where}: a plain call"
+            assert eng.transfers == eng.steps and eng.kv.drained(), where
+            rates[draft] = f"{eng.spec_accepted}/{eng.spec_drafted}"
+        log(f"[reduced-spec-{'paged' if paged else 'dense'}] greedy tokens identical for "
+            f"{', '.join(SPEC_DRAFTERS)} on cuda (kernels), on cpu (plain) and draft='off' on "
+            f"cuda: {len(prompts)} requests, {sum(map(len, off))} tokens; accepted/drafted "
+            f"{json.dumps(rates)}; one transfer a step, cache drained, plain 0")
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def divergence_gaps(model, eng, reqs, off_outs, prompts) -> list:
+    """For each request whose greedy tokens differ from draft="off"'s:
+    prompt + the common prefix teacher-forced through ``prefill_chunk`` on
+    a one-slot dense cache (the request's tenant), and the logits there of
+    the two tokens the runs chose, against the top logit. Returns (rid,
+    index, top-2 gap, the gap in bf16 ulps of the top logit, both tokens
+    within SPEC_TIE_ULPS ulps of the top)."""
+    out = []
+    for r, want in zip(reqs, off_outs):
+        if r.out == want:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(r.out, want)) if a != b), None)
+        if i is None:  # one stopped earlier: EOS where the other did not
+            i = min(len(r.out), len(want))
+        toks = prompts[r.rid] + want[:i]
+        cache = model.init_cache(1, MAX_LEN, "cuda")
+        n = len(toks)
+        batch = {"tokens": torch.tensor([toks], dtype=torch.int32, device="cuda"),
+                 "q_offset": torch.zeros(1, dtype=torch.int32, device="cuda"),
+                 "q_len": torch.tensor([n], dtype=torch.int32, device="cuda"),
+                 "last_idx": torch.tensor([n - 1], dtype=torch.int32, device="cuda")}
+        adapters = eng._adapters(np.array([r.adapter_id], np.int32))
+        lg = model.prefill_chunk(eng.params, adapters, cache, batch)[0, :model.cfg.vocab_size]
+        lg = lg.float().cpu()
+        top2 = torch.topk(lg, 2).values.tolist()
+        ulp = bf16_ulp(top2[0])
+        pair = [t for t in (r.out[i] if i < len(r.out) else None,
+                            want[i] if i < len(want) else None) if t is not None]
+        near = all(top2[0] - float(lg[t]) <= SPEC_TIE_ULPS * ulp for t in pair)
+        out.append((r.rid, i, top2[0] - top2[1], (top2[0] - top2[1]) / ulp, near))
+    return out
+
+
+def phase_full_spec(model, params, tenants, prompts, max_new, kw, card: str,
+                    off_outs) -> dict:
+    """Full-width qwen2-1.5b in bf16 with phase 5's tenants, prompts and
+    settings, speculative with spec_k = SPEC_K on the paged bf16 pool: the
+    gate run for each drafter of SPEC_GATE (every request ends, only the
+    path's kernels and no plain version, one transfer a step with every
+    forward and the rounds' device half under the sync guard, the pool
+    drains; routes: the verify's applies ``rows-fused`` at M = 40, the
+    mixed steps' ``tiles-fused``; the prefill kernel at C = 5 for every
+    verify; a model drafter's decode attention on ``ring`` over its
+    scratch; the int8 drafter's linears ``skinny`` at its steps), its greedy
+    tokens held against draft="off"'s (identical, or diverged at a stated
+    near-tie of the teacher-forced logits), one profiled ngram gate run,
+    then the window with off, ngram, int8 and merged in turn. Returns the
+    gate runs' launches of the four spec-path kernels by drafter."""
+    cfg = model.cfg
+    L, H, KV, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    kw = dict(kw, spec_k=SPEC_K)
+    launches = {}
+    for draft in SPEC_GATE:
+        serve(model, params, tenants, prompts[:2], 2, "cuda", draft=draft, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        with forwards_never_wait(model), launch_shapes() as shapes:
+            eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", draft=draft, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tag = f"full-spec-{draft}"
+        n = {name: c.kernel for name, c in COUNTERS.items()}
+        for name, c in COUNTERS.items():
+            assert c.plain == 0, f"{tag}: the plain version of {name} ran {c.plain} times"
+        mixed, spec = len(eng.step_times["mixed"]), len(eng.step_times["spec"])
+        assert spec > 0 and not eng.step_times["decode"], eng.step_times
+        rounds, model_drafter = DECODE_CHUNK * spec, draft != "ngram"
+        c = SPEC_K + 1
+        want_n = {"paged_prefill_attention": L * (mixed + rounds),
+                  "sparse_delta_batched": 7 * L * (mixed + rounds),
+                  "decode_attention": L * c * rounds if model_drafter else 0,
+                  "fused_linear_q": ((7 * L * c * rounds + (7 * (L - 1) + 3) * mixed)
+                                     if draft in PACKED else 0)}
+        assert {k: n[k] for k in want_n} == want_n, (tag, n, want_n)
+        assert all(v == 0 for k, v in n.items() if k not in want_n), (tag, n)
+        apply = dict(COUNTERS["sparse_delta_batched"].routes)
+        assert apply == {"tiles-fused": 7 * L * mixed, "rows-fused": 7 * L * rounds}, apply
+        assert shapes["apply"] == {(SLOTS * PREFILL_CHUNK, PREFILL_CHUNK): 7 * L * mixed,
+                                   (SPEC_ROWS, c): 7 * L * rounds}, shapes["apply"]
+        assert shapes["prefill"] == {(SLOTS, PREFILL_CHUNK, H, hd): L * mixed,
+                                     (SLOTS, c, H, hd): L * rounds}, shapes["prefill"]
+        if model_drafter:
+            expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, want_n["decode_attention"],
+                         f"{tag}: the drafter's decode attention")
+            assert shapes["decode"] == {((SLOTS, 1, H, hd), (SLOTS, MAX_LEN, KV, hd)):
+                                        want_n["decode_attention"]}, shapes["decode"]
+        if draft in PACKED:
+            assert COUNTERS["fused_linear_q"].routes == {
+                "skinny": 7 * L * c * rounds, "wgmma": (7 * (L - 1) + 3) * mixed}, \
+                COUNTERS["fused_linear_q"].routes
+            assert shapes["linear_q"] == {SLOTS: 7 * L * c * rounds,
+                                          SLOTS * PREFILL_CHUNK: (7 * (L - 1) + 3) * mixed}
+        for r in reqs:
+            assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
+        assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+        assert eng.kv.drained(), f"{tag}: block pool not fully free after the run"
+        if model_drafter:
+            assert eng.draft_kv.pool_bytes() == POOL_BYTES["fp32"], eng.draft_kv.pool_bytes()
+        gaps = divergence_gaps(model, eng, reqs, off_outs, prompts)
+        same = len(reqs) - len(gaps)
+        fw = spec_forwards(eng)
+        n_tok = sum(len(r.out) for r in reqs)
+        log(f"[{tag}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} "
+            f"tok/s; steps {eng.steps} (mixed {mixed}, spec {spec}); accepted "
+            f"{eng.spec_accepted}/{eng.spec_drafted} drafts; {fw['per_token']:.3f} forwards a "
+            f"slot a spec token (batch passes: served {fw['served']}, drafter "
+            f"{fw['drafter']}); launches {json.dumps({k: n[k] for k in want_n})}; "
+            f"apply {json.dumps(apply)}; shapes prefill "
+            f"{ {str(k): v for k, v in shapes['prefill'].items()} }; plain 0; "
+            f"{same}/{len(reqs)} requests token-identical to draft='off' [{card}]")
+        for rid, i, gap, ulps, near in gaps:
+            log(f"[{tag}] rid {rid} diverges from draft='off' at token {i}: teacher-forced "
+                f"top-2 gap {gap:.5f} = {ulps:.2f} bf16 ulps of the top logit; both tokens within "
+                f"{SPEC_TIE_ULPS} ulps: {near}")
+        assert all(near for *_, near in gaps), f"{tag}: a divergence off a near-tie: {gaps}"
+        launches[draft] = {k: n[k] for k in want_n}
+    busy, n_launch, (peng, preqs) = profile_run(
+        lambda: serve(model, params, tenants, prompts, max_new, "cuda", draft="ngram", **kw),
+        card, "profile-spec-ngram", "full_profile_spec_ngram.txt")
+    n_tok = sum(len(r.out) for r in preqs)
+    log(f"[full-spec-ngram] profiled gate run: busy {busy:.1%}, {n_launch} device operations, "
+        f"{n_launch / n_tok:.1f} per emitted token ({n_tok} tokens) [{card}]")
+    phase_spec_window(model, params, tenants, card, kw)
+    return launches
+
+
+def phase_spec_window(model, params, tenants, card: str, kw: dict) -> None:
+    """The 16 x 128 window of phase_window served with draft off, ngram,
+    int8 and merged in turn inside this call: tokens/s, acceptance, whole-
+    model passes per token emitted at spec (or decode) steps, and ms of
+    spec (or decode) step time per token they emitted."""
+    rng = np.random.default_rng(13)
+    lens = rng.integers(40, 701, size=WINDOW_REQUESTS)
+    prompts = [rng.integers(3, model.cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    runs = []
+    for draft in ("off",) + SPEC_GATE:
+        t0 = time.perf_counter()
+        eng, reqs = serve(model, params, tenants, prompts, WINDOW_NEW, "cuda", draft=draft, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert all(r.done for r in reqs) and eng.kv.drained()
+        assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+        kind = "decode" if draft == "off" else "spec"
+        fw, n_tok = spec_forwards(eng), sum(len(r.out) for r in reqs)
+        run = {"draft": draft, "tok_s": n_tok / wall, "wall_s": wall, "tokens": n_tok,
+               "acceptance": eng.spec_accepted / eng.spec_drafted if eng.spec_drafted else None,
+               "mixed_steps": len(eng.step_times["mixed"]), f"{kind}_steps": len(eng.step_times[kind]),
+               "forwards_per_token": fw["per_token"], "passes_per_token": fw["passes_per_token"],
+               "ms_per_token": 1e3 * sum(eng.step_times[kind]) / fw["emitted"],
+               "mixed_ms": float(np.mean(eng.step_times["mixed"])) * 1e3,
+               "step_ms": float(np.mean(eng.step_times[kind])) * 1e3}
+        runs.append(run)
+        acc = "" if run["acceptance"] is None else f"acceptance {run['acceptance']:.3f}, "
+        log(f"[window-spec] {draft}: {n_tok} tokens in {wall:.3f} s = {run['tok_s']:.1f} tok/s; "
+            f"{acc}{run['forwards_per_token']:.3f} forwards a slot ({run['passes_per_token']:.3f} "
+            f"batch passes) and {run['ms_per_token']:.2f} ms of {kind} step a token emitted at "
+            f"{kind} steps ({len(eng.step_times[kind])} x {run['step_ms']:.2f} ms); mixed "
+            f"{run['mixed_steps']} x {run['mixed_ms']:.2f} ms [{card}]")
+    with open(os.path.join(OUT_DIR, "window_spec.json"), "w") as f:
+        json.dump({"card": card, "requests": WINDOW_REQUESTS, "prompt_tokens": int(lens.sum()),
+                   "max_new": WINDOW_NEW, "spec_k": SPEC_K, "runs": runs}, f, indent=1)
+
+
 BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            # the ring decode kernel serves the paged and the dense cache
            ("decode attention (paged or dense)", ("decode_ring",)),
@@ -2311,21 +2813,53 @@ BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")))
 
 
+class OpCount(TorchDispatchMode):
+    """Counts every ATen operation dispatched while it is on, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def host_ops(run) -> tuple[int, dict, object]:
+    """``run()``'s host operations, exactly: its ATen operations (OpCount)
+    and its hand-written kernels' launches (COUNTERS, reset here), by name;
+    returns (their total, the tally, what ``run`` returned)."""
+    reset_counters()
+    with OpCount() as ops_seen:
+        out = run()
+    tally = dict(ops_seen.counts)
+    tally.update({f"kernel {c.name}": c.kernel for c in COUNTERS.values() if c.kernel})
+    return sum(tally.values()), tally, out
+
+
 def profile_run(run, card: str, tag: str, fname: str,
                 buckets_out: dict | None = None) -> tuple[float, int, object]:
     """``run`` under ``torch.profiler``: device time by kernel (a table in
     the output directory's ``fname``), by bucket (into ``buckets_out``, in
     µs, when given); returns the device's busy share of the run's wall time,
-    the number of kernels launched and what ``run`` returned. Only the
+    the number of kernels recorded and what ``run`` returned. Only the
     device is traced: nothing here reads the host's op trace, and with 10^5
-    kernels a run its post-processing takes minutes."""
+    kernels a run its post-processing takes minutes. The session opens with
+    PROFILE_MARKERS uncounted marker kernels (a session may lose its first
+    records); a long session may also lose records in its middle, so the
+    count recorded is a lower bound (``host_ops`` counts exactly)."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = self_device_us
-    rows = sorted((e for e in device_kernels(prof) if dev(e) > 0), key=dev, reverse=True)
+    kernels = [e for e in device_kernels(prof) if MARKER_KERNEL not in e.key]
+    rows = sorted((e for e in kernels if dev(e) > 0), key=dev, reverse=True)
     total = sum(dev(e) for e in rows)
     with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(f"{card}\nwall {wall_us:.0f} us, device {total:.0f} us\n")
@@ -3264,6 +3798,7 @@ def main() -> int:
     int8_dense = phase_reduced("fp32", False, "int8")
     assert int8_paged == int8_dense, "paged and dense int8 KV gave different tokens on the card"
     log("[reduced] paged and dense int8 KV: identical greedy tokens on the card")
+    phase_reduced_spec()
     stamp("reduced serving")
     launches, packed_serving = phase_full(card)
     stamp("full serving")
@@ -3341,6 +3876,11 @@ def main() -> int:
             row.update(m4096=s["m4096"], launch_route=sd_mod.DVAL_ROUTE)
         if name == "topk_select":
             row["launches_by_phase"] = select_by_phase
+        if "spec" in s:
+            # the speculative round's shapes (kernel phase) and the full-width
+            # spec gate runs' launches by drafter
+            row["spec"] = dict(s["spec"], launches_by_drafter={
+                d: n[name] for d, n in launches["spec"].items() if n.get(name)})
         if "olmoe" in s:
             # olmoe's own shapes and launches: the training run's measured
             # steps for the training kernels (its seq 512 runs no flash), its

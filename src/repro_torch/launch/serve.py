@@ -14,6 +14,10 @@ cache; ``--kv-dtype int8`` stores either as int8 codes with float32 scales.
 ``--arch olmoe-1b-7b`` serves the MoE family (tenants' expert and head
 deltas through the expert dispatch); ``--base-dtype int8|nf4`` and
 ``--kv-dtype int8`` are not ported on MoE yet and raise.
+``--draft int8|nf4|merged|ngram`` turns on speculative decoding: a drafter
+proposes ``--spec-k`` tokens a slot a round and the served model verifies
+them in one chunk; greedy outputs equal ``--draft off``'s. ``merged`` needs
+``--adapters``; an int8 / NF4 drafter on MoE raises.
 The weights are random from seed 0 (weight files are not loaded yet).
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
@@ -28,7 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
 from repro_torch.quant import tree_bytes
-from repro_torch.serve import KV_DTYPES, AdapterStore, ServeEngine
+from repro_torch.serve import DRAFT_MODES, KV_DTYPES, AdapterStore, ServeEngine
 
 
 def validate_args(args) -> None:
@@ -59,6 +63,13 @@ def validate_args(args) -> None:
         raise SystemExit(f"--quant-block must be even and >= 2, got {args.quant_block}")
     if args.kv_dtype not in KV_DTYPES:
         raise SystemExit(f"--kv-dtype {args.kv_dtype!r} must be one of {', '.join(KV_DTYPES)}")
+    if args.draft not in DRAFT_MODES:
+        raise SystemExit(f"--draft {args.draft!r} must be one of {', '.join(DRAFT_MODES)}")
+    if args.spec_k < 1:
+        raise SystemExit(f"--spec-k must be >= 1, got {args.spec_k}")
+    if args.draft == "merged" and not args.adapters:
+        raise SystemExit("--draft merged drafts with the mean of the registered tenants and "
+                         "so needs --adapters; use --draft int8/nf4/ngram without tenants")
     _validate_adapter_ids(args, prompts)
     if args.dense:
         if args.paged:
@@ -126,6 +137,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quant-block", type=int, default=64,
                     help="rows per scale block; must match the --quant-block the "
                          "adapters were trained against")
+    ap.add_argument("--draft", default="off",
+                    help="speculative decoding drafter: int8/nf4 = the packed base as a "
+                         "self-draft, merged = base + mean of the tenants' deltas (needs "
+                         "--adapters), ngram = prompt lookup (no drafter forwards); "
+                         "one of " + ", ".join(DRAFT_MODES))
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens a slot a speculative round")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain versions)")
     return ap
@@ -157,7 +175,7 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk,
         page_size=16 if args.page_size is None else args.page_size,
         num_blocks=args.num_blocks, paged=not args.dense, kv_dtype=args.kv_dtype,
-        device=device,
+        draft=args.draft, spec_k=args.spec_k, device=device,
     )
     prompts = [p for p in args.prompts.split(";") if p]
     n_tenants = store.num_adapters if store is not None else 0
@@ -175,6 +193,10 @@ def main(argv=None):
     print(f"steps={engine.steps} transfers={engine.transfers} "
           f"preemptions={engine.preemptions} kv={layout}/{engine.kv_dtype} "
           f"pool_bytes={engine.kv.pool_bytes()} device={device}")
+    if args.draft != "off":
+        rate = engine.spec_accepted / max(engine.spec_drafted, 1)
+        print(f"spec[{args.draft} k={args.spec_k}]: drafted={engine.spec_drafted} "
+              f"accepted={engine.spec_accepted} ({rate:.0%}) emitted={engine.spec_emitted}")
 
 
 if __name__ == "__main__":

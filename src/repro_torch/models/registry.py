@@ -15,8 +15,9 @@ class Model(nn.Module):
     """A config-bound decoder of the dense or MoE family. Weights live in a nested param dict
     (:func:`init`, or converted from the reference), passed to each call as
     in the reference, so one ``Model`` serves any param tree of its config.
-    Per-layer views of the last param tree and tenant stacks seen are kept,
-    so the serving loop does not re-slice the layer stacks every step."""
+    Per-layer views of the last two param trees (a served model and its
+    speculative drafter) and of the last tenant stacks seen are kept, so
+    the serving loop does not re-slice the layer stacks every step."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -24,7 +25,7 @@ class Model(nn.Module):
             raise ValueError(f"the port has the {' and '.join(FAMILIES)} families, got "
                              f"{cfg.family!r} (ROADMAP.md §1 item 10)")
         self.cfg = cfg
-        self._views: tuple = (None, None)
+        self._views: list = []  # [(blocks, views)], the most recent first
         self._a_views: tuple = ((), None)
 
     def init(self, seed: int = 0, device=None) -> dict:
@@ -40,15 +41,20 @@ class Model(nn.Module):
         return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype)
 
     def _layers(self, params) -> list[dict]:
-        if self._views[0] is not params["blocks"]:
-            self._views = (params["blocks"], transformer.layer_views(params))
-        return self._views[1]
+        blocks = params["blocks"]
+        hit = next((e for e in self._views if e[0] is blocks), None)
+        if hit is None:
+            hit = (blocks, transformer.layer_views(params))
+        self._views = [hit] + [e for e in self._views if e is not hit][:1]
+        return hit[1]
 
     def _adapter_views(self, adapters):
         """Per-layer views of the tenant stacks, kept while the engine
         passes the same stacks (they change only on register/remove)."""
         blocks = adapters.get("blocks") if adapters else None
-        key = tuple(id(d.idx) for d in blocks.values()) if blocks else ()
+        if not blocks:  # a drafter's call keeps the served stacks' views
+            return None
+        key = tuple(id(d.idx) for d in blocks.values())
         if self._a_views[0] != key:
             self._a_views = (key, transformer.adapter_views(adapters))
         return self._a_views[1]
@@ -66,6 +72,16 @@ class Model(nn.Module):
     def prefill_chunk(self, params, adapters, cache, batch):
         return transformer.prefill_chunk(self.cfg, params, adapters, cache, batch,
                                          self._layers(params), self._adapter_views(adapters))
+
+    def verify_chunk(self, params, adapters, cache, batch):
+        """(B, C, V) logits at every chunk column (speculative verify)."""
+        return transformer.verify_chunk(self.cfg, params, adapters, cache, batch,
+                                        self._layers(params), self._adapter_views(adapters))
+
+    def ingest_chunk(self, params, adapters, cache, batch):
+        """A chunk's k/v writes only (a drafter riding a mixed step)."""
+        transformer.ingest_chunk(self.cfg, params, adapters, cache, batch,
+                                 self._layers(params), self._adapter_views(adapters))
 
     def decode_step(self, params, adapters, cache, batch):
         return transformer.decode_step(self.cfg, params, adapters, cache, batch,

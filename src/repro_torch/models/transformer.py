@@ -286,19 +286,12 @@ def _write(c: dict, k, v, plan) -> None:
         scatter_write(c["v"], v, plan)
 
 
-def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None):
-    """Mixed prefill+decode chunk step against the KV cache.
-
-    ``batch``: ``tokens`` (B, C), ``q_offset``/``q_len``/``last_idx`` (B,)
-    int32 and, for the paged pool, ``block_table``/``write_table`` (B,
-    n_pages) int32; without them the cache is the dense slot cache. Each
-    layer writes the chunk's k/v first (pads, idle slots and shared pages
-    land in the trash block or slot), then attends with the two-sided mask
-    (intra-chunk causal from ``q_offset``, frontier ``q_offset + q_len``).
-    Positions are ``q_offset + arange(C)`` for every column, pads included.
-    Returns the (B, V) logits at ``last_idx``. ``layers``/``a_views`` are
-    cached :func:`layer_views`/:func:`adapter_views`.
-    """
+def _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views, hidden=True):
+    """Shared body of :func:`prefill_chunk`, :func:`verify_chunk` and
+    :func:`ingest_chunk`: a (B, C) token chunk through the layer stack
+    against the KV cache. Returns the (B, C, D) hidden states, or None with
+    ``hidden=False``: then the last layer stops after its k/v write, since
+    nothing reads what follows."""
     layers = layer_views(params) if layers is None else layers
     tokens, q_offset, q_len = batch["tokens"], batch["q_offset"], batch["q_len"]
     table, wtable = batch.get("block_table"), batch.get("write_table")
@@ -317,6 +310,8 @@ def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None
         x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, p, a, x, cos, sin)
         _write(lc, k, v, plan)
+        if not hidden and i == len(layers) - 1:
+            return None
         ck, cv, ks, vs = _read(lc, n)
         if table is None:
             o = chunk_attention(q, ck, cv, q_offset=q_offset, kv_valid_len=vl, k_scale=ks,
@@ -326,9 +321,44 @@ def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None
                                         k_scale=ks, v_scale=vs)
         h = h + alinear(p, a, "wo", o.reshape(b, c, -1))
         h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))[0]
+    return h
+
+
+def prefill_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None):
+    """Mixed prefill+decode chunk step against the KV cache.
+
+    ``batch``: ``tokens`` (B, C), ``q_offset``/``q_len``/``last_idx`` (B,)
+    int32 and, for the paged pool, ``block_table``/``write_table`` (B,
+    n_pages) int32; without them the cache is the dense slot cache. Each
+    layer writes the chunk's k/v first (pads, idle slots and shared pages
+    land in the trash block or slot), then attends with the two-sided mask
+    (intra-chunk causal from ``q_offset``, frontier ``q_offset + q_len``).
+    Positions are ``q_offset + arange(C)`` for every column, pads included.
+    Returns the (B, V) logits at ``last_idx``. ``layers``/``a_views`` are
+    cached :func:`layer_views`/:func:`adapter_views`.
+    """
+    h = _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views)
     last = batch["last_idx"].long()[:, None, None].expand(-1, 1, h.shape[-1])
     hs = rms_norm(torch.gather(h, 1, last), params["final_norm"], cfg.norm_eps)
     return _head_logits(cfg, params, adapters, hs)[:, 0]
+
+
+def verify_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None):
+    """Speculative verification: :func:`prefill_chunk`'s forward with the
+    head at every chunk column, so each slot's ``[token, d_1 .. d_K]``
+    chunk is scored at all K + 1 positions in one call. Returns (B, C, V)
+    logits; columns at or past a slot's ``q_len`` are garbage for the
+    caller to mask (their writes went to the trash block or slot)."""
+    h = _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views)
+    return _head_logits(cfg, params, adapters, rms_norm(h, params["final_norm"], cfg.norm_eps))
+
+
+def ingest_chunk(cfg, params, adapters, cache, batch, layers=None, a_views=None):
+    """:func:`prefill_chunk`'s k/v writes without its logits: a model
+    drafter takes the mixed step's chunk into its own cache. No head runs
+    (a (B, V) tied-head product a step would be thrown away), and the last
+    layer stops at its k/v write. ``last_idx`` is not read."""
+    _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views, hidden=False)
 
 
 def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
@@ -345,6 +375,8 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
     cos, sin = rope_angles(decode_positions(pos),
                            rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, device=h.device))
     vl = pos + 1
+    if table is None:  # a drafter's step past the dense cache's end reads all of it
+        vl = vl.clamp(max=cache["k"].shape[2])
     if "active" in batch:
         vl = torch.where(batch["active"], vl, 0)
     n = cache["k"].shape[1] - 1

@@ -114,6 +114,12 @@ class AdapterStore:
         self._stacked = {}
         self.removals += 1
 
+    def tenant_deltas(self) -> list[tuple]:
+        """Every tenant's ``(indices, values)`` trees in id order (1-based;
+        the implicit base is not included): the merged drafter folds their
+        mean into the base (:func:`repro_torch.serve.draft.build_draft_params`)."""
+        return list(zip(self._indices, self._values))
+
     def stacked(self, device):
         """(idx_tree, val_tree) of stacks on ``device``, N = tenants + 1,
         row 0 the base; None when no tenant is registered. Cached."""

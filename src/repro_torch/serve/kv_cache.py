@@ -81,6 +81,23 @@ class KVCache:
         return not self.pos_host.any()
 
 
+class DraftKVCache:
+    """A model drafter's scratch k/v for speculative decoding: always the
+    dense ``(L, slots + 1, max_len, KV, hd)`` layout in the compute dtype,
+    whatever the main cache's layout or dtype. It tracks no position: the
+    drafter writes at the engine's per-slot ``pos``, rows at or past a
+    slot's frontier are stale until overwritten, so a rejected draft rolls
+    back for free. It needs no sharing, accounting or eviction: every
+    (re-)admission's chunk steps rebuild a slot's rows."""
+
+    def __init__(self, model, slots: int, max_len: int, device):
+        self.data = model.init_cache(slots, max_len, torch.device(device))
+
+    def pool_bytes(self) -> int:
+        """k and v of the ``slots`` real slots (the trash slot not counted)."""
+        return _pool_bytes(self.data)
+
+
 class PagedKVCache:
     def __init__(self, model, slots: int, max_len: int, page_size: int,
                  num_blocks: int, device, kv_dtype: str = "fp32"):

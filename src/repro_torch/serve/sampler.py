@@ -53,3 +53,14 @@ class Sampler:
         gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
         sampled = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
         return torch.where(temps.float() > 0.0, sampled, greedy)
+
+    def probs(self, logits, temps):
+        """The (B, vocab) distribution ``__call__`` draws from: the softmax
+        of the filtered, temperature-scaled logits on sampled rows, a
+        one-hot at the greedy argmax on temp-0 rows. The speculative accept
+        rule ``u · q(d) < p(d)`` then is an exact token match on greedy
+        rows."""
+        scaled, greedy = self._filtered(logits, temps)
+        p = torch.softmax(scaled, dim=-1)
+        onehot = torch.zeros_like(p).scatter_(-1, greedy.long()[:, None], 1.0)
+        return torch.where(temps.float()[:, None] > 0.0, p, onehot)
