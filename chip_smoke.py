@@ -7,6 +7,7 @@
     python3 chip_smoke.py --linear-variants
     python3 chip_smoke.py --attention-variants
     python3 chip_smoke.py --delta-variants
+    python3 chip_smoke.py --lifecycle
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -118,7 +119,7 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    from draft="off" at a near-tie of the teacher-forced logits), the
    ngram run profiled, and the window with off, ngram, int8 and merged
    in turn (tok/s, acceptance, forwards a token);
-   then a longer, decode-dominated window (16 requests x 128 new tokens)
+   then a longer, decode-dominated window (16 requests x 64 new tokens)
    served once (the speculative window's draft="off" run is a second
    reading in the same call); then the
    same tenants, prompts and settings on an int8 and on an NF4 base
@@ -138,7 +139,7 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    selected indices identical, losses within 1e-5, final values within
    1e-5 relative;
 7. full training: qwen2-1.5b at full width and depth in bf16, NeuroAda
-   k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 10
+   k = 1 (magnitude), task ``lm``, batch 4 x seq 512: 2 warm-up steps, 5
    measured (losses, step time, tokens/s, peak memory, launches per step:
    196 of each training kernel, no plain call, every fused_linear(_q) launch
    on the TMA + wgmma route, every value gradient one launch on the
@@ -150,7 +151,7 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    run's selection is timed, with its ``topk_select`` launches (7, one a
    stack; 196 on a packed base, one a layer) and peak memory. Then
    long-context training: full-width qwen2-1.5b, bf16, k = 1, task ``lm``,
-   batch 1 x seq 4096, 2 + 10 steps as above with 28 ``flash_attention_fwd``
+   batch 1 x seq 4096, 2 + 5 steps as above with 28 ``flash_attention_fwd``
    launches a step (every one on the wgmma route) beside the 196 of each
    training kernel, one profiled
    step (the flash forward's device time beside the plain backward's);
@@ -159,13 +160,40 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    the flash path, values within 1e-5) and served
    with 2 tenants (greedy tokens identical); then full-width olmoe-1b-7b
    in bf16, random weights from a seed: selection at k = 1 over the
-   expert stacks and the untied head, 2 warm-up + 10 measured steps at
+   expert stacks and the untied head, 2 warm-up + 5 measured steps at
    batch 4 x seq 512 (64 ``fused_linear``, 49 ``sparse_delta`` and 113
    ``sparse_delta_dval`` launches a step, no plain call, finite losses),
    one profiled step; its adapter served beside 2 random tenants and the
    base with phase 5's settings (every request ends, one transfer a step
    and no hidden one, as in phase 5, the pool drains, pool bytes
-   1,073,741,824 as reckoned), profiled, and one window run.
+   1,073,741,824 as reckoned), profiled, one window run, and one gate run
+   on each int8 KV cache (paged and dense: only the int8 bodies, pool bytes
+   537,919,488 as reckoned);
+9. the training lifecycle and the MoE completions (slice 12; also alone
+   with ``--lifecycle``): reduced olmoe trained and served card vs CPU on
+   an int8 and an NF4 base and served on int8 KV (paged and dense, each
+   equal to the CPU's); full-width olmoe on each packed base (selection one expert
+   matrix at a time, 3137 ``topk_select`` launches, its peak below one
+   layer's dense expert stack; 2 + 3 steps with 65 ``fused_linear_q``, 49
+   ``sparse_delta`` and 113 ``sparse_delta_dval`` launches a step, the base
+   unchanged, the peak below the bf16 base's; the gate run with the trained
+   tenant and 2 random ones, 4 ``fused_linear_q`` a layer-forward and the
+   head's; on int8 the gate run again with the int8 self-drafter, which
+   shares the base, greedy tokens equal to draft="off"'s but at near-ties);
+   remat: reduced qwen2 and olmoe in fp32 on the card under none / full /
+   dots with deterministic algorithms (losses and values bit-equal), then
+   full-width qwen2 bf16 at 4 x 512 (2 + 3 steps a mode; the first loss
+   bit-equal across modes; ``fused_linear`` 392 / 196 launches a step under
+   full / dots, ``sparse_delta_dval`` 196 in every mode; full's peak below
+   none's, dots' at most none's) and at 1 x 4096 under full (56 flash
+   launches a step, the peak below the same call's none run); checkpoint
+   and resume through ``Trainer`` and ``CheckpointManager`` (a save at step
+   2 timed as host copy and file write; a fresh Trainer resumes: values and
+   moments bit-equal, its step-3 loss bit-equal, step 4 within 1e-5);
+   ``launch/train.py --export`` of full-width qwen2 served by
+   ``launch/serve.py --params`` (its ``main``, on the card) for the gate
+   run against the unmerged tenant on the same base (partings only at
+   near-ties), and on reduced fp32 with identical tokens.
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
@@ -180,18 +208,23 @@ every line printed to
 ``chiprun_out/chip_smoke.log``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
 The training phases write ``train*.json`` and ``train*_profile.txt`` to
-the same directory, the MoE serving ``full_profile_olmoe.txt`` and
-``window_olmoe.json``.
+the same directory (``train_remat.json``, ``train_resume.json`` for phase
+9), the MoE serving ``full_profile_olmoe.txt`` and ``window_olmoe.json``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -203,7 +236,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.checkpoint import save_pytree  # noqa: E402
 from repro_torch.configs import PeftConfig, TrainConfig, get_config, reduced  # noqa: E402
+from repro_torch.core import adapt as adapt_mod  # noqa: E402
 from repro_torch.core.adapt import init_adapters  # noqa: E402
 from repro_torch.data import TASKS, DataLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -228,6 +263,8 @@ from repro_torch.kernels import quant_linear as ql_mod  # noqa: E402
 from repro_torch.kernels import sparse_delta as sd_mod  # noqa: E402
 from repro_torch.kernels import topk_select as ts_mod  # noqa: E402
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import flash_attention_bwd  # noqa: E402
@@ -266,7 +303,7 @@ SLOTS, MAX_LEN, PAGE, PREFILL_CHUNK, DECODE_CHUNK = 8, 1024, 16, 256, 8
 N_TENANTS, K_DELTA = 3, 2
 # full-width training step: batch x seq rows through every projection
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_LR = 4, 512, 1, 3e-3
-TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # the packed bases, with the launchers' default scale block
 PACKED, QUANT_BLOCK = ("int8", "nf4"), 64
 # long-context training: full-width qwen2-1.5b at batch 1 x seq 4096 (inside
@@ -682,6 +719,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     detail.extend(dval_long(gen, projections, dev, summary, card))
     packed_kernels(gen, projections, dev, summary, detail, card)
     moe_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl, pre_off, pre_len)
+    lifecycle_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl)
     long_context_kernels(gen, dev, summary, detail, card)
     selection_kernels(gen, dev, summary, detail, card)
     spec_kernels(gen, projections, dev, summary, detail, card, num_blocks)
@@ -1012,6 +1050,9 @@ MOE_ARCH = "olmoe-1b-7b"
 # the paged pool of full-width olmoe at SLOTS x MAX_LEN, reckoned by hand:
 # 2 (k, v) x 16 layers x 512 blocks x 16 rows x 16 kv heads x 128 x 2 bytes
 MOE_POOL_BYTES = 1_073_741_824
+# ... and on int8 KV: codes 536,870,912 + float32 scales 1,048,576 (paged: a
+# scale per (block, kv-head); dense: per (slot, 16 rows, kv-head); the same)
+MOE_POOL_BYTES_INT8 = 537_919_488
 
 
 def distinct_cols(idx) -> torch.Tensor:
@@ -1250,6 +1291,143 @@ def moe_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl, p
         f"{k} {r['case']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
         f"{r['bound_ms']:.4f} by {r['bound_by']})"
         for k, r in out.items()) + f" [{card}]")
+
+
+# the shapes this slice's paths run the earlier kernels at: fused_linear_q
+# on an olmoe-1b-7b packed base — an attention projection (K = N = 2048,
+# bypass k = 1 in training) and the untied head (2048 -> 50304, no bypass:
+# the head's delta is sparse_delta's) at a training step's 2048 rows and a
+# decode step's 8 — and the int8 attention bodies at olmoe's 16/16 heads
+LIFECYCLE_LINEAR = (("attention", 2048, 2048, 1), ("attention", 2048, 2048, 0),
+                    ("head", 2048, 50304, 0))
+
+
+def lifecycle_kernels(gen, dev, summary, detail, card: str, num_blocks: int, dec_vl) -> None:
+    """``fused_linear_q`` (int8 and NF4, bf16 and fp32) at olmoe's packed
+    shapes on the route ``quant_linear.route`` names (M = 2048 ``wgmma``,
+    M = 8 ``skinny``), two bf16 calls bit for bit, the bf16 calls timed
+    beside the bound and ``torch.mm`` on the dense weight; the int8 paged
+    decode body at q (8, 1, 16, 128) over an int8 pool (16 kv-heads, one
+    page all zero) and the dense int8 decode over an (8, 1024, 16, 128)
+    slot cache (one 16-row group all zero), bf16 and fp32, bf16 timed. Each
+    goes into its kernel's ``olmoe`` entry of the summary."""
+    cfg = get_config(MOE_ARCH)
+    counter = COUNTERS["fused_linear_q"]
+    cases = {}
+    for qd in PACKED:
+        for name, k_dim, n_dim, kk in LIFECYCLE_LINEAR:
+            w = torch.randn(k_dim, n_dim, generator=gen, device=dev) * k_dim**-0.5
+            for m in ((TRAIN_BATCH * TRAIN_SEQ,) if kk else (TRAIN_BATCH * TRAIN_SEQ, SLOTS)):
+                for dt in (torch.bfloat16, torch.float32):
+                    wd = w.to(dt)
+                    qt = quantize(wd, qd, QUANT_BLOCK)
+                    x = torch.randn(m, k_dim, generator=gen, device=dev).to(dt)
+                    idx = val = None
+                    if kk:
+                        idx = torch.randint(0, k_dim, (kk, n_dim), generator=gen, device=dev,
+                                            dtype=torch.int32)
+                        val = (torch.randn(kk, n_dim, generator=gen, device=dev) * 0.05).to(
+                            torch.bfloat16)
+                    args = (x, qt.data, qt.scales, idx, val, None)
+                    fn = lambda: ql_mod.fused_linear_q(*args, qdtype=qd, block=QUANT_BLOCK)  # noqa: E731
+                    plain = lambda: ql_mod.fused_linear_q_plain(*args, qdtype=qd,  # noqa: E731
+                                                                block=QUANT_BLOCK)
+                    tag = f"fused_linear_q {qd} olmoe {name} M={m} K={k_dim} N={n_dim} k={kk}"
+                    counter.reset()
+                    got, want = fn(), plain()
+                    torch.cuda.synchronize()
+                    err = check_close(tag, got, want, dt)
+                    route = ql_mod.route(m, k_dim, n_dim, dt, (x.data_ptr(), qt.data.data_ptr(),
+                                                               qt.scales.data_ptr()))
+                    assert route == ("f32" if dt == torch.float32 else
+                                     "skinny" if m == SLOTS else "wgmma"), (tag, route)
+                    expect_route(counter, route, 1, tag)
+                    row = {"kernel": "fused_linear_q", "arch": MOE_ARCH, "qdtype": qd,
+                           "proj": name, "M": m, "K": k_dim, "N": n_dim, "k": kk,
+                           "dtype": str(dt), "route": route, "max_abs_err": err}
+                    del got, want
+                    if dt == torch.bfloat16:
+                        assert torch.equal(fn(), fn()), f"{tag}: two calls differ"
+                        row["ms"] = cuda_ms(fn)
+                        row["plain_ms"] = cuda_ms(plain, iters=3)
+                        row["bound_ms"], row["bound_by"] = bound(
+                            *packed_cost(x, qt, kk, val, None), dt)
+                        row["library_ms"] = cuda_ms(lambda: torch.mm(x, wd))
+                        cases[f"{qd} {name} M={m} k={kk}"] = {
+                            key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms", "max_abs_err", "route")}
+                        log(f"[kernels] {tag} ({route}): {row['ms']:.4f} ms (plain "
+                            f"{row['plain_ms']:.4f}, torch.mm dense bf16 "
+                            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+                            f"{row['bound_by']}); max|err| {err:.3e} [{card}]")
+                    detail.append(row)
+    summary["fused_linear_q"]["olmoe"] = {
+        "case": "olmoe-1b-7b packed: attention K = N = 2048 (k = 1 at M = 2048, k = 0 at "
+                "M = 8) and the untied head 2048 -> 50304 (k = 0), block "
+                f"{QUANT_BLOCK}", "cases": cases,
+        **{key: cases["int8 attention M=2048 k=1"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values())}
+
+    # -- the int8 attention bodies at olmoe's heads (group 1)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for dt in (torch.bfloat16, torch.float32):
+        q, _, _, table, _, vl = paged_case(gen, [0] * SLOTS, dec_vl, 1, dt, dev, num_blocks,
+                                           arch=MOE_ARCH)
+        kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev, zero_group=int(table[4, 1]))
+        vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
+        args = (q, kc, vc, table, vl, ks, vs)
+        got = dec_mod.paged_decode_attention(*args)
+        want = dec_mod.paged_decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = check_close("paged_decode_attention_q olmoe", got, want, dt)
+        assert float(got[5].float().abs().max()) == 0.0, "idle slot must give zeros"
+        row = {"kernel": "paged_decode_attention_q", "arch": MOE_ARCH, "dtype": str(dt),
+               "case": "q (8,1,16,128), group 1, int8 pools", "max_abs_err": err}
+        if dt == torch.bfloat16:
+            row["ms"] = cuda_ms(lambda: dec_mod.paged_decode_attention(*args))
+            row["plain_ms"] = cuda_ms(lambda: dec_mod.paged_decode_attention_plain(*args),
+                                      iters=3)
+            row["bound_ms"], row["bound_by"] = bound(*int8_attention_cost(
+                q, hkv, table, vl, float(vl.sum()), int((vl > 0).sum()), 1), dt)
+            row["library_ms"] = None
+            summary["paged_decode_attention_q"]["olmoe"] = {key: row[key] for key in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+        detail.append(row)
+        vl = torch.tensor([0, 1, MAX_LEN, 300, 17, MAX_LEN - 1, 640, 33], dtype=torch.int32,
+                          device=dev)
+        g = MAX_LEN // dd_mod.TILE
+        kc, ks = quantized(gen, (SLOTS, g, dd_mod.TILE, hkv, hd), dev, zero_group=(1, 0))
+        vc, vs = quantized(gen, (SLOTS, g, dd_mod.TILE, hkv, hd), dev)
+        qd_ = torch.randn(SLOTS, 1, h, hd, generator=gen, device=dev).to(dt)
+        args = (qd_, kc.reshape(SLOTS, MAX_LEN, hkv, hd), vc.reshape(SLOTS, MAX_LEN, hkv, hd),
+                vl, ks, vs)
+        got = dd_mod.decode_attention(*args)
+        want = dd_mod.decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = check_close("decode_attention_q olmoe", got, want, dt)
+        assert float(got[0].float().abs().max()) == 0.0, "kv_valid_len 0 must give zeros"
+        row = {"kernel": "decode_attention_q", "arch": MOE_ARCH, "dtype": str(dt),
+               "case": f"q (8,1,16,128), cache (8,{MAX_LEN},16,128) int8, group 1",
+               "max_abs_err": err}
+        if dt == torch.bfloat16:
+            row["ms"] = cuda_ms(lambda: dd_mod.decode_attention(*args))
+            row["plain_ms"] = cuda_ms(lambda: dd_mod.decode_attention_plain(*args), iters=3)
+            rows = int(vl.sum())
+            tiles = sum(-(-n // dd_mod.TILE) for n in vl.tolist())
+            es = qd_.element_size()
+            nbytes = (int((vl > 0).sum()) * h * hd * es + 2 * rows * hkv * hd
+                      + 2 * tiles * hkv * 4 + 4 * SLOTS + qd_.numel() * es)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * rows * h * hd, dt)
+            row["library_ms"] = None
+            summary["decode_attention_q"]["olmoe"] = {key: row[key] for key in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+        detail.append(row)
+    for name in ("paged_decode_attention_q", "decode_attention_q"):
+        r = summary[name]["olmoe"]
+        log(f"[kernels] {name} at olmoe's heads ok: {r['case']}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']}); max|err| bf16 "
+            f"{r['max_abs_err']:.3e} [{card}]")
 
 
 def linear_cost(x, w, idx, val, bias) -> tuple[float, float]:
@@ -2263,7 +2441,11 @@ def phase_reduced(base: str = "fp32", paged: bool = True, kv_dtype: str = "fp32"
         assert c.plain == 0, f"reduced run on the card called plain {c.name}"
     forwards = forwards_of(eng)
     n_q = COUNTERS["fused_linear_q"].kernel
-    assert n_q == (7 * forwards if base in PACKED else 0), (base, n_q, forwards)
+    # every projection of a layer-forward (7 dense; 4 attention on MoE, whose
+    # expert stacks dequantize per call) and an untied head once a forward
+    per_fwd = 4 if cfg.num_experts else 7
+    heads = 0 if cfg.tie_embeddings else forwards // cfg.num_layers
+    assert n_q == (per_fwd * forwards + heads if base in PACKED else 0), (base, n_q, forwards)
     assert isinstance(eng.params["blocks"]["wq"]["w"], QuantizedTensor) == (base in PACKED)
     for a, b in zip(want, got):
         assert a.out == b.out, (f"{base} base, {'paged' if paged else 'dense'} {kv_dtype} KV, "
@@ -2492,10 +2674,10 @@ def phase_full_packed(model, params, tenants, prompts, max_new, kw, card: str,
 
 
 # a longer, decode-dominated window: the run above is a smoke figure (20
-# steps); tokens/s and step times are taken here. One run: the speculative
-# window's draft="off" run serves the same window in the same call, and one
-# run keeps the script's time
-WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 128, 1
+# steps); tokens/s and step times are taken here. One run of 64 new tokens a
+# request: the speculative window's draft="off" run serves the same window
+# in the same call, and the short run keeps the script's time
+WINDOW_REQUESTS, WINDOW_NEW, WINDOW_REPEATS = 16, 64, 1
 
 
 def phase_window(model, params, tenants, card: str, kw: dict, repeats: int = WINDOW_REPEATS,
@@ -2917,21 +3099,25 @@ def step_launches(cfg, base: str, long: bool = False) -> dict:
     """Launches of each path kernel in one training step: every adapted
     matrix once forward (its kernel) and once backward (dval), and at a
     long sequence one flash forward a layer. Dense: 7 projections a layer;
-    MoE: 4 attention projections through fused_linear, 3 expert stacks and
-    the untied head through sparse_delta."""
+    MoE: 4 attention projections through fused_linear (fused_linear_q on a
+    packed base, with the head's base matmul), 3 expert stacks and the
+    untied head through sparse_delta."""
     L = cfg.num_layers
     flash = {"flash_attention_fwd": L} if long else {}
-    if cfg.num_experts:
-        return {"fused_linear": 4 * L, "sparse_delta": 3 * L + 1, "sparse_delta_dval": 7 * L + 1,
-                **flash}
+    if cfg.num_experts:  # on a packed base the head's matmul is fused_linear_q's too (k = 0)
+        linear = {"fused_linear": 4 * L} if base == "bf16" else {"fused_linear_q": 4 * L + 1}
+        return {**linear, "sparse_delta": 3 * L + 1, "sparse_delta_dval": 7 * L + 1, **flash}
     return {n: 7 * L for n in path_kernels(base, cfg)[0]} | flash
 
 
 def select_launches(cfg, base: str) -> int:
     """``topk_select`` launches of selection: one a stack (7 dense, 8 MoE
-    with its head); a packed stack dequantizes and selects layer by layer."""
-    stacks = len(weight_stacks(cfg))
-    return stacks if base == "bf16" else stacks * cfg.num_layers
+    with its head); a packed stack dequantizes and selects one matrix at a
+    time (a layer, or an expert of a layer: 196 on qwen2, 3137 on olmoe)."""
+    stacks = weight_stacks(cfg)
+    if base == "bf16":
+        return len(stacks)
+    return sum(math.prod(shape[:-2]) for _, shape in stacks)
 
 
 def trainable_count(cfg, k: int) -> int:
@@ -3539,7 +3725,7 @@ def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
 
 
 def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
-                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS) -> dict:
     """Full-width NeuroAda training of ``arch`` on a bf16 base, or on one
     packed to ``base`` (int8, NF4) after init and before selection, as the
     launcher does: selection (timed, its launches and peak memory), then
@@ -3554,12 +3740,13 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
     if base != "bf16":
         params = quantize_base(params, base, block=QUANT_BLOCK)  # the dense base is freed
     base_bytes = tree_bytes(params)
-    tcfg = TrainConfig(steps=TRAIN_WARMUP + TRAIN_STEPS + 1, learning_rate=TRAIN_LR)
+    tcfg = TrainConfig(steps=TRAIN_WARMUP + steps + 1, learning_rate=TRAIN_LR)
     moe = bool(cfg.num_experts)
     long = seq >= cfg.flash_threshold
     tok = batch * seq
     tag = "train" if base == "bf16" else f"train-{base}"
-    tag = "train-olmoe" if moe else "train-long" if long else tag
+    tag = ("train-olmoe" + ("" if base == "bf16" else f"-{base}") if moe
+           else "train-long" if long else tag)
     # selection: the Trainer's set-up selects every adapted stack on the card
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3575,6 +3762,14 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
     assert n_select == select_launches(cfg, base), (n_select, select_launches(cfg, base))
     st = stats(params, trainer.state.trainable)
     assert st["trainable"] == trainable_count(cfg, TRAIN_K), st
+    expert_peak = None
+    if moe and base != "bf16":  # one packed (L, E, d_in, d_out) stack selected alone
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_e = torch.cuda.memory_allocated()
+        adapt_mod._select(params["blocks"]["wgate"]["w"], TRAIN_K, "magnitude")
+        torch.cuda.synchronize()
+        expert_peak = torch.cuda.max_memory_allocated() - held_e
     log(f"[{tag}] {arch} {base} base ({base_bytes:,} bytes), NeuroAda k={TRAIN_K} "
         f"magnitude: trainable {st['trainable']:,} of {st['total']:,} "
         f"({100 * st['fraction']:.4f} %), selection {select_s:.3f} s ({n_select} topk_select "
@@ -3590,7 +3785,7 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         times, losses, peak = [], [], 0
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             step_batch = next(data)
             t0 = time.perf_counter()
             m = trainer.step(step_batch)  # returns floats: waits for the device
@@ -3608,7 +3803,7 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
         for name, c in COUNTERS.items():
             assert c.plain == 0, f"training called the plain version of {name} {c.plain} times"
             assert name not in must_not or c.kernel == 0, f"training launched {name}"
-        per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
+        per_step = {n: v / steps for n, v in launches.items()}
         want = step_launches(cfg, base, long)
         assert per_step == want, (per_step, want)
         # every base matmul of a step (M = batch x seq rows) on the TMA + wgmma route
@@ -3633,7 +3828,7 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
         data.close()
     med = float(np.median(times))
     log(f"[{tag}] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
-    log(f"[{tag}] {TRAIN_STEPS} steps of batch {batch} x seq {seq}: step time "
+    log(f"[{tag}] {steps} steps of batch {batch} x seq {seq}: step time "
         f"median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
         f"{tok / med:.0f} training tokens/s; peak memory {peak / 2**30:.2f} GiB; base "
         f"{base_bytes:,} bytes; launches per step {json.dumps(per_step)} (routes "
@@ -3648,9 +3843,11 @@ def phase_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
     with open(os.path.join(OUT_DIR, f"{tag.replace('-', '_')}.json"), "w") as f:
         json.dump(dict(result, arch=arch), f, indent=1)
     out = {"launches": launches, "peak": peak, "median_s": med, "select_launches": n_select,
-           "select_s": select_s, "buckets": buckets}
+           "select_s": select_s, "select_peak": select_peak, "expert_select_peak": expert_peak,
+           "buckets": buckets}
+    out["base_bytes"] = base_bytes
     if moe:
-        out["serve_launches"] = serve_moe(model, params, trainer, card)
+        out["serve_launches"] = serve_moe(model, params, trainer, card, base)
     elif not long:
         serve_trained(model, params, trainer, card, tag)
     return out
@@ -3678,18 +3875,26 @@ def serve_trained(model, params, trainer, card: str, tag: str) -> None:
         f"requests, {sum(len(r.out) for r in reqs)} tokens [{card}]")
 
 
-def serve_moe(model, params, trainer, card: str) -> dict:
+def serve_moe(model, params, trainer, card: str, base: str = "bf16") -> dict:
     """Full-width olmoe serving: the trained adapter (exported and loaded
     back) as tenant 1 beside two random tenants on its indices and the base,
-    with phase 5's engine settings and prompts. The gate run (every request
-    ends, the paged serving kernels launched and no training kernel, no
-    plain version, one transfer a step, the pool drains, pool bytes as
-    reckoned), the same run profiled (busy share, launches per
-    layer-forward), then one window run. Returns the gate run's launches of
-    the serving kernels."""
-    path = os.path.join(OUT_DIR, "train-olmoe_adapter.npz")
+    with phase 5's engine settings and prompts, on the base it was trained
+    on. The gate run (every request ends, the paged serving kernels
+    launched — on a packed base also ``fused_linear_q``, 4 a layer-forward
+    and the head's — and no training kernel, no plain version, one transfer
+    a step, the pool drains, pool bytes as reckoned). On the bf16 base the
+    same run profiled (busy share, launches per layer-forward), one window
+    run, and a gate run on each int8 KV cache (paged and dense); on the int8
+    base a gate run with the int8 self-drafter. Returns the gate runs'
+    launches of the serving kernels."""
+    suffix = "" if base == "bf16" else f"-{base}"
+    tag = f"serve-olmoe{suffix}"
+    # 26 MB a file: in the scratch directory, not the output directory
+    path = os.path.join(SCRATCH, f"train-olmoe{suffix}_adapter.npz")
     export_adapter(path, trainer.aux, trainer.state.trainable, {"arch": model.cfg.name})
     idx, val = load_adapter(path)
+    nbytes = os.path.getsize(path)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
     idx, val = (map_leaves(lambda x: None if x is None else x.cuda(), t) for t in (idx, val))
     tenants = [(idx, val)] + random_tenants(params, 2, seed=9, dtype=torch.bfloat16,
                                             device="cuda", idx=idx)
@@ -3699,6 +3904,7 @@ def serve_moe(model, params, trainer, card: str) -> dict:
     max_new = 32
     kw = dict(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PREFILL_CHUNK,
               decode_chunk=DECODE_CHUNK, page_size=PAGE)
+    allowed = SERVING + (PACKED_BASE if base != "bf16" else ())
     serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
     torch.cuda.synchronize()
     reset_counters()
@@ -3708,27 +3914,38 @@ def serve_moe(model, params, trainer, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = {name: c.kernel for name, c in COUNTERS.items()}
-    decode_routes("serve-olmoe")
-    apply_routes("serve-olmoe")
+    decode_routes(tag)
+    apply_routes(tag)
     for name, c in COUNTERS.items():
         assert c.plain == 0, f"olmoe serving called the plain version of {name}"
-        assert name in SERVING or c.kernel == 0, f"olmoe serving launched {name}"
-        assert name not in SERVING or c.kernel > 0, f"olmoe serving never launched {name}"
+        assert name in allowed or c.kernel == 0, f"olmoe serving launched {name}"
+        assert name not in allowed or c.kernel > 0, f"olmoe serving never launched {name}"
+    forwards = forwards_of(eng)
+    if base != "bf16":  # 4 attention projections a layer-forward and the head a forward
+        assert n["fused_linear_q"] == 4 * forwards + forwards // model.cfg.num_layers, \
+            (n["fused_linear_q"], forwards)
     for r in reqs:
         assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
     assert {r.adapter_id for r in reqs} == {0, 1, 2, 3}
     assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
     assert eng.kv.drained(), "olmoe block pool not fully free after the run"
     pool = eng.kv.pool_bytes()
-    assert pool == MOE_POOL_BYTES, pool
+    assert pool == MOE_POOL_BYTES == reckoned_pool_bytes(model.cfg, "fp32"), pool
     n_tok = sum(len(r.out) for r in reqs)
     st = eng.step_times
-    log(f"[serve-olmoe] trained adapter ({os.path.getsize(path):,} bytes) as tenant 1 beside 2 "
-        f"random tenants and the base: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+    out = {k: n[k] for k in allowed}
+    log(f"[{tag}] trained adapter ({nbytes:,} bytes) as tenant 1 beside 2 "
+        f"random tenants and the base, {base} base ({tree_bytes(params):,} bytes): "
+        f"{len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
         f"{n_tok / wall:.1f} tok/s; steps {eng.steps} (mixed {len(st['mixed'])} x "
         f"{float(np.mean(st['mixed'])) * 1e3:.2f} ms, decode {len(st['decode'])} x "
         f"{float(np.mean(st['decode'])) * 1e3:.2f} ms); pool {pool:,} bytes (as reckoned); "
-        f"launches {json.dumps({k: n[k] for k in SERVING})}, plain 0 [{card}]")
+        f"launches {json.dumps(out)}, plain 0 [{card}]")
+    if base == "int8":
+        out["spec"] = moe_spec_gate(model, params, tenants, prompts, max_new, kw, card,
+                                    [r.out for r in reqs])
+    if base != "bf16":
+        return out
     busy, n_launch, (peng, _) = profile_run(
         lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw), card,
         "profile-olmoe", "full_profile_olmoe.txt")
@@ -3739,7 +3956,464 @@ def serve_moe(model, params, trainer, card: str) -> dict:
                  fname="window_olmoe.json",
                  extra={"arch": model.cfg.name, "pool_bytes": pool, "busy_share": busy,
                         "launches_per_layer_forward": per_fwd})
-    return {k: n[k] for k in SERVING}
+    for paged in (True, False):
+        out.update(moe_kv_gate(model, params, tenants, prompts, max_new, kw, card, paged))
+    return out
+
+
+def moe_kv_gate(model, params, tenants, prompts, max_new, kw, card: str, paged: bool) -> dict:
+    """One olmoe gate run on an int8 KV cache (paged, or the dense slot
+    cache): every request ends, the int8 attention kernels of that layout
+    launched and no other attention kernel, no plain version, one transfer
+    a step, the cache drains, pool bytes as reckoned (int8 codes and float32
+    scales). Returns its attention launches."""
+    name = f"{'paged' if paged else 'dense'}-int8"
+    kw = dict(kw, paged=paged, kv_dtype="int8")
+    if not paged:
+        kw.pop("page_size")
+    mine, others = attention_names(paged, "int8")
+    serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with forwards_never_wait(model):
+        eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {c.name: c.kernel for c in COUNTERS.values()}
+    decode_routes(f"serve-olmoe-{name}")
+    apply_routes(f"serve-olmoe-{name}")
+    for c in COUNTERS.values():
+        assert c.plain == 0, f"olmoe {name} serving called the plain version of {c.name}"
+        assert c.name not in others or c.kernel == 0, f"olmoe {name} serving launched {c.name}"
+        assert c.name not in TRAINING + SINGLE_TENANT + PACKED_BASE or c.kernel == 0, c.name
+    assert all(n[m] > 0 for m in mine + ("sparse_delta_batched",)), n
+    for r in reqs:
+        assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
+    assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+    assert eng.kv.drained(), f"olmoe {name} cache not drained after the run"
+    pool = eng.kv.pool_bytes()
+    want = reckoned_pool_bytes(model.cfg, "int8")
+    assert pool == want == MOE_POOL_BYTES_INT8, (pool, want)
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"[serve-olmoe-{name}] {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tok/s; steps {eng.steps}; pool {pool:,} bytes (as reckoned; bf16 "
+        f"{MOE_POOL_BYTES:,}, {pool / MOE_POOL_BYTES:.1%}); attention launches "
+        f"{json.dumps({m: n[m] for m in mine})}, plain 0 [{card}]")
+    return {f"{m} ({name})": n[m] for m in mine}
+
+
+def moe_spec_gate(model, params, tenants, prompts, max_new, kw, card: str, off_outs) -> dict:
+    """The gate run again with the int8 self-drafter on the packed olmoe
+    base (the served tree is the drafter's: one base, no extra bytes):
+    every request ends, one transfer a step, the pool drains, no plain
+    version, drafts accepted. Its tokens are not draft="off"'s even in
+    exact arithmetic: a verify chunk routes its 40 tokens in 4 groups of
+    10, where a decode step routes 8 in one group, and an expert's capacity
+    (8) then drops other assignments. So the tie rule is held where no
+    assignment can drop: the same model at capacity_factor E / K (every
+    expert can take every token of its group), off and int8-spec gate runs,
+    greedy tokens equal but where a bf16 near-tie (SPEC_TIE_ULPS) of the
+    teacher-forced logits let them part. Returns drafted / accepted
+    counts and the launches."""
+    cfg = model.cfg
+    spec_kw = dict(kw, draft="int8", spec_k=SPEC_K)
+
+    def gate(m, kwargs):
+        serve(m, params, tenants, prompts[:2], 2, "cuda", **kwargs)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        with forwards_never_wait(m):
+            eng, reqs = serve(m, params, tenants, prompts, max_new, "cuda", **kwargs)
+        torch.cuda.synchronize()
+        for c in COUNTERS.values():
+            assert c.plain == 0, f"olmoe spec serving called the plain version of {c.name}"
+        for r in reqs:
+            assert r.done and r.reason in ("eos", "max_new"), (r.rid, r.reason, len(r.out))
+        assert eng.transfers == eng.steps, (eng.transfers, eng.steps)
+        assert eng.kv.drained(), "olmoe pool not drained after the run"
+        return eng, reqs, time.perf_counter() - t0
+
+    eng, reqs, wall = gate(model, spec_kw)
+    assert eng.draft_params is eng.params, "the int8 drafter must share the int8 base"
+    assert eng.spec_accepted > 0, (eng.spec_drafted, eng.spec_accepted)
+    launches = {c.name: c.kernel for c in COUNTERS.values() if c.kernel}
+    n_tok = sum(len(r.out) for r in reqs)
+    same = sum(r.out == o for r, o in zip(reqs, off_outs))
+    log(f"[serve-olmoe-int8-spec] int8 self-drafter, spec_k {SPEC_K}: {len(reqs)} requests, "
+        f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s); drafted "
+        f"{eng.spec_drafted}, accepted {eng.spec_accepted} "
+        f"({eng.spec_accepted / eng.spec_drafted:.3f}); {same} of {len(reqs)} requests "
+        f"token-identical to draft=off (capacity drops differ between a verify chunk and a "
+        f"decode step); launches {json.dumps(launches)} [{card}]")
+    nodrop = get_model(cfg.replace(capacity_factor=cfg.num_experts / cfg.experts_per_token))
+    _, off_reqs, _ = gate(nodrop, kw)
+    neng, nreqs, _ = gate(nodrop, spec_kw)
+    off2 = [r.out for r in off_reqs]
+    gaps = divergence_gaps(nodrop, neng, nreqs, off2, prompts)
+    assert all(near for *_, near in gaps), f"olmoe int8 drafter parted from off off a tie: {gaps}"
+    same2 = sum(r.out == o for r, o in zip(nreqs, off2))
+    log(f"[serve-olmoe-int8-spec] at capacity_factor {cfg.num_experts // cfg.experts_per_token} "
+        f"(no assignment can drop): {same2} of {len(nreqs)} requests token-identical to "
+        f"draft=off, partings at near-ties {[(rid, i, round(u, 2)) for rid, i, _, u, _ in gaps]}; "
+        f"drafted {neng.spec_drafted}, accepted {neng.spec_accepted} [{card}]")
+    return {"drafted": eng.spec_drafted, "accepted": eng.spec_accepted, "launches": launches,
+            "same_as_off": same, "nodrop_same_as_off": same2}
+
+
+# ------------------------------------------------- the training lifecycle
+# remat: the three modes at the 4 x 512 step, REMAT_STEPS measured steps
+# after TRAIN_WARMUP each; the long-context run under "full" as well
+REMAT_MODES, REMAT_STEPS = ("none", "full", "dots"), 3
+# a scratch directory inside the checkout for checkpoints and the merged
+# export (3.1 GB for qwen2-1.5b in bf16), removed when the phase ends
+SCRATCH = os.path.join(ROOT, "_chip", "lifecycle")
+
+
+def remat_steps(model, params, mode: str, batch: int, seq: int) -> dict:
+    """A Trainer under ``remat=mode``: TRAIN_WARMUP steps (the first
+    step's loss kept), then REMAT_STEPS measured (step times, peak memory,
+    launches a step; no plain version)."""
+    cfg = model.cfg
+    tcfg = TrainConfig(steps=TRAIN_WARMUP + REMAT_STEPS + 1, learning_rate=TRAIN_LR, remat=mode)
+    trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)), tcfg, params)
+    data = DataLoader("lm", cfg.vocab_size, batch, seq, seed=0)
+    try:
+        first = trainer.step(next(data))["loss"]
+        for _ in range(TRAIN_WARMUP - 1):
+            trainer.step(next(data))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses = [], []
+        for _ in range(REMAT_STEPS):
+            b = next(data)
+            t0 = time.perf_counter()
+            m = trainer.step(b)
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            assert m["skipped"] == 0, m
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        data.close()
+    for name, c in COUNTERS.items():
+        assert c.plain == 0, f"remat {mode} called the plain version of {name}"
+    per_step = {n: COUNTERS[n].kernel / REMAT_STEPS for n in
+                ("fused_linear", "sparse_delta_dval", "flash_attention_fwd")}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"first_loss": first, "losses": losses, "peak": peak, "step_s": times,
+            "median_s": float(np.median(times)), "per_step": per_step}
+
+
+def phase_remat(card: str, long_none_peak: int) -> dict:
+    """Full-width qwen2-1.5b (bf16 base) at batch 4 x seq 512 under remat
+    ``none``, ``full`` and ``dots``: the first step's loss bit-equal across
+    the modes; per step ``fused_linear`` 392 (full: the forward again in the
+    backward) / 196 (dots: its outputs kept) / 196 launches and
+    ``sparse_delta_dval`` 196 in every mode; ``full`` peaks below ``none``,
+    ``dots`` at most at it. Then ``full`` on the 1 x 4096 long-context
+    step: 56 flash forward launches a step, and a peak below the same
+    call's ``none`` run (``long_none_peak``)."""
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    L = cfg.num_layers
+    res = {mode: remat_steps(model, params, mode, TRAIN_BATCH, TRAIN_SEQ) for mode in REMAT_MODES}
+    none, full, dots = (res[m] for m in REMAT_MODES)
+    assert none["first_loss"] == full["first_loss"] == dots["first_loss"], \
+        {m: r["first_loss"] for m, r in res.items()}
+    want = {"none": 7 * L, "full": 14 * L, "dots": 7 * L}
+    for mode, r in res.items():
+        assert r["per_step"]["fused_linear"] == want[mode], (mode, r["per_step"])
+        assert r["per_step"]["sparse_delta_dval"] == 7 * L, (mode, r["per_step"])
+        assert r["per_step"]["flash_attention_fwd"] == 0, (mode, r["per_step"])
+        log(f"[remat-{mode}] qwen2-1.5b bf16 {TRAIN_BATCH} x {TRAIN_SEQ}, {REMAT_STEPS} steps "
+            f"after {TRAIN_WARMUP}: first loss {r['first_loss']!r}; step median "
+            f"{r['median_s'] * 1e3:.2f} ms (min {min(r['step_s']) * 1e3:.2f}, max "
+            f"{max(r['step_s']) * 1e3:.2f}); peak {r['peak'] / 2**30:.2f} GiB; launches a step "
+            f"{json.dumps(r['per_step'])}, plain 0 [{card}]")
+    assert full["peak"] < none["peak"], (full["peak"], none["peak"])
+    assert dots["peak"] <= none["peak"], (dots["peak"], none["peak"])
+    log(f"[remat] first losses bit-equal across none / full / dots; peaks "
+        f"{none['peak'] / 2**30:.2f} / {full['peak'] / 2**30:.2f} / {dots['peak'] / 2**30:.2f} "
+        f"GiB (full saves {(none['peak'] - full['peak']) / 2**30:.2f} GiB); step time "
+        f"{full['median_s'] / none['median_s']:.3f}x / {dots['median_s'] / none['median_s']:.3f}x "
+        f"none's [{card}]")
+    long = remat_steps(model, params, "full", LONG_BATCH, LONG_SEQ)
+    assert long["per_step"]["flash_attention_fwd"] == 2 * L, long["per_step"]
+    assert long["per_step"]["fused_linear"] == 14 * L, long["per_step"]
+    assert long["peak"] < long_none_peak, (long["peak"], long_none_peak)
+    log(f"[remat-full-long] qwen2-1.5b bf16 {LONG_BATCH} x {LONG_SEQ} under full: step median "
+        f"{long['median_s'] * 1e3:.2f} ms; peak {long['peak'] / 2**30:.2f} GiB (none's in this "
+        f"call {long_none_peak / 2**30:.2f}); launches a step {json.dumps(long['per_step'])} "
+        f"[{card}]")
+    res["full-long"] = long
+    with open(os.path.join(OUT_DIR, "train_remat.json"), "w") as f:
+        json.dump({"card": card, "long_none_peak": long_none_peak, **res}, f, indent=1)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_reduced_remat(card: str, arch: str) -> None:
+    """Reduced ``arch`` in fp32 on the card, three AdamW steps under each
+    remat mode with deterministic algorithms on (the backward's
+    ``index_add_`` scatter has float atomics otherwise): losses and values
+    of ``full`` and ``dots`` equal ``none``'s bit for bit."""
+    cfg, model, params, batches = reduced_train_case(arch, "bf16", 4, 16)
+    params = map_leaves(lambda x: None if x is None else x.cuda(), params)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in REMAT_MODES:
+            reset_counters()
+            runs[mode] = train_run(model, params, PeftConfig(k=2, delta_dtype="float32"),
+                                   TrainConfig(steps=3, learning_rate=TRAIN_LR, remat=mode),
+                                   batches)
+            assert all(c.plain == 0 for c in COUNTERS.values())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for mode in ("full", "dots"):
+        assert runs[mode][0] == runs["none"][0], (mode, runs[mode][0], runs["none"][0])
+        for (p, a), (_, b) in zip(flatten(runs["none"][1]), flatten(runs[mode][1])):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (mode, p)
+    log(f"[reduced-remat] reduced {arch} fp32, 3 steps on the card: losses "
+        f"{[f'{x:.7f}' for x in runs['none'][0]]} and every value bit-equal under none / "
+        f"full / dots [{card}]")
+
+
+def phase_resume(card: str) -> dict:
+    """Checkpoint and resume through ``Trainer`` at full width (qwen2-1.5b
+    bf16, 4 x 512), the checkpoints in a scratch directory. Run A: 4 steps,
+    a save at step 2 (its copy to the host and its file write timed). Run
+    B: a fresh Trainer resumes from A's step-2 file and runs to 4. B's
+    restored values and moments equal A's state at 2 bit for bit, B's step-3
+    loss equals A's bit for bit, its step-4 loss within 1e-5 relative (the
+    backward's float atomics make later steps non-bitwise)."""
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    dir_a, dir_b = os.path.join(SCRATCH, "ckpt_a"), os.path.join(SCRATCH, "ckpt_b")
+    for d in (dir_a, dir_b):
+        shutil.rmtree(d, ignore_errors=True)
+    mk = lambda d: Trainer(model, get_peft(PeftConfig(k=TRAIN_K)),  # noqa: E731
+                           TrainConfig(steps=4, learning_rate=TRAIN_LR, checkpoint_every=2,
+                                       checkpoint_dir=d, log_every=0), params)
+    a = mk(dir_a)
+    data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    try:
+        a.run(data, steps=2)  # saves at 2 and waits
+        copy_s, write_s = a.ckpt.last_copy_s, a.ckpt.last_write_s
+        at2 = {p: x.clone() for p, x in flatten({"trainable": a.state.trainable,
+                                                 "opt_state": a.state.opt_state})
+               if x is not None}
+        shutil.copytree(dir_a, dir_b)
+        a.run(data, steps=4)
+    finally:
+        data.close()
+    want = [h["loss"] for h in a.history]
+    nbytes = os.path.getsize(os.path.join(dir_b, "ckpt_00000002.npz"))
+    b = mk(dir_b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = b.try_resume()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    assert start == 2 and int(b.state.step) == 2, start
+    got = dict(flatten({"trainable": b.state.trainable, "opt_state": b.state.opt_state}))
+    assert set(p for p, x in got.items() if x is not None) == set(at2)
+    for p, x in at2.items():
+        y = got[p]
+        assert y.device.type == "cuda" and y.dtype == x.dtype and torch.equal(x, y), p
+    data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0, start_step=start)
+    try:
+        b.run(data, steps=4)
+    finally:
+        data.close()
+    got_loss = [h["loss"] for h in b.history]
+    assert got_loss[0] == want[2], (got_loss, want)
+    assert abs(got_loss[1] - want[3]) <= 1e-5 * abs(want[3]), (got_loss, want)
+    assert b.ckpt.steps() == [2, 4]
+    log(f"[resume] qwen2-1.5b bf16 {TRAIN_BATCH} x {TRAIN_SEQ}: A's losses {want}; B resumed "
+        f"at step {start} in {resume_s * 1e3:.1f} ms (values and moments bit-equal to A's at "
+        f"2), its losses {got_loss} (step 3 bit-equal, step 4 |rel| "
+        f"{abs(got_loss[1] - want[3]) / abs(want[3]):.2e}); a save: host copy "
+        f"{copy_s * 1e3:.1f} ms on the training thread, file write {write_s * 1e3:.1f} ms "
+        f"behind it ({nbytes:,} bytes) [{card}]")
+    out = {"card": card, "losses_a": want, "losses_b": got_loss, "resume_s": resume_s,
+           "save_copy_s": copy_s, "save_write_s": write_s, "bytes": nbytes}
+    with open(os.path.join(OUT_DIR, "train_resume.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    del params, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+REQ_LINE = re.compile(r"^req(\d+) \[(\w+)\]: prompt=\[[^\]]*\] -> \[([^\]]*)\]$")
+
+
+def launcher_tokens(main, argv) -> list:
+    """Run a launcher's ``main(argv)`` on the card, its stdout captured;
+    the greedy tokens it printed, by request id."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        LOG.append("[launcher] " + line)
+    outs = {}
+    for line in text.splitlines():
+        m = REQ_LINE.match(line)
+        if m:
+            outs[int(m.group(1))] = [int(t) for t in m.group(3).split(",") if t.strip()]
+    return [outs[i] for i in sorted(outs)]
+
+
+def phase_export(card: str) -> dict:
+    """``launch/train.py --export`` (and ``--export-adapter``) of full-width
+    qwen2-1.5b (bf16, 4 x 512, 2 steps), then ``launch/serve.py`` on the
+    card: ``--params`` the merged export for the 10-prompt gate run, and the
+    unmerged tenant on the same base (seed 0) with every request on it. The
+    greedy tokens agree but where a bf16 near-tie of the unmerged model's
+    teacher-forced logits (SPEC_TIE_ULPS) let them part. Times the export's
+    write and the load."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    merged, adapter = os.path.join(SCRATCH, "merged.npz"), os.path.join(SCRATCH, "tenant.npz")
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    launch_train.main(["--arch", cfg.name, "--task", "lm", "--steps", "2", "--batch",
+                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--k", str(TRAIN_K),
+                       "--export", merged, "--export-adapter", adapter])
+    train_s = time.perf_counter() - t0
+    size = os.path.getsize(merged)
+    rng = np.random.default_rng(11)
+    lens = [40, 700, 130, 256, 511, 64, 300, 620, 90, 410]
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in lens]
+    argv = ["--arch", cfg.name, "--prompts", ";".join(",".join(map(str, p)) for p in prompts),
+            "--max-new", "32", "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--prefill-chunk", str(PREFILL_CHUNK), "--decode-chunk", str(DECODE_CHUNK)]
+    reset_counters()
+    t0 = time.perf_counter()
+    got = launcher_tokens(launch_serve.main, argv + ["--params", merged])
+    serve_s = time.perf_counter() - t0
+    n = {c.name: c.kernel for c in COUNTERS.values()}
+    for c in COUNTERS.values():
+        assert c.plain == 0, f"serve --params called the plain version of {c.name}"
+    assert n["sparse_delta_batched"] == 0 and n["fused_linear_q"] == 0, n  # one merged tenant
+    assert n["paged_decode_attention"] > 0 and n["paged_prefill_attention"] > 0, n
+    want = launcher_tokens(launch_serve.main,
+                           argv + ["--adapters", adapter, "--adapter-ids", ",".join(["1"] * 10)])
+    assert len(got) == len(want) == 10
+    same = sum(a == b for a, b in zip(got, want))
+    gaps = []
+    if same < 10:  # teacher-force the unmerged model at each parting
+        params = model.init(seed=0, device="cuda")
+        idx, val = load_adapter(adapter)
+        idx, val = (map_leaves(lambda x: None if x is None else x.cuda(), t) for t in (idx, val))
+        eng = engine_for(model, params, [(idx, val)], [], 1, "cuda", slots=SLOTS,
+                         max_len=MAX_LEN)
+        reqs = [types.SimpleNamespace(rid=i, out=o, adapter_id=1) for i, o in enumerate(got)]
+        gaps = divergence_gaps(model, eng, reqs, want, prompts)
+        del params, eng
+    assert all(near for *_, near in gaps), f"merged export parted from the tenant off a tie: {gaps}"
+    log(f"[export] train --export of qwen2-1.5b bf16 (2 steps, {train_s:.1f} s with init, "
+        f"selection and the write): {size:,} bytes; serve --params merged.npz, gate run of 10 "
+        f"prompts x 32 new through the launcher ({serve_s:.1f} s with the load and init): "
+        f"{same} of 10 requests token-identical to the unmerged tenant on the same base, "
+        f"partings at near-ties {[(rid, i, round(u, 2)) for rid, i, _, u, _ in gaps]}; "
+        f"launches {json.dumps({k: v for k, v in n.items() if v})}, plain 0 [{card}]")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"bytes": size, "same": same, "gaps": gaps, "train_s": train_s, "serve_s": serve_s}
+
+
+def phase_reduced_export(card: str) -> None:
+    """Reduced qwen2-1.5b in fp32 on the card: three training steps, the
+    merged export and the base written with ``save_pytree``, served through
+    ``launch/serve.py --params`` (merged; base + the unmerged tenant): the
+    same greedy tokens."""
+    cfg, model, params, batches = reduced_train_case("qwen2-1.5b", "bf16", 4, 16)
+    params = map_leaves(lambda x: None if x is None else x.cuda(), params)
+    trainer = Trainer(model, get_peft(PeftConfig(k=2, delta_dtype="float32")),
+                      TrainConfig(steps=3, learning_rate=TRAIN_LR), params)
+    trainer.run(iter(batches))
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    merged, base, adapter = (os.path.join(SCRATCH, n) for n in ("m.npz", "b.npz", "a.npz"))
+    save_pytree(merged, trainer.merged_params())
+    save_pytree(base, params)
+    export_adapter(adapter, trainer.aux, trainer.state.trainable)
+    real = launch_serve.reduced
+    launch_serve.reduced = lambda c: real(c).replace(dtype="float32")
+    try:
+        rng = np.random.default_rng(0)
+        prompts = ";".join(",".join(map(str, rng.integers(3, cfg.vocab_size, size=n)))
+                           for n in (5, 37, 12, 70, 3))
+        argv = ["--reduced", "--prompts", prompts, "--max-new", "10", "--slots", "3"]
+        got = launcher_tokens(launch_serve.main, argv + ["--params", merged])
+        want = launcher_tokens(launch_serve.main, argv + ["--params", base, "--adapters", adapter,
+                                                         "--adapter-ids", "1,1,1,1,1"])
+    finally:
+        launch_serve.reduced = real
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    assert got == want, (got, want)
+    log(f"[reduced-export] reduced qwen2-1.5b fp32: serve --params of the merged export gives "
+        f"the unmerged tenant's greedy tokens on the card, all {len(got)} requests "
+        f"({sum(map(len, got))} tokens) [{card}]")
+
+
+def lifecycle(card: str, train: dict, stamp) -> None:
+    """Slice 12's phases: olmoe on the packed bases (reduced card vs CPU,
+    then full width: selection, training, the gate run, on int8 the
+    self-drafter) and on int8 KV (reduced), remat (reduced, then full
+    width), checkpoint / resume, and the merged export served through the
+    launcher. ``train`` holds the bf16 olmoe run and the long-context run
+    of this call; the packed olmoe runs are added to it."""
+    for qd in PACKED:
+        phase_reduced_train(card, qd, MOE_ARCH)
+        phase_reduced(qd, arch=MOE_ARCH)
+    # each layout equal to the CPU's; unlike qwen2's, olmoe's two layouts may
+    # part (the dense cache's mixed steps attend in plain torch, and routing
+    # amplifies a last-bit difference)
+    for paged in (True, False):
+        phase_reduced("fp32", paged, "int8", arch=MOE_ARCH)
+    stamp("reduced olmoe, packed and int8 KV")
+    ref = train["olmoe"]
+    for qd in PACKED:
+        torch.cuda.empty_cache()
+        run = train[f"olmoe-{qd}"] = phase_train(card, qd, MOE_ARCH, steps=REMAT_STEPS)
+        # selection dequantizes one (d_in, d_out) expert matrix at a time: a
+        # packed expert stack selected alone peaks below one layer's dense
+        # (E, d_in, d_out) stack in bf16 (the whole selection's peak is the
+        # untied head's, dequantized whole: 2048 x 50304)
+        cfg = get_config(MOE_ARCH)
+        layer_stack = cfg.num_experts * cfg.d_model * cfg.d_ff * 2
+        assert run["select_launches"] == select_launches(cfg, qd)
+        log(f"[train-olmoe-{qd}] base {run['base_bytes']:,} bytes ({run['base_bytes'] / ref['base_bytes']:.1%} of "
+            f"bf16's); selection {run['select_s']:.3f} s, {run['select_launches']} topk_select "
+            f"launches (one an expert matrix), peak {run['select_peak'] / 2**20:.1f} MiB above "
+            f"the weights (the head's); the wgate stack alone "
+            f"{run['expert_select_peak'] / 2**20:.1f} MiB (< one layer's dense expert stack, "
+            f"{layer_stack / 2**20:.0f} MiB); training peak {run['peak'] / 2**30:.2f} GiB "
+            f"against bf16's {ref['peak'] / 2**30:.2f}, step median "
+            f"{run['median_s'] * 1e3:.2f} ms against {ref['median_s'] * 1e3:.2f} [{card}]")
+        assert run["expert_select_peak"] < layer_stack, run["expert_select_peak"]
+        assert run["peak"] < ref["peak"], (qd, run["peak"], ref["peak"])
+    stamp("olmoe packed training and serving")
+    for arch in ("qwen2-1.5b", MOE_ARCH):
+        phase_reduced_remat(card, arch)
+    torch.cuda.empty_cache()
+    phase_remat(card, train["long"]["peak"])
+    stamp("remat")
+    phase_resume(card)
+    phase_reduced_export(card)
+    phase_export(card)
+    stamp("checkpoint, resume, export")
 
 
 def main() -> int:
@@ -3769,6 +4443,21 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--delta-variants"]:
         delta_variants(card)
+        return 0
+    if sys.argv[1:] == ["--lifecycle"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        dev, gen = torch.device("cuda"), torch.Generator(device="cuda").manual_seed(1234)
+        summary = {n: {} for n in ("fused_linear_q", "paged_decode_attention_q",
+                                   "decode_attention_q")}
+        lifecycle_kernels(gen, dev, summary, [], card, SLOTS * (-(-MAX_LEN // PAGE)),
+                          [1, 17, 300, MAX_LEN - 1, 512, 0, 640, 33])
+        train = {"long": phase_train(card, "bf16", batch=LONG_BATCH, seq=LONG_SEQ,
+                                     steps=REMAT_STEPS),
+                 "olmoe": phase_train(card, "bf16", MOE_ARCH, steps=REMAT_STEPS)}
+        lifecycle(card, train, lambda name: None)
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -3825,6 +4514,7 @@ def main() -> int:
     stamp("reduced olmoe")
     train["olmoe"] = phase_train(card, "bf16", MOE_ARCH)
     stamp("olmoe training and serving")
+    lifecycle(card, train, stamp)
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
@@ -3849,6 +4539,16 @@ def main() -> int:
                        for b in train}
     olmoe_launches = {**train["olmoe"]["serve_launches"], **train["olmoe"]["launches"],
                       "topk_select": train["olmoe"]["select_launches"]}
+    # slice 12's olmoe paths: the packed bases' training steps and gate runs,
+    # the int8 KV gate runs
+    olmoe_q = {f"{p}-olmoe-{qd}": train[f"olmoe-{qd}"][k]["fused_linear_q"]
+               for qd in PACKED for p, k in (("train", "launches"), ("serve", "serve_launches"))}
+    kv = train["olmoe"]["serve_launches"]
+    olmoe_launches.update({
+        "fused_linear_q": sum(olmoe_q.values()),
+        "paged_decode_attention_q": kv["paged_decode_attention_q (paged-int8)"],
+        "paged_prefill_attention_q": kv["paged_prefill_attention_q (paged-int8)"],
+        "decode_attention_q": kv["decode_attention_q (dense-int8)"]})
     kernels = []
     for name, s in summary.items():
         row = {
@@ -3886,6 +4586,8 @@ def main() -> int:
             # steps for the training kernels (its seq 512 runs no flash), its
             # selection for topk_select, its serving gate run for the rest
             row.update(olmoe=dict(s["olmoe"], launches=olmoe_launches.get(name, 0)))
+            if name == "fused_linear_q":
+                row["olmoe"]["launches_by_phase"] = olmoe_q
         kernels.append(row)
     log(f"[card] {card}")
     with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:

@@ -12,10 +12,14 @@ classes; :func:`matmul_q` is the base matmul of a plain or packed weight;
 :func:`topk_select` is the selection of NeuroAda's phase 1. (Long-context
 training attention, whose backward is plain PyTorch, is an autograd
 function in ``models.attention`` around ``kernels.flash_attention``.)
+:func:`keep_linear_outputs` is the ``context_fn`` of the ``dots``
+recomputation: the fused linears' outputs are kept from the forward and
+handed back when the layer is recomputed, so their kernels launch once.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -118,6 +122,47 @@ def prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_scale=
                     kv_valid_len, k_scale, v_scale)
 
 
+_KEEP = None  # (deque, recording) inside a ``dots`` recomputation's contexts
+
+
+class _KeepOutputs:
+    """One of :func:`keep_linear_outputs`'s two contexts."""
+
+    def __init__(self, store, recording: bool):
+        self.store, self.recording = store, recording
+
+    def __enter__(self):
+        global _KEEP
+        self.prev, _KEEP = _KEEP, (self.store, self.recording)
+
+    def __exit__(self, *exc):
+        global _KEEP
+        _KEEP = self.prev
+
+
+def keep_linear_outputs():
+    """The (forward, recompute) contexts of ``torch.utils.checkpoint`` for
+    the ``dots`` policy: in the forward every fused linear (dense or packed)
+    keeps its output; in the recomputation each takes its kept output back,
+    in order, instead of launching its kernel. Selective checkpointing by
+    operator cannot do this: the kernels are launched through ``ctypes``
+    inside autograd functions, which the dispatcher never sees."""
+    store = collections.deque()
+    return _KeepOutputs(store, True), _KeepOutputs(store, False)
+
+
+def _kept(launch):
+    """``launch()``, or the output the ``dots`` forward kept for it."""
+    if _KEEP is None:
+        return launch()
+    store, recording = _KEEP
+    if not recording:
+        return store.popleft()
+    y = launch()
+    store.append(y.detach())
+    return y
+
+
 class _FusedLinear(torch.autograd.Function):
     """Forward: the fused kernel. Backward, as the reference's
     ``_fused_bwd``: ``dx = dy @ Wᵀ`` (a plain matmul, as the reference
@@ -132,7 +177,7 @@ class _FusedLinear(torch.autograd.Function):
         ctx.save_for_backward(x2d, w, idx, val)
         ctx.bias_dtype = None if bias is None else bias.dtype
         ctx.w_frozen = w_frozen
-        return _fl.fused_linear(x2d, w, idx, val, bias)
+        return _kept(lambda: _fl.fused_linear(x2d, w, idx, val, bias))
 
     @staticmethod
     def backward(ctx, dy):
@@ -185,8 +230,8 @@ class _FusedLinearQ(torch.autograd.Function):
         ctx.save_for_backward(x2d, data, scales, idx, val)
         ctx.meta = (qdtype, block, dtype_name)
         ctx.bias_dtype = None if bias is None else bias.dtype
-        return _ql.fused_linear_q(x2d, data, scales, idx, val, bias, qdtype=qdtype,
-                                  block=block)
+        return _kept(lambda: _ql.fused_linear_q(x2d, data, scales, idx, val, bias,
+                                                qdtype=qdtype, block=block))
 
     @staticmethod
     def backward(ctx, dy):
@@ -235,6 +280,36 @@ def matmul_q(x, w):
     else:
         y = _ql.fused_linear_q(x2d, w.data, w.scales, qdtype=w.qdtype, block=w.block)
     return y.reshape(*lead, w.shape[-1])
+
+
+class _PackedBmm(torch.autograd.Function):
+    """``eh @ dequant(Wq)`` over an expert stack, as the reference's MoE
+    computes it in plain jnp: the packed stack is dequantized per call to
+    eh's dtype and multiplied by ``torch.bmm``. Only the codes and scales
+    are saved; the backward dequantizes the same transient dense stack again
+    for ``dx = dy @ Wᵀ``, and no gradient reaches the codes."""
+
+    @staticmethod
+    def forward(ctx, eh, data, scales, qdtype, block, dtype_name):
+        ctx.save_for_backward(data, scales)
+        ctx.meta = (qdtype, block, dtype_name)
+        return torch.bmm(eh, dequantize(QuantizedTensor(data, scales, *ctx.meta)).to(eh.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        data, scales = ctx.saved_tensors
+        w = dequantize(QuantizedTensor(data, scales, *ctx.meta)).to(dy.dtype)
+        return torch.bmm(dy, w.transpose(1, 2)), None, None, None, None, None
+
+
+def bmm_q(eh, w):
+    """eh (E, R, d_in) @ w (E, d_in, d_out) for a plain or packed expert
+    stack, differentiable in eh; a packed stack never gets a gradient."""
+    if not isinstance(w, QuantizedTensor):
+        return torch.bmm(eh, w)
+    if torch.is_grad_enabled() and eh.requires_grad:
+        return _PackedBmm.apply(eh, w.data, w.scales, w.qdtype, w.block, w.dtype_name)
+    return torch.bmm(eh, dequantize(w).to(eh.dtype))
 
 
 def topk_select(w, k: int):

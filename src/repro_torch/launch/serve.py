@@ -3,6 +3,8 @@ batched serving on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --prompts "1,17,25;1,40,41" --max-new 16 [--adapters a.npz,b.npz]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --params merged.npz --prompts "1,17,25"     # a merged export, one tenant
 
 Adapters are npz files from either package's ``export_adapter``; requests
 cycle through the tenants unless ``--adapter-ids`` pins them (0 = base).
@@ -12,13 +14,16 @@ the block the adapters were trained against. The engine runs on the paged
 KV pool (``--paged``, the default) or, with ``--dense``, on the dense slot
 cache; ``--kv-dtype int8`` stores either as int8 codes with float32 scales.
 ``--arch olmoe-1b-7b`` serves the MoE family (tenants' expert and head
-deltas through the expert dispatch); ``--base-dtype int8|nf4`` and
-``--kv-dtype int8`` are not ported on MoE yet and raise.
+deltas through the expert dispatch), on any base and KV cache.
 ``--draft int8|nf4|merged|ngram`` turns on speculative decoding: a drafter
 proposes ``--spec-k`` tokens a slot a round and the served model verifies
 them in one chunk; greedy outputs equal ``--draft off``'s. ``merged`` needs
-``--adapters``; an int8 / NF4 drafter on MoE raises.
-The weights are random from seed 0 (weight files are not loaded yet).
+``--adapters``.
+``--params`` serves the npz of either package's ``train --export`` (or a
+tree written by ``repro_torch.checkpoint.save_pytree``, e.g. from
+``convert.py``), moved to the device in its stored dtypes;
+``--base-dtype`` and ``--adapters`` then apply on top of it. Without it
+the weights are random from seed 0.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
 """
@@ -27,12 +32,14 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS, get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
 from repro_torch.quant import tree_bytes
 from repro_torch.serve import DRAFT_MODES, KV_DTYPES, AdapterStore, ServeEngine
+from repro_torch.tree import map_leaves
 
 
 def validate_args(args) -> None:
@@ -104,6 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS + PAPER_ARCH_IDS)
     ap.add_argument("--reduced", action="store_true", help="CPU-sized config")
+    ap.add_argument("--params", default="", help="npz from train --export")
     ap.add_argument("--prompts", default="1,17,25;1,40,41,42",
                     help="';'-separated prompts of ','-separated token ids")
     ap.add_argument("--max-new", type=int, default=16)
@@ -157,7 +165,11 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     model = get_model(cfg)
-    params = model.init(seed=0, device=device)
+    if args.params:
+        params = map_leaves(lambda t: None if t is None else t.to(device),
+                            load_pytree(args.params))
+    else:
+        params = model.init(seed=0, device=device)
     if args.base_dtype != "fp32":
         before = tree_bytes(params)
         params = quantize_base(params, args.base_dtype, block=args.quant_block)

@@ -1,28 +1,37 @@
 """Training launcher of the port: NeuroAda sparse-bypass fine-tuning of a
 dense or MoE decoder on the GPU (Alg. 1: magnitude selection, training of
-the bypass values only, adapter export).
+the bypass values only, merged or adapter export).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --task lm --steps 200 --batch 4 --seq 512 --k 1 \\
-      [--base-dtype int8|nf4 [--quant-block 64]] [--export-adapter tenant.npz]
+      [--base-dtype int8|nf4 [--quant-block 64]] [--remat full|dots] \\
+      [--ckpt run1/ [--resume]] [--export merged.npz] [--export-adapter tenant.npz]
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b ...
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --task lm --batch 1 --seq 4096 --k 1     # long context
 
-Selection (Alg. 1 phase 1) runs one top-k kernel launch per adapted stack.
-At ``--seq`` from the config's ``flash_threshold`` (2048) on, every layer's
-attention runs the flash forward kernel and a FlashAttention-2 backward, on
-both families.
+Selection (Alg. 1 phase 1) runs one top-k kernel launch per adapted stack
+(per layer, or per expert matrix, on a packed base). At ``--seq`` from the
+config's ``flash_threshold`` (2048) on, every layer's attention runs the
+flash forward kernel and a FlashAttention-2 backward, on both families.
 
 On the MoE family (olmoe-1b-7b) selection covers the expert stacks and the
-untied head (never the router), the loss adds ``router_aux_coef`` × the
-load-balancing loss, and ``--base-dtype int8|nf4`` is not ported yet.
+untied head (never the router), and the loss adds ``router_aux_coef`` × the
+load-balancing loss.
 
-The weights are random from ``--seed`` (weight files are not loaded yet).
-``--base-dtype int8|nf4`` packs the frozen base after init and before
-selection (QLoRA-style): every adapted projection then runs the fused
-dequant kernel, and the base never changes a byte.
-The exported adapter serves as a tenant in either package's engine.
+The weights are random from ``--seed``. ``--base-dtype int8|nf4`` packs the
+frozen base after init and before selection (QLoRA-style): every adapted
+projection then runs the fused dequant kernel (on MoE the expert stacks are
+dequantized per call and the router stays dense), and the base never
+changes a byte. ``--remat full|dots`` recomputes each layer in the backward
+(``dots`` keeps the fused linears' outputs); the losses do not change.
+``--ckpt DIR`` saves the values and the optimizer state every 100 steps and
+at the end (``ckpt_00000100.npz``, the last three kept, written in the
+background); ``--resume`` continues from the latest one, the data stream
+included, and a checkpoint of either package resumes in the other.
+``--export merged.npz`` writes the base with every delta folded in (dense,
+also from a packed base), which ``launch/serve.py --params`` serves; the
+``--export-adapter`` file serves as a tenant in either package's engine.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
 Flags of the reference launcher that the port does not have yet are
@@ -34,6 +43,7 @@ from __future__ import annotations
 import argparse
 import logging
 
+from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import (
     ARCH_IDS,
     PAPER_ARCH_IDS,
@@ -55,10 +65,6 @@ log = logging.getLogger("repro_torch.launch.train")
 NOT_YET = {
     "peft": ("neuroada", "§1 item 9, remaining PEFT methods"),
     "strategy": ("magnitude", "§1 item 9, remaining selection strategies"),
-    "remat": ("none", "§1, remat"),
-    "ckpt": ("", "§1, checkpoint/resume"),
-    "resume": (False, "§1, checkpoint/resume"),
-    "export": ("", "§1, merged export"),
 }
 
 
@@ -80,11 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--remat", default="none", choices=("none", "full", "dots"))
-    ap.add_argument("--ckpt", default="")
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--remat", default="none", choices=("none", "full", "dots"),
+                    help="recompute each layer in the backward (dots keeps the "
+                         "projections' outputs)")
+    ap.add_argument("--ckpt", default="", help="checkpoint directory (every 100 steps)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--export", default="", help="merged params (not ported yet)")
+    ap.add_argument("--export", default="", help="save the merged params here")
     ap.add_argument("--export-adapter", default="",
                     help="save the unmerged (indices, values) adapter here")
     ap.add_argument("--device", default=None,
@@ -129,19 +138,26 @@ def main(argv=None):
                  before / 2**20, tree_bytes(params) / 2**20, before / tree_bytes(params))
     peft = get_peft(PeftConfig(method=args.peft, k=args.k, strategy=args.strategy))
     tcfg = TrainConfig(learning_rate=args.lr, steps=args.steps, seed=args.seed,
-                       microbatches=args.microbatches, remat=args.remat)
+                       microbatches=args.microbatches, remat=args.remat,
+                       checkpoint_dir=args.ckpt, checkpoint_every=100 if args.ckpt else 0)
     trainer = Trainer(model, peft, tcfg, params)
     st = stats(params, trainer.state.trainable)
     log.info("arch=%s peft=%s trainable=%s/%s (%.4f%%) device=%s", cfg.name, args.peft,
              f"{st['trainable']:,}", f"{st['total']:,}", 100 * st["fraction"], device)
-    data = DataLoader(args.task, cfg.vocab_size, args.batch, args.seq, seed=args.seed)
+    start = trainer.try_resume() if args.resume else 0
+    data = DataLoader(args.task, cfg.vocab_size, args.batch, args.seq, seed=args.seed,
+                      start_step=start)
     try:
         hist = trainer.run(data, steps=args.steps)
     finally:
         data.close()
-    log.info("done: trainable=%s (%.4f%%) loss %.4f -> %.4f; stragglers=%d skipped=%d",
-             f"{st['trainable']:,}", 100 * st["fraction"], hist[0]["loss"], hist[-1]["loss"],
-             len(trainer.monitor.flagged), trainer.nan_guard.skipped)
+    if hist:
+        log.info("done: trainable=%s (%.4f%%) loss %.4f -> %.4f; stragglers=%d skipped=%d",
+                 f"{st['trainable']:,}", 100 * st["fraction"], hist[0]["loss"],
+                 hist[-1]["loss"], len(trainer.monitor.flagged), trainer.nan_guard.skipped)
+    if args.export:
+        save_pytree(args.export, trainer.merged_params(), {"arch": cfg.name, "peft": args.peft})
+        log.info("merged params exported to %s", args.export)
     if args.export_adapter:
         # neuroada: aux is the indices tree, trainable the values tree
         export_adapter(args.export_adapter, trainer.aux, trainer.state.trainable,

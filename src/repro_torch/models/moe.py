@@ -147,8 +147,9 @@ def _dispatch_adapter_ids(a, route: Route, b: int, s: int, e: int):
 
 def _expert_linear_g(p: dict, a, name: str, eh: torch.Tensor, aid_buf=None) -> torch.Tensor:
     """eh (E, R, Din) @ w (E, Din, Dout) plus the expert stack's NeuroAda
-    bypass -> (E, R, Dout)."""
-    y = torch.bmm(eh, p[name]["w"])
+    bypass -> (E, R, Dout). A packed (int8 / NF4) stack is dequantized per
+    call (``ops.bmm_q``), as the reference does."""
+    y = ops.bmm_q(eh, p[name]["w"])
     d = _delta_of(a, name)
     if isinstance(d, BatchedDelta):  # serving: added into y in the kernel's epilogue
         n, e, k, f = d.idx.shape

@@ -59,15 +59,16 @@ class Model(nn.Module):
             self._a_views = (key, transformer.adapter_views(adapters))
         return self._a_views[1]
 
-    def loss(self, params, adapters, batch):
+    def loss(self, params, adapters, batch, remat: str = "none"):
         """(loss, {"ce", "aux"}) of a training batch; see
         :func:`repro_torch.models.transformer.loss_fn`."""
-        return transformer.loss_fn(self.cfg, params, adapters, batch, self._layers(params))
+        return transformer.loss_fn(self.cfg, params, adapters, batch, self._layers(params),
+                                   remat)
 
-    def forward_train(self, params, adapters, batch):
+    def forward_train(self, params, adapters, batch, remat: str = "none"):
         """((B, S, V) logits, aux) of a training batch."""
         return transformer.forward_train(self.cfg, params, adapters, batch,
-                                         self._layers(params))
+                                         self._layers(params), remat)
 
     def prefill_chunk(self, params, adapters, cache, batch):
         return transformer.prefill_chunk(self.cfg, params, adapters, cache, batch,

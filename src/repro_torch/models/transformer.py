@@ -38,6 +38,7 @@ like any linear: a training delta ``(k, V)`` goes through
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint, noop_context_fn, set_checkpoint_early_stop
 
 from repro_torch.core.delta import BatchedDelta, Delta
 from repro_torch.kernels import ops
@@ -432,12 +433,39 @@ def _train_head(cfg, params, adapters, h):
     return logits
 
 
-def forward_train(cfg, params, adapters, batch, layers=None):
+REMAT_MODES = ("none", "full", "dots")
+
+
+def _train_layer(cfg, p, a, h, cos, sin):
+    """One layer of the training forward: (h, the MoE layer's aux loss or
+    None)."""
+    b, s, _ = h.shape
+    x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, a, x, cos, sin)
+    o = train_attention(q, k, v, cfg)
+    h = h + alinear(p, a, "wo", o.reshape(b, s, -1))
+    y, aux_l = _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps), with_aux=True)
+    return h + y, aux_l
+
+
+def forward_train(cfg, params, adapters, batch, layers=None, remat: str = "none"):
     """Training forward over ``batch["tokens"]`` (B, S) at positions
     ``0..S-1`` (or ``batch["positions"]``): causal attention, every adapted
     projection through the fused kernel. Returns ((B, S, V) logits, the
     auxiliary loss: the MoE layers' load-balancing losses summed over the
-    layers and divided by L, 0 for the dense family)."""
+    layers and divided by L, 0 for the dense family).
+
+    ``remat`` recomputes each layer body in the backward, as the
+    reference's ``jax.checkpoint`` around its scan body
+    (``torch.utils.checkpoint``, non-reentrant, the whole body recomputed
+    once): ``full`` keeps only the layer's input, so every forward kernel
+    of the layer runs again in the backward; ``dots`` also keeps the
+    outputs of the layer's 2-D projections (the reference's
+    ``dots_with_no_batch_dims_saveable``): the fused linear kernels are not
+    launched again, while attention and the MoE expert products (batched)
+    are recomputed. The values are those of ``none``, bit for bit."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
     layers = layer_views(params) if layers is None else layers
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -450,24 +478,26 @@ def forward_train(cfg, params, adapters, batch, layers=None):
     deltas = delta_views(adapters, len(layers))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p, a in zip(layers, deltas):
-        x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, p, a, x, cos, sin)
-        o = train_attention(q, k, v, cfg)
-        h = h + alinear(p, a, "wo", o.reshape(b, s, -1))
-        y, aux_l = _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps), with_aux=True)
-        h = h + y
+        if remat == "none":
+            h, aux_l = _train_layer(cfg, p, a, h, cos, sin)
+        else:
+            keep = ops.keep_linear_outputs if remat == "dots" else noop_context_fn
+            with set_checkpoint_early_stop(False):  # the whole body, every kernel
+                h, aux_l = checkpoint(_train_layer, cfg, p, a, h, cos, sin,
+                                      use_reentrant=False, preserve_rng_state=False,
+                                      context_fn=keep)
         if aux_l is not None:
             aux = aux + aux_l
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _train_head(cfg, params, adapters, h), aux / cfg.num_layers
 
 
-def loss_fn(cfg, params, adapters, batch, layers=None):
+def loss_fn(cfg, params, adapters, batch, layers=None, remat: str = "none"):
     """Next-token cross-entropy in float32 (``batch["targets"]`` shifted by
     one, weighted by ``batch["loss_mask"]`` when given, vocab padding
     masked) plus ``router_aux_coef`` × the auxiliary loss. Returns
     (loss, {"ce", "aux"})."""
-    logits, aux = forward_train(cfg, params, adapters, batch, layers)
+    logits, aux = forward_train(cfg, params, adapters, batch, layers, remat)
     ce = softmax_cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
                                batch.get("loss_mask"), real_vocab=cfg.vocab_size)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

@@ -48,16 +48,13 @@ def quantize_base(params, qdtype: str = "int8", *, block: int = 64):
     the matrices' devices; embeddings, routers, norms and biases stay in
     the compute dtype. ``"fp32"`` returns ``params`` unchanged, so a
     launcher's ``--base-dtype`` passes through; packed leaves pass through.
-    An MoE tree (one with a router) raises: the launchers and the engine
-    reach a packed base only through here."""
+    On the MoE family the (L, E, d_in, d_out) expert stacks, the attention
+    projections and an untied head pack (block scales along d_in, per
+    expert); the router stays dense."""
     if qdtype == "fp32":
         return params
     if qdtype not in BASE_DTYPES:
         raise ValueError(f"base dtype {qdtype!r} not in {BASE_DTYPES}")
-    if "router" in params.get("blocks", {}):
-        raise NotImplementedError(
-            f"a {qdtype} base on the MoE family's expert stacks is not ported yet "
-            "(ROADMAP.md §1, packed base on MoE)")
     return quantize_tree(params, qdtype, block, is_adaptable)
 
 

@@ -111,7 +111,9 @@ class QuantizedTensor:
                                self.block, self.dtype_name)
 
     def __getitem__(self, i) -> "QuantizedTensor":
-        """One slice of the leading (layer) axis; the matrix axes stay whole."""
+        """One slice of the leading axis (a layer of an (L, d_in, d_out)
+        stack, or an (E, d_in, d_out) layer of an (L, E, d_in, d_out) expert
+        stack); the matrix axes stay whole."""
         if self.data.ndim < 3:
             raise IndexError(f"a {self.data.ndim}-d QuantizedTensor has no layer axis")
         return QuantizedTensor(self.data[i], self.scales[i], self.qdtype, self.block,
@@ -134,7 +136,9 @@ def _blocked(w: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
 
 def quantize(w: torch.Tensor, qdtype: str = "int8", block: int = 64) -> QuantizedTensor:
     """Blockwise per-channel symmetric quantization along ``d_in`` (axis -2),
-    on ``w``'s device."""
+    on ``w``'s device. A stack (``ndim > 2``: layers, or layers × experts)
+    packs one leading slice at a time, so the float32 intermediates never
+    span the whole stack (an olmoe expert stack is 4.3 GB in bf16)."""
     if qdtype not in QDTYPES:
         raise ValueError(f"qdtype {qdtype!r} not in {QDTYPES}")
     if block < 2 or block % 2:
@@ -143,6 +147,17 @@ def quantize(w: torch.Tensor, qdtype: str = "int8", block: int = 64) -> Quantize
         raise ValueError(f"quantize wants a (..., d_in, d_out) matrix, got {tuple(w.shape)}")
     if w.dtype not in _DTYPE_NAMES:
         raise TypeError(f"quantize wants a float32/bf16/fp16 matrix, got {w.dtype}")
+    if qdtype == "nf4" and w.shape[-2] % 2:
+        raise ValueError(f"nf4 packing needs an even d_in, got {w.shape[-2]}")
+    if w.ndim == 2:
+        return _quantize(w, qdtype, block)
+    parts = [_quantize(w[i], qdtype, block) for i in range(w.shape[0])]
+    return QuantizedTensor(torch.stack([q.data for q in parts]),
+                           torch.stack([q.scales for q in parts]), qdtype, block,
+                           _DTYPE_NAMES[w.dtype])
+
+
+def _quantize(w: torch.Tensor, qdtype: str, block: int) -> QuantizedTensor:
     dtype_name = _DTYPE_NAMES[w.dtype]
     wb, d_in = _blocked(w.float(), block)  # (..., nb, block, d_out)
     absmax = wb.abs().amax(dim=-2)  # (..., nb, d_out)
@@ -156,8 +171,6 @@ def quantize(w: torch.Tensor, qdtype: str = "int8", block: int = 64) -> Quantize
         q = torch.round(wb / safe[..., None, :]).clamp(-127, 127).to(torch.int8)
         data = q.reshape(*q.shape[:-3], -1, q.shape[-1])[..., :d_in, :].contiguous()
         return QuantizedTensor(data, scales, "int8", block, dtype_name)
-    if d_in % 2:
-        raise ValueError(f"nf4 packing needs an even d_in, got {d_in}")
     scales = absmax
     safe = torch.where(scales > 0, scales, one)
     normed = wb / safe[..., None, :]
@@ -177,12 +190,25 @@ def unpack_nf4(data: torch.Tensor) -> torch.Tensor:
     return inter.reshape(*inter.shape[:-3], -1, inter.shape[-1])
 
 
+_NF4_TABLES: dict = {}  # the codebook on each device it was used on
+
+
+def _nf4_table(device) -> torch.Tensor:
+    """NF4_CODES on ``device``, copied there once: a serving step's
+    dequantize then makes no host-to-device copy (which waits for the
+    host)."""
+    table = _NF4_TABLES.get(device)
+    if table is None:
+        table = _NF4_TABLES[device] = torch.from_numpy(NF4_CODES).to(device)
+    return table
+
+
 def dequantize_f32(data: torch.Tensor, scales: torch.Tensor, qdtype: str,
                    block: int) -> torch.Tensor:
     """The float32 matrix ``code × scale`` (..., d_in, d_out), before any
     cast."""
     if qdtype == "nf4":
-        wf = torch.from_numpy(NF4_CODES).to(data.device)[unpack_nf4(data)]
+        wf = _nf4_table(data.device)[unpack_nf4(data)]
     else:
         wf = data.float()
     s = scales.float().repeat_interleave(block, dim=-2)

@@ -5,7 +5,7 @@ all in one verify chunk and keeps a verified prefix, so the drafter moves
 only how many tokens a forward yields, never which tokens come out:
 
 * ``int8`` / ``nf4``: the frozen base re-packed (a self-draft without the
-  tenants' bypasses). On a base already packed in the same scheme the
+  tenants' bypasses; on MoE the expert stacks too). On a base already packed in the same scheme the
   drafter *is* the served tree, at no extra byte.
 * ``merged``: the base plus the mean of every tenant's delta, folded into
   dense weights once, run without bypasses. With one tenant it is the
@@ -45,10 +45,6 @@ def build_draft_params(params, mode: str, *, store=None, quant_block: int = 64):
             scaled = map_leaves(lambda v: None if v is None else v.to(dev) / n, val)
             params = merge_adapters(params, idx, scaled)  # a packed base dequantizes once
         return params
-    if "router" in params.get("blocks", {}):
-        raise NotImplementedError(
-            f"an {mode} drafter needs a packed base, which the MoE family's expert stacks "
-            "do not have yet (ROADMAP.md §1, MoE completions)")
     if any_quantized(params):
         held = next(x.qdtype for _, x in flatten(params) if isinstance(x, QuantizedTensor))
         if held == mode:

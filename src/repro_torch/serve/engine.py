@@ -27,11 +27,11 @@ engine's device (blocks of ``quant_block`` rows): every base matmul of a
 step then runs the fused dequant kernel and the tenants' bypasses apply on
 top, so N tenants share one packed base.
 
-An MoE model (``cfg.num_experts > 0``) serves on a bf16 or fp32 base with
-an fp KV cache: the step's ``BatchedDelta`` leaves carry the slots' ids into
-the MoE FFN, which scatters them through its expert dispatch. A packed
-base (``peft.quantize_base``) and int8 KV on MoE are not ported yet and
-raise.
+An MoE model (``cfg.num_experts > 0``) serves as the dense family does, on
+any base and cache: the step's ``BatchedDelta`` leaves carry the slots' ids
+into the MoE FFN, which scatters them through its expert dispatch. On a
+packed base its expert stacks are dequantized per call (``ops.bmm_q``),
+its attention projections and untied head run the fused dequant kernel.
 
 With ``draft != "off"`` the decode megastep runs ``decode_chunk``
 *speculative* rounds instead (:mod:`repro_torch.serve.draft`): a drafter
@@ -120,10 +120,6 @@ class ServeEngine:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if draft == "merged" and (adapter_store is None or adapter_store.num_adapters == 0):
             raise ValueError("draft='merged' needs an adapter store with registered tenants")
-        if model.cfg.num_experts and kv_dtype != "fp32":
-            raise NotImplementedError(
-                f"kv_dtype {kv_dtype!r} on the MoE family is not ported yet "
-                "(ROADMAP.md §1, int8 KV on MoE)")
         self.device = resolve_device(device)
         self.model = model
         self.params = map_leaves(lambda t: None if t is None else t.to(self.device), params)

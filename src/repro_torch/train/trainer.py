@@ -1,6 +1,6 @@
-"""Trainer: the train step with microbatch accumulation and the NaN guard,
-and the loop around it (port of ``repro.train.trainer``; no checkpointing
-or resume yet).
+"""Trainer: the train step with microbatch accumulation, activation
+recomputation (``tcfg.remat``) and the NaN guard, and the loop around it
+with asynchronous checkpoints and resume (port of ``repro.train.trainer``).
 
 The step is method-agnostic: it differentiates only the ``trainable`` tree
 (for NeuroAda the ``(…, k, d_out)`` bypass values — the paper's memory
@@ -16,6 +16,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, restore_into
 from repro_torch.distributed.fault import NanGuard, StragglerMonitor
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm, get_schedule, global_norm
 from repro_torch.tree import flatten, map_leaves
@@ -55,10 +56,9 @@ def make_train_step(model, peft, tcfg):
     """Returns ``(step(params, aux, state, batch) -> (state, metrics),
     optimizer)``: AdamW on ``tcfg``'s schedule. ``metrics`` holds tensors:
     ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``skipped`` (1 when a
-    non-finite loss or gradient kept the old state)."""
-    if tcfg.remat != "none":
-        raise NotImplementedError(
-            f"remat {tcfg.remat!r} is not ported yet (ROADMAP.md §1, remat)")
+    non-finite loss or gradient kept the old state). ``tcfg.remat``
+    (``none``, ``full``, ``dots``) recomputes each layer in the backward
+    (see :func:`repro_torch.models.transformer.forward_train`)."""
     schedule = get_schedule(tcfg.schedule, tcfg.learning_rate, tcfg.steps, tcfg.warmup_ratio)
     optimizer = adamw(schedule, b1=tcfg.beta1, b2=tcfg.beta2, eps=tcfg.eps,
                       weight_decay=tcfg.weight_decay)
@@ -68,7 +68,7 @@ def make_train_step(model, peft, tcfg):
                           trainable)
         leaves = [v for _, v in flatten(live) if v is not None]
         eff, adapters = peft.model_inputs(params, live, aux)
-        loss, metrics = model.loss(eff, adapters, batch)
+        loss, metrics = model.loss(eff, adapters, batch, remat=tcfg.remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         it = iter(torch.zeros_like(v) if g is None else g for v, g in zip(leaves, grads))
         grads = map_leaves(lambda v: None if v is None else next(it), live)
@@ -117,14 +117,14 @@ def make_train_step(model, peft, tcfg):
 
 
 class Trainer:
-    """The loop: data, the step, the straggler monitor and the NaN guard.
-    Runs wherever ``params`` live; batches (numpy) move there each step."""
+    """The loop: data, the step, checkpoints and resume, the straggler
+    monitor and the NaN guard. Runs wherever ``params`` live; batches
+    (numpy) move there each step. With ``tcfg.checkpoint_dir`` the trainable
+    values and the optimizer state are saved every ``checkpoint_every``
+    steps and at the end of :meth:`run`, and :meth:`try_resume` picks up the
+    latest save (either package's)."""
 
     def __init__(self, model, peft, tcfg, params):
-        if tcfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpointing and resume are not ported yet (ROADMAP.md §1, "
-                "checkpoint/resume)")
         self.model, self.peft, self.tcfg = model, peft, tcfg
         self.params = params
         self.device = next(x for _, x in flatten(params) if x is not None).device
@@ -133,9 +133,32 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.trainable)
         self.state = TrainState(self.trainable, self.opt_state,
                                 torch.zeros((), dtype=torch.int32, device=self.device))
+        self.ckpt = CheckpointManager(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
         self.monitor = StragglerMonitor()
         self.nan_guard = NanGuard(tcfg.max_skipped_steps)
         self.history: list[dict] = []
+
+    def try_resume(self) -> int:
+        """Restore the latest checkpoint onto the trainer's device, in the
+        template's dtypes; returns its step (0 without one)."""
+        if self.ckpt is None:
+            return 0
+        step, tree = self.ckpt.restore_latest()
+        if step is None:
+            return 0
+        trainable = restore_into(self.state.trainable, tree["trainable"])
+        opt = restore_into(self.state.opt_state, tree["opt_state"])
+        self.state = TrainState(trainable, opt,
+                                torch.full((), step, dtype=torch.int32, device=self.device))
+        log.info("resumed from step %d", step)
+        return step
+
+    def save(self, step: int) -> None:
+        """Checkpoint the trainable values and the optimizer state at
+        ``step`` (the copy to the host now, the write in the background)."""
+        self.ckpt.save(step, {"trainable": self.state.trainable,
+                              "opt_state": self.state.opt_state},
+                       metadata={"peft": self.peft.method})
 
     def step(self, batch: dict) -> dict:
         """One train step on a numpy batch; returns its metrics as floats
@@ -158,6 +181,12 @@ class Trainer:
             if self.tcfg.log_every and i % self.tcfg.log_every == 0:
                 log.info("step %d loss %.4f gnorm %.3f%s", i, metrics["loss"],
                          metrics["grad_norm"], " [STRAGGLER]" if slow else "")
+            if (self.ckpt is not None and self.tcfg.checkpoint_every
+                    and (i + 1) % self.tcfg.checkpoint_every == 0):
+                self.save(i + 1)
+        if self.ckpt is not None:
+            self.save(steps)
+            self.ckpt.wait()
         return self.history
 
     def merged_params(self):

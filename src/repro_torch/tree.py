@@ -3,14 +3,24 @@ threads through its params, adapters and checkpoints.
 
 A tree is a dict whose values are dicts or leaves; ``None`` is a leaf
 (the reference keeps explicit ``None`` at non-adapted matrices so
-adapter trees stay aligned with the param tree).
+adapter trees stay aligned with the param tree). :func:`flatten` also
+opens named tuples (``AdamWState``, ``TrainState``) by field name, as the
+reference's checkpoint paths do (``opt_state/mu/...``); :func:`unflatten`
+rebuilds them as dicts.
 """
 
 from __future__ import annotations
 
 
+def is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def flatten(tree, prefix: tuple = ()) -> list[tuple[tuple, object]]:
-    """[(path, leaf)] in insertion order; a path is a tuple of keys."""
+    """[(path, leaf)] in insertion order; a path is a tuple of keys (a
+    named tuple's field names)."""
+    if is_namedtuple(tree):
+        tree = tree._asdict()
     if not isinstance(tree, dict):
         return [(prefix, tree)]
     out = []

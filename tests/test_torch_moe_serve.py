@@ -11,8 +11,9 @@ like any token in both engines), the dense slot cache, and a mid-prefill
 preemption under a tight pool. Each layer-forward applies every tenant's
 bypass in one ``sparse_delta_batched`` call per projection and per expert
 stack, never the training kernel. An adapter trained by the port serves
-alike in both engines. The launcher serves olmoe and refuses the options
-not ported on MoE (a packed base, int8 KV).
+alike in both engines. The launcher serves olmoe, also on a packed base and
+an int8 KV cache (their token parity is in ``test_torch_moe_quant.py`` and
+``test_torch_moe_kv.py``).
 """
 
 import jax
@@ -167,8 +168,19 @@ def test_port_trained_adapter_serves_alike_in_both_engines(world, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(base_dtype="int8"), dict(kv_dtype="int8")])
 def test_engine_refuses_what_moe_does_not_port_yet(world, kw):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServeEngine(world["tm"], world["tp"], device="cpu", **kw)
+    """Nothing is refused on MoE any more: a packed base packs the expert
+    stacks (the router stays dense), int8 KV builds int8 pools with scales,
+    and an unknown option still raises."""
+    from repro_torch.quant import QuantizedTensor
+
+    eng = ServeEngine(world["tm"], world["tp"], device="cpu", **kw)
+    blocks = eng.params["blocks"]
+    packed = "base_dtype" in kw
+    assert isinstance(blocks["wgate"]["w"], QuantizedTensor) == packed
+    assert not isinstance(blocks["router"]["w"], QuantizedTensor)
+    assert ("k_scale" in eng.kv.data) == ("kv_dtype" in kw)
+    with pytest.raises(ValueError):
+        ServeEngine(world["tm"], world["tp"], device="cpu", **{k: "int4" for k in kw})
 
 
 def test_launcher_serves_olmoe_tenants_on_the_cpu(world, tmp_path, capsys):
@@ -181,9 +193,11 @@ def test_launcher_serves_olmoe_tenants_on_the_cpu(world, tmp_path, capsys):
                  "--adapter-ids", "1,0"])
     out = capsys.readouterr().out
     assert "req0 [tenant1]" in out and "req1 [base]" in out and "device=cpu" in out
-    for argv in (["--kv-dtype", "int8"], ["--base-dtype", "nf4"]):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            launch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu", *argv])
+    for argv, line in ((["--kv-dtype", "int8"], "kv=paged/int8"),
+                       (["--base-dtype", "nf4"], "base quantized to nf4")):
+        launch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu", "--max-new", "2",
+                     *argv])
+        assert line in capsys.readouterr().out
 
 
 # ------------------------------------------------------------- on the card

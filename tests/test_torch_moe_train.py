@@ -16,6 +16,8 @@ head), the reference's random params converted leaf by leaf:
   total counts, the launcher.
 """
 
+import logging
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,7 +213,12 @@ def test_launcher_trains_olmoe_and_exports_on_the_cpu(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("base", ["int8", "nf4"])
-def test_launcher_refuses_a_packed_base_on_moe(base):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        launch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
-                     "--base-dtype", base, "--steps", "1"])
+def test_launcher_refuses_a_packed_base_on_moe(base, caplog):
+    """No longer refused: the launcher packs olmoe's expert stacks and
+    trains on them (parity with the reference in
+    ``test_torch_moe_quant.py``)."""
+    caplog.set_level(logging.INFO)
+    hist = launch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                        "--base-dtype", base, "--steps", "1", "--batch", "2", "--seq", "8"])
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+    assert f"base quantized to {base}" in caplog.text

@@ -340,7 +340,15 @@ def test_olmoe_greedy_tokens_match_reference(moe_world, draft):
 
 @pytest.mark.parametrize("draft", ["int8", "nf4"])
 def test_packed_drafter_on_moe_is_refused(moe_world, draft):
-    with pytest.raises(NotImplementedError, match="MoE completions"):
-        build_draft_params(moe_world["tp"], draft)
-    with pytest.raises(NotImplementedError, match="MoE completions"):
-        ServeEngine(moe_world["tm"], moe_world["tp"], device="cpu", draft=draft)
+    """No longer refused: the drafter packs olmoe's expert stacks, attention
+    and head in its scheme (the router stays dense), and the engine builds
+    on it (greedy parity in ``test_torch_moe_quant.py``)."""
+    from repro_torch.quant import QuantizedTensor
+
+    dp = build_draft_params(moe_world["tp"], draft)
+    for name in ("wgate", "wup", "wdown", "wq"):
+        w = dp["blocks"][name]["w"]
+        assert isinstance(w, QuantizedTensor) and w.qdtype == draft
+    assert isinstance(dp["head"]["w"], QuantizedTensor)
+    assert not isinstance(dp["blocks"]["router"]["w"], QuantizedTensor)
+    ServeEngine(moe_world["tm"], moe_world["tp"], device="cpu", draft=draft)

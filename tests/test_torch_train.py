@@ -270,10 +270,10 @@ def test_launcher_needs_cuda_unless_asked_for_cpu(monkeypatch):
     (["--peft", "lora"], NotImplementedError),
     (["--strategy", "random"], NotImplementedError),
     (["--strategy", "gradient"], NotImplementedError),
-    (["--remat", "full"], NotImplementedError),
-    (["--ckpt", "/nonexistent/run"], NotImplementedError),
-    (["--resume"], NotImplementedError),
-    (["--export", "merged.npz"], NotImplementedError),
+    (["--peft", "bitfit"], NotImplementedError),
+    (["--peft", "masked"], NotImplementedError),
+    (["--peft", "full"], NotImplementedError),
+    (["--strategy", "reverse"], NotImplementedError),
     (["--batch", "3", "--microbatches", "2"], SystemExit),
     (["--seq", "1"], SystemExit),
 ])
