@@ -8,6 +8,7 @@
     python3 chip_smoke.py --attention-variants
     python3 chip_smoke.py --delta-variants
     python3 chip_smoke.py --lifecycle
+    python3 chip_smoke.py --peft
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -197,7 +198,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
-the thirteen kernels; the rows of the four kernels a speculative round
+the thirteen kernels (``topk_select``'s with its smallest-first and
+float32-score figures); the rows of the four kernels a speculative round
 reaches carry a ``spec`` entry (its shape's times and bound, the spec gate
 runs' launches by drafter); the rows of kernels olmoe also runs carry an
 ``olmoe`` entry (ms, plain ms and bound at olmoe's shapes, launches in its training
@@ -209,7 +211,8 @@ every line printed to
 outside a checkout of the repository (the package is not importable).
 The training phases write ``train*.json`` and ``train*_profile.txt`` to
 the same directory (``train_remat.json``, ``train_resume.json`` for phase
-9), the MoE serving ``full_profile_olmoe.txt`` and ``window_olmoe.json``.
+9, ``train_methods.json`` and ``selection_strategies.json`` for phase 10),
+the MoE serving ``full_profile_olmoe.txt`` and ``window_olmoe.json``.
 """
 
 from __future__ import annotations
@@ -279,8 +282,8 @@ from repro_torch.peft import (  # noqa: E402
 from repro_torch.quant import QuantizedTensor, dequantize, quantize, tree_bytes  # noqa: E402
 from repro_torch.serve import AdapterStore, ServeEngine  # noqa: E402
 from repro_torch.serve.sampler import Sampler  # noqa: E402
-from repro_torch.train import Trainer  # noqa: E402
-from repro_torch.tree import flatten, map_leaves  # noqa: E402
+from repro_torch.train import Trainer, TrainState, make_train_step  # noqa: E402
+from repro_torch.tree import flatten, map_leaves, unflatten  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and dense bf16
@@ -374,7 +377,9 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     a session's first ones; blocks in its middle: PERF.md §6), which
     would read low: the session opens with uncounted marker kernels, and
     one in which some kernel was not recorded ``iters`` times over (every
-    call launches the same kernels) is taken again."""
+    call launches the same kernels) is taken again. After three such
+    sessions the calls are timed with CUDA events instead (back to back,
+    so the host's gaps between launches count too; logged)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -390,7 +395,15 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
         total = sum(self_device_us(e) for e in kernels)
         if total > 0 and all(e.count % iters == 0 for e in kernels):
             return total / iters / 1e3
-    raise RuntimeError("torch.profiler lost records of the timed calls in 3 sessions")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    log(f"[timing] torch.profiler kept no whole record of {iters} calls in 3 sessions "
+        f"(kernels {[(e.key[:40], e.count) for e in kernels]}): timed with CUDA events")
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -722,6 +735,7 @@ def phase_kernels(dev, card: str) -> tuple[dict, list]:
     lifecycle_kernels(gen, dev, summary, detail, card, num_blocks, dec_vl)
     long_context_kernels(gen, dev, summary, detail, card)
     selection_kernels(gen, dev, summary, detail, card)
+    selection_modes(gen, dev, summary, detail, card)
     spec_kernels(gen, projections, dev, summary, detail, card, num_blocks)
     return summary, detail
 
@@ -1938,6 +1952,92 @@ def selection_kernels(gen, dev, summary, detail, card: str) -> None:
         "shape": f"qwen2-1.5b's 7 stacks (L = 28) in bf16, k = {TRAIN_K}, one launch each",
         "olmoe": {k: o[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
+
+
+# the smallest-first mode's edge cases (b, d_in, d_out, kind), each in bf16
+# and float32, both modes, at every k of SELECT_EDGE_K (9 and 17 take the
+# k > 8 passes): d_out 1 / 127 / 300 / 130 / 200 off a block's 64 (bf16) or
+# 32 (float32) columns; small integers (ties everywhere); zeros at row 0 and
+# every third row of the top half (row 0's zero is the mode's largest key);
+# an NF4-dequantized matrix (16 codes a 64-row block)
+SELECT_EDGE = ((1, 100, 1, "normal"), (3, 1536, 127, "normal"), (2, 96, 300, "ties"),
+               (2, 1536, 200, "zeros"), (2, 1536, 130, "nf4"))
+SELECT_EDGE_K = (1, 2, 5, 9, 17)
+
+
+def select_edge_matrix(gen, b: int, d_in: int, d_out: int, kind: str, dev) -> torch.Tensor:
+    w = torch.randn(b, d_in, d_out, generator=gen, device=dev)
+    if kind == "ties":
+        w = torch.randint(-3, 4, (b, d_in, d_out), generator=gen, device=dev).float()
+    elif kind == "zeros":
+        w[:, :d_in // 2:3] = 0.0
+    elif kind == "nf4":
+        w = dequantize(quantize(w, "nf4", QUANT_BLOCK)).float()
+    return w
+
+
+def selection_modes(gen, dev, summary, detail, card: str) -> None:
+    """``topk_select`` in the smallest-first mode (the ``reverse``
+    strategy) and on float32 scores (the ``gradient`` and ``random``
+    strategies' inputs), indices and order equal to the plain version: the
+    edge cases of SELECT_EDGE in both modes, then qwen2-1.5b's 7 and
+    olmoe-1b-7b's 8 stacks smallest-first in bf16 and qwen2's 7 as float32
+    uniforms, each timed beside the plain sort, the bound (the stack read
+    once, the indices written once) and one ``torch.topk`` of |w| (the
+    port never calls it)."""
+    n = 0
+    for b, d_in, d_out, kind in SELECT_EDGE:
+        base = select_edge_matrix(gen, b, d_in, d_out, kind, dev)
+        for dt in (torch.bfloat16, torch.float32):
+            w = base.to(dt)
+            for kk in SELECT_EDGE_K:
+                for largest in (False, True):
+                    got = ts_mod.topk_select(w, kk, largest)
+                    want = ts_mod.topk_select_plain(w, kk, largest)
+                    assert torch.equal(got, want), \
+                        f"topk_select {(b, d_in, d_out)} {kind} {dt} k={kk} largest={largest}"
+                    n += 1
+    log(f"[kernels] topk_select smallest-first and largest-first equal to the sort (indices "
+        f"and order) in {n} edge cases (d_out 1/127/300/130/200, k {SELECT_EDGE_K}, ties, "
+        f"zeros at row 0, NF4-dequantized; bf16 and float32)")
+    modes = {}
+    for tag, arch, dt, largest in (("smallest_first", "qwen2-1.5b", torch.bfloat16, False),
+                                   ("smallest_first", MOE_ARCH, torch.bfloat16, False),
+                                   ("f32_scores", "qwen2-1.5b", torch.float32, True)):
+        acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0}
+        stacks = weight_stacks(get_config(arch))
+        for name, shape in stacks:
+            if dt == torch.float32:  # uniforms: random's scores (|grad| alike, non-negative)
+                w = torch.rand(shape, generator=gen, device=dev)
+            else:
+                w = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+            got = ops.topk_select(w, TRAIN_K, largest)
+            want = ts_mod.topk_select_plain(w, TRAIN_K, largest)
+            assert torch.equal(got, want), f"topk_select {tag} {arch} {name} {shape}"
+            row = {"kernel": "topk_select", "mode": tag, "arch": arch, "stack": name,
+                   "shape": list(shape), "k": TRAIN_K, "dtype": str(dt), "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: ops.topk_select(w, TRAIN_K, largest)),
+                   "plain_ms": cuda_ms(lambda: ts_mod.topk_select_plain(w, TRAIN_K, largest),
+                                       iters=1, warmup=1),
+                   "library_ms": cuda_ms(lambda: torch.topk(w.abs(), TRAIN_K, dim=-2,
+                                                            largest=largest))}
+            nbytes = w.numel() * w.element_size() + got.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 0.0, dt)
+            detail.append(row)
+            for key in ("ms", "plain_ms", "library_ms"):
+                acc[key] += row[key]
+            acc["bytes"] += nbytes
+            del w, got, want
+        acc["bound_ms"], acc["bound_by"] = bound(acc["bytes"], 0.0, dt)
+        modes.setdefault(tag, {})[arch] = {k: acc[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "library_ms")}
+        log(f"[kernels] topk_select {tag.replace('_', '-')} over {arch}'s {len(stacks)} stacks "
+            f"({str(dt).split('.')[-1]}, k={TRAIN_K}, {acc['bytes'] / 1e9:.2f} GB): "
+            f"{acc['ms']:.4f} ms (plain sort {acc['plain_ms']:.4f}, torch.topk "
+            f"{acc['library_ms']:.4f}, bound {acc['bound_ms']:.4f} by {acc['bound_by']}) "
+            f"[{card}]")
+    torch.cuda.empty_cache()
+    summary["topk_select"].update(modes)
 
 
 def packed_cost(x, qt, k, val, bias) -> tuple[float, float]:
@@ -4367,6 +4467,455 @@ def phase_reduced_export(card: str) -> None:
         f"({sum(map(len, got))} tokens) [{card}]")
 
 
+# ------------------------------------------ PEFT methods and strategies (slice 13)
+
+
+def trainable_grads(model, peft, params, trainable, aux, batch) -> dict:
+    """{path: the step's gradient} of the trainable tree on ``batch``
+    (after ``post_grad``), as the train step forms it."""
+    live = map_leaves(lambda v: None if v is None else v.detach().requires_grad_(), trainable)
+    leaves = [v for _, v in flatten(live) if v is not None]
+    eff, ad = peft.model_inputs(params, live, aux)
+    loss = model.loss(eff, ad, batch)[0]
+    gs = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    grads = map_leaves(lambda v: None if v is None else next(gs), live)
+    grads = map_leaves(lambda v, g: None if v is None else torch.zeros_like(v) if g is None else g,
+                       live, grads)
+    return {p: g for p, g in flatten(peft.post_grad(grads, aux)) if g is not None}
+
+
+def warmup_grads(model, params, batch: dict):
+    """|dL/dW| of every parameter on one batch, in float32: the
+    ``gradient`` strategy's scores (the port's twin of
+    ``benchmarks/fig7_selection_strategies.py``'s ``_warmup_grads``)."""
+    grads = trainable_grads(model, get_peft(PeftConfig(method="full")), params, params, None,
+                            batch)
+    return unflatten([(p, grads.pop(p).abs().float()) for p in list(grads)])
+
+
+def device_batch(batch: dict, dev) -> dict:
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def method_steps(model, peft, params, trainable, aux, batches, rho: bool):
+    """Three AdamW steps of ``peft`` from ``trainable`` on ``params``'
+    device: (losses, {path: the move over the steps}, {path: ρ} when
+    ``rho``). ρ is an entry's gradient rounding (1e-5 of its leaf's largest
+    |g| plus 1e-7 of the tree's) over its |g|, the largest over the steps
+    (steps where g is exactly 0 do not count)."""
+    dev = next(x for _, x in flatten(params) if x is not None).device
+    step, opt = make_train_step(model, peft, TrainConfig(steps=len(batches),
+                                                         learning_rate=TRAIN_LR))
+    start = {p: x.clone() for p, x in flatten(trainable) if x is not None}
+    state = TrainState(trainable, opt.init(trainable),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    losses, rhos = [], {}
+    for b in batches:
+        b = device_batch(b, dev)
+        if rho:
+            g = {p: x.abs().double() for p, x in trainable_grads(model, peft, params,
+                                                                  state.trainable, aux, b).items()}
+            top = max(float(x.max()) for x in g.values())
+            for p, a in g.items():
+                r = torch.where(a > 0, (1e-5 * float(a.max()) + 1e-7 * top) / a.clamp(min=1e-300),
+                                0.0)
+                rhos[p] = torch.maximum(rhos[p], r) if p in rhos else r
+        state, m = step(params, aux, state, b)
+        losses.append(float(m["loss"]))
+        assert int(m["skipped"]) == 0, m
+    moves = {p: (x.double() - start[p].double()) for p, x in flatten(state.trainable)
+             if x is not None}
+    return losses, moves, rhos
+
+
+def compare_moves(want: dict, got: dict, rho: dict) -> dict:
+    """Card moves against the CPU's, entry by entry, by the rule of
+    ``tests/test_torch_peft.py``: |Δ_card − Δ_cpu| ≤ 1e-5·|Δ_cpu| + 1e-4·lr
+    + 3·lr·min(ρ, 2) (``worst``: the largest share of its bound an entry
+    uses). Entries with ρ ≥ 1 (a CPU gradient within rounding of zero at
+    some step: Adam may move it the other way on the card) are the
+    exceptions, counted. ``rel``: ||Δ_card − Δ_cpu|| / ||Δ_cpu|| over the
+    well-conditioned entries, whose gradients sit at least 100 times above
+    their rounding at every step (ρ < 0.01), which the reduced runs' value
+    bound (VALUE_TOL) holds; ``rel_regular`` the same over every entry with
+    ρ < 1, where Adam's normalisation amplifies the rounding by up to 1/ρ
+    (reported, held only entry by entry)."""
+    lr = TRAIN_LR
+    acc = {"sq": 0.0, "norm": 0.0, "sq_r": 0.0, "norm_r": 0.0}
+    exceptions = entries = 0
+    worst = 0.0
+    for p, a in want.items():
+        b = got[p].cpu()
+        err = (b - a).abs()
+        tight = 1e-5 * a.abs() + 1e-4 * lr
+        worst = max(worst, float((err / (tight + 3 * lr * rho[p].clamp(max=2.0))).max()))
+        exceptions += int(((rho[p] >= 1) & (err > tight)).sum())
+        entries += err.numel()
+        for key, keep in (("", rho[p] < 0.01), ("_r", rho[p] < 1)):
+            acc["sq" + key] += float(((b - a) * keep).square().sum())
+            acc["norm" + key] += float((a * keep).square().sum())
+    return {"rel": (acc["sq"] / max(acc["norm"], 1e-300)) ** 0.5,
+            "rel_regular": (acc["sq_r"] / max(acc["norm_r"], 1e-300)) ** 0.5,
+            "worst": worst, "exceptions": exceptions, "entries": entries}
+
+
+# (arch, method, strategy, base): the reduced runs card vs CPU ("bf16" is
+# the dense base, as in reduced_train_case: fp32 there)
+REDUCED_METHODS = (("qwen2-1.5b", "lora", "magnitude", "bf16"),
+                   ("qwen2-1.5b", "bitfit", "magnitude", "bf16"),
+                   ("qwen2-1.5b", "masked", "magnitude", "bf16"),
+                   ("qwen2-1.5b", "full", "magnitude", "bf16"),
+                   ("qwen2-1.5b", "neuroada", "reverse", "bf16"),
+                   ("qwen2-1.5b", "neuroada", "gradient", "bf16"),
+                   ("qwen2-1.5b", "lora", "magnitude", "int8"),
+                   (MOE_ARCH, "bitfit", "magnitude", "bf16"),
+                   (MOE_ARCH, "masked", "magnitude", "bf16"),
+                   (MOE_ARCH, "full", "magnitude", "bf16"))
+
+
+def phase_reduced_methods(card: str) -> None:
+    """Reduced qwen2-1.5b (and olmoe-1b-7b) in fp32, three AdamW steps of
+    each of REDUCED_METHODS on the card and on the CPU from the same
+    params, batches and initial trainables (LoRA's drawn on the CPU; the
+    selections made on each device; ``gradient`` from the CPU's warm-up
+    |dL/dW|): selected indices and masks identical, losses within 1e-5, the
+    trainables' moves within the rounding rule of ``compare_moves``, its
+    exceptions at most 2 % of the entries, and over the well-conditioned
+    entries within VALUE_TOL relative. Then ``random`` on the card by its
+    properties."""
+    failures = []
+    for arch, method, strategy, base in REDUCED_METHODS:
+        cfg, model, params, batches = reduced_train_case(arch, base, 4, 16)
+        grads = (warmup_grads(model, params, device_batch(batches[0], "cpu"))
+                 if strategy == "gradient" else None)
+        pcfg = PeftConfig(method=method, k=2, strategy=strategy, lora_rank=4,
+                          delta_dtype="float32")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            p_dev = map_leaves(lambda x: None if x is None else x.to(dev), params)
+            g_dev = None if grads is None else map_leaves(
+                lambda x: None if x is None else x.to(dev), grads)
+            peft = get_peft(pcfg, **({"grads": g_dev} if g_dev is not None else {}))
+            reset_counters()
+            if method == "lora":  # one draw, on the CPU
+                tr, aux = runs["cpu"]["init"] if dev == "cuda" else peft.init(
+                    p_dev, torch.Generator().manual_seed(0))
+                tr = map_leaves(lambda x: None if x is None else x.to(dev), tr)
+            else:
+                tr, aux = peft.init(p_dev)
+            init = (map_leaves(lambda x: None if x is None else x.clone(), tr), aux)
+            n_select = COUNTERS["topk_select"].kernel
+            losses, moves, rho = method_steps(model, peft, p_dev, tr, aux, batches, dev == "cpu")
+            if dev == "cuda":
+                assert all(c.plain == 0 for c in COUNTERS.values()), \
+                    {c.name: c.plain for c in COUNTERS.values() if c.plain}
+                want_q = base != "bf16"
+                assert (COUNTERS["fused_linear_q"].kernel > 0) == want_q
+                assert (n_select > 0) == (method in ("neuroada", "masked")), n_select
+            runs[dev] = {"losses": losses, "moves": moves, "rho": rho, "aux": aux, "init": init}
+        cpu, gpu = runs["cpu"], runs["cuda"]
+        if cpu["aux"] is not None:
+            for (p, a), (_, b) in zip(flatten(cpu["aux"]), flatten(gpu["aux"])):
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b.cpu())), \
+                    f"{arch} {method} {strategy}: aux {p} differs card vs cpu"
+        d_loss = max(abs(a - b) for a, b in zip(cpu["losses"], gpu["losses"]))
+        cmp = compare_moves(cpu["moves"], gpu["moves"], cpu["rho"])
+        tol = VALUE_TOL["moe" if cfg.num_experts else "dense"]
+        tag = f"{arch} {method}" + (f" {strategy}" if method in ("neuroada", "masked") else "") \
+            + ("" if base == "bf16" else f" {base} base")
+        log(f"[reduced-method] {tag}: 3 steps fp32 card vs cpu: losses {[f'{x:.7f}' for x in gpu['losses']]} "
+            f"(max |diff| {d_loss:.2e}); moves: worst entry at {cmp['worst']:.3f} of its bound, "
+            f"{cmp['exceptions']} exceptions of {cmp['entries']:,} entries; ||card - cpu|| / "
+            f"||cpu|| = {cmp['rel']:.2e} over the well-conditioned entries (bound {tol}), "
+            f"{cmp['rel_regular']:.2e} over all but the exceptions [{card}]")
+        if d_loss > 1e-5 or cmp["worst"] > 1 or cmp["rel"] > tol \
+                or cmp["exceptions"] > max(2, cmp["entries"] // 50):
+            failures.append((tag, d_loss, cmp))
+    assert not failures, failures
+    # random: one generator a selection, k distinct rows a column, a seeded
+    # rerun equal, each stack's kernel result the plain version's on the
+    # same scores (the generator replayed in leaf order)
+    cfg, model, params, _ = reduced_train_case("qwen2-1.5b", "bf16", 4, 16)
+    params = map_leaves(lambda x: None if x is None else x.cuda(), params)
+    reset_counters()
+    a, _ = init_adapters(params, 4, strategy="random",
+                         rng=torch.Generator(device="cuda").manual_seed(3))
+    b, _ = init_adapters(params, 4, strategy="random",
+                         rng=torch.Generator(device="cuda").manual_seed(3))
+    n = COUNTERS["topk_select"].kernel
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for (p, x), (_, y), (_, w) in zip(flatten(a), flatten(b), flatten(params)):
+        if x is None:
+            continue
+        assert torch.equal(x, y), p
+        srt = torch.sort(x, dim=-2).values
+        assert bool((srt[..., 1:, :] != srt[..., :-1, :]).all()), p
+        scores = torch.rand(tuple(w.shape), generator=g, device="cuda")
+        assert torch.equal(x, ts_mod.topk_select_plain(scores.reshape(-1, *w.shape[-2:]), 4)
+                           .reshape(x.shape)), p
+    assert n == 2 * len(adapt_mod.adaptable_shapes(params)) and \
+        COUNTERS["topk_select"].plain == len(adapt_mod.adaptable_shapes(params))
+    log(f"[reduced-method] random selection on the card (k = 4): a seeded rerun equal, 4 "
+        f"distinct rows a column, every stack equal to the plain version on the same scores "
+        f"({n // 2} launches a selection) [{card}]")
+
+
+# the bf16 runs first: they share one params tree, freed before the packed ones
+FULL_METHODS = (("lora", "bf16"), ("bitfit", "bf16"), ("masked", "bf16"), ("full", "bf16"),
+                ("lora", "int8"), ("lora", "nf4"))
+
+
+def tree_nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in flatten(tree) if x is not None)
+
+
+def method_run(card: str, model, params, method: str, base: str) -> dict:
+    """Full-width qwen2-1.5b training under ``method`` on a bf16 base, or
+    on one packed to ``base``: the Trainer's set-up (selection for
+    ``masked``), TRAIN_WARMUP + REMAT_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ (step times, peak memory, launches a step: none on the bf16
+    base, where every product is plain torch as in the reference, and 196
+    ``fused_linear_q`` on a packed one: QLoRA's base products at k = 0, on
+    the wgmma route); the trainable count and the optimizer state's
+    bytes. ``masked``: every unselected entry and every leaf that is not
+    adapted keeps the base's bits (weight decay 0)."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    tag = f"method-{method}" + ("" if base == "bf16" else f"-{base}")
+    tcfg = TrainConfig(steps=TRAIN_WARMUP + REMAT_STEPS + 1, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = Trainer(model, get_peft(PeftConfig(method=method, k=TRAIN_K)), tcfg, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    n_select = COUNTERS["topk_select"].kernel
+    assert n_select == (7 if method == "masked" else 0), n_select
+    st = stats(params, trainer.state.trainable)
+    opt_bytes = tree_nbytes({"mu": trainer.state.opt_state.mu, "nu": trainer.state.opt_state.nu})
+    data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    try:
+        for _ in range(TRAIN_WARMUP):
+            trainer.step(next(data))
+        fingerprint = packed_fingerprint(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses = [], []
+        for _ in range(REMAT_STEPS):
+            b = next(data)
+            t0 = time.perf_counter()
+            m = trainer.step(b)
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            assert m["skipped"] == 0, m
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        data.close()
+    assert all(np.isfinite(losses)), losses
+    assert all(torch.equal(a, b) for a, b in zip(fingerprint, packed_fingerprint(params)))
+    for c in COUNTERS.values():
+        assert c.plain == 0, f"{tag} called the plain version of {c.name}"
+    per_step = {c.name: c.kernel / REMAT_STEPS for c in COUNTERS.values() if c.kernel}
+    want = {} if base == "bf16" else {"fused_linear_q": 7 * L}
+    assert per_step == want, (tag, per_step, want)
+    if base != "bf16":
+        assert dict(COUNTERS["fused_linear_q"].routes) == {"wgmma": 7 * L * REMAT_STEPS}
+    moved = None
+    if method == "masked":  # the Fig. 2 strawman still trains only its selection
+        moved = 0
+        for (p, w), (_, t), (_, mk) in zip(flatten(params), flatten(trainer.state.trainable),
+                                           flatten(trainer.aux)):
+            assert torch.equal(torch.where(mk, w, t), w), f"masked moved an unselected entry of {p}"
+            moved += int((t != w).sum())
+        selected = sum(int(mk.sum()) for _, mk in flatten(trainer.aux))
+        assert 0 < moved <= selected, (moved, selected)
+    med = float(np.median(times))
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[{tag}] qwen2-1.5b {base} base, {TRAIN_BATCH} x {TRAIN_SEQ}, {REMAT_STEPS} steps after "
+        f"{TRAIN_WARMUP}: step median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}); {tok / med:.0f} tokens/s; peak {peak / 2**30:.2f} GiB; "
+        f"trainable {st['trainable']:,} ({100 * st['fraction']:.4f} %); optimizer state "
+        f"{opt_bytes:,} bytes; set-up {init_s:.3f} s ({n_select} topk_select launches, "
+        f"peak {init_peak / 2**30:.2f} GiB above the weights); launches a step "
+        f"{json.dumps(per_step)}, plain 0"
+        + (f"; {moved:,} entries moved, every unselected one and every leaf not adapted "
+           f"bit-equal to the base" if moved is not None else "") + f"; losses "
+        f"{[round(x, 4) for x in losses]} [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"base": base, "step_s": times, "median_s": med, "tokens_per_s": tok / med,
+            "peak_bytes": peak, "trainable": st["trainable"], "fraction": st["fraction"],
+            "opt_state_bytes": opt_bytes, "setup_s": init_s, "setup_peak_bytes": init_peak,
+            "select_launches": n_select, "launches_per_step": per_step, "losses": losses,
+            "masked_moved": moved}
+
+
+def phase_methods(card: str, neuroada: dict) -> dict:
+    """FULL_METHODS at full width (the bf16 params shared, each packed base
+    made from them), then the memory gate: NeuroAda's peak (phase 7's bf16
+    run, ``neuroada``) below ``masked``'s and ``full``'s, its reduction set
+    beside the paper's "up to 60 %" (no gate on the 60)."""
+    cfg = get_config("qwen2-1.5b")
+    params = get_model(cfg).init(seed=0, device="cuda")
+    out = {}
+    for method, base in FULL_METHODS:
+        if base != "bf16":  # packed from the same seed's weights, the dense base freed
+            params = None
+            params = quantize_base(get_model(cfg).init(seed=0, device="cuda"), base,
+                                   block=QUANT_BLOCK)
+        # a Model per run: a Model keeps views of the last param trees it ran
+        out[f"{method}-{base}"] = method_run(card, get_model(cfg), params, method, base)
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    na = neuroada["peak"]
+    cut = {m: 1 - na / out[f"{m}-bf16"]["peak_bytes"] for m in ("masked", "full")}
+    for m in ("masked", "full"):
+        assert na < out[f"{m}-bf16"]["peak_bytes"], (m, na, out[f"{m}-bf16"]["peak_bytes"])
+    log(f"[methods] peak memory, qwen2-1.5b bf16 {TRAIN_BATCH} x {TRAIN_SEQ}: NeuroAda k={TRAIN_K} "
+        f"{na / 2**30:.2f} GiB (phase 7), masked {out['masked-bf16']['peak_bytes'] / 2**30:.2f}, "
+        f"full {out['full-bf16']['peak_bytes'] / 2**30:.2f}, LoRA r=8 "
+        f"{out['lora-bf16']['peak_bytes'] / 2**30:.2f}, BitFit "
+        f"{out['bitfit-bf16']['peak_bytes'] / 2**30:.2f}, QLoRA int8 / NF4 "
+        f"{out['lora-int8']['peak_bytes'] / 2**30:.2f} / "
+        f"{out['lora-nf4']['peak_bytes'] / 2**30:.2f}: NeuroAda peaks {100 * cut['masked']:.1f} % "
+        f"below masked and {100 * cut['full']:.1f} % below full (the paper: \"up to 60 %\") "
+        f"[{card}]")
+    with open(os.path.join(OUT_DIR, "train_methods.json"), "w") as f:
+        json.dump({"card": card, "neuroada_peak_bytes": na, "reduction_vs": cut, **out}, f,
+                  indent=1)
+    return out
+
+
+def phase_strategies(card: str, magnitude: dict) -> dict:
+    """Selection at full width on qwen2-1.5b's bf16 weights (k = TRAIN_K),
+    each strategy through ``init_adapters`` on the card: time (host clock to
+    a sync), ``topk_select`` launches (7, one a stack), peak above the
+    weights (and the warm-up |dL/dW| for ``gradient``), and every stack's
+    indices equal to the plain version's on the same input. ``gradient``'s
+    warm-up (one TRAIN_BATCH x TRAIN_SEQ batch, autograd with every weight
+    requiring grad) is timed with its peak. ``magnitude``'s figure is phase
+    7's bf16 set-up (``magnitude``), timed here again beside the others."""
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    data = DataLoader("lm", cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    try:
+        batch = device_batch(next(data), "cuda")
+    finally:
+        data.close()
+    out = {}
+    for strategy in ("magnitude", "reverse", "gradient", "random"):
+        kw, extra = {}, {}
+        if strategy == "gradient":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            grads = warmup_grads(model, params, batch)
+            torch.cuda.synchronize()
+            extra = {"warmup_s": time.perf_counter() - t0,
+                     "warmup_peak_bytes": torch.cuda.max_memory_allocated() - held,
+                     "grads_bytes": tree_nbytes(grads)}
+            kw["grads"] = grads
+        if strategy == "random":
+            kw["rng"] = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counters()
+        t0 = time.perf_counter()
+        idx, _ = init_adapters(params, TRAIN_K, strategy=strategy, **kw)
+        torch.cuda.synchronize()
+        sel_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        n = COUNTERS["topk_select"].kernel
+        assert n == 7 and COUNTERS["topk_select"].plain == 0, (strategy, n)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        for (p, i), (_, w) in zip(flatten(idx), flatten(params)):
+            if i is None:
+                continue
+            if strategy == "gradient":
+                x = kw["grads"]
+                for key in p:
+                    x = x[key]
+            elif strategy == "random":
+                x = torch.rand(tuple(w.shape), generator=g, device="cuda")
+            else:
+                x = w
+            want = ts_mod.topk_select_plain(x, TRAIN_K, strategy != "reverse")
+            assert torch.equal(i, want), (strategy, p)
+        x = want = None
+        out[strategy] = {"select_s": sel_s, "launches": n, "peak_bytes_above_held": peak,
+                         **extra}
+        del idx, kw
+        grads = None
+        torch.cuda.empty_cache()
+        log(f"[strategy-{strategy}] qwen2-1.5b bf16, k={TRAIN_K}: selection {sel_s * 1e3:.1f} ms "
+            f"({n} topk_select launches), peak {peak / 2**20:.1f} MiB above the "
+            f"{held / 2**30:.2f} GiB held; every stack equal to the plain version"
+            + (f"; warm-up |dL/dW| {extra['warmup_s'] * 1e3:.1f} ms, peak "
+               f"{extra['warmup_peak_bytes'] / 2**30:.2f} GiB above the weights, the float32 "
+               f"|g| tree {extra['grads_bytes'] / 2**30:.2f} GiB" if extra else "")
+            + (f" (phase 7's set-up: {magnitude['select_s'] * 1e3:.1f} ms)"
+               if strategy == "magnitude" else "") + f" [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, "selection_strategies.json"), "w") as f:
+        json.dump({"card": card, **out}, f, indent=1)
+    return out
+
+
+def phase_lora_export(card: str) -> None:
+    """``launch/train.py --peft lora --export`` of reduced qwen2-1.5b in
+    fp32 on the card (3 steps), then ``launch/serve.py --params`` of the
+    merged file on the card and on the CPU: the same greedy tokens."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    merged = os.path.join(SCRATCH, "lora.npz")
+    real = launch_train.reduced, launch_serve.reduced
+    launch_train.reduced = lambda c: real[0](c).replace(dtype="float32")
+    launch_serve.reduced = lambda c: real[1](c).replace(dtype="float32")
+    try:
+        reset_counters()
+        launch_train.main(["--reduced", "--peft", "lora", "--steps", "3", "--batch", "4",
+                           "--seq", "16", "--export", merged])
+        assert all(c.plain == 0 for c in COUNTERS.values())
+        rng = np.random.default_rng(5)
+        prompts = ";".join(",".join(map(str, rng.integers(3, 512, size=n)))
+                           for n in (5, 37, 12, 70, 3))
+        argv = ["--reduced", "--prompts", prompts, "--max-new", "10", "--slots", "3",
+                "--params", merged]
+        got = launcher_tokens(launch_serve.main, argv)
+        want = launcher_tokens(launch_serve.main, argv + ["--device", "cpu"])
+    finally:
+        launch_train.reduced, launch_serve.reduced = real
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    assert got == want, (got, want)
+    log(f"[lora-export] reduced qwen2-1.5b fp32: train --peft lora --export on the card, serve "
+        f"--params of the merged file: the CPU's greedy tokens on the card, all {len(got)} "
+        f"requests ({sum(map(len, got))} tokens) [{card}]")
+
+
+def peft_slice(card: str, train: dict, stamp) -> dict:
+    """Slice 13's phases: the methods and strategies card vs CPU at reduced
+    size, the full-width method table and memory gate, the strategies'
+    selection at full width, LoRA's merged export served."""
+    phase_reduced_methods(card)
+    stamp("reduced methods")
+    torch.cuda.empty_cache()
+    methods = phase_methods(card, train["bf16"])
+    stamp("full-width methods")
+    strategies = phase_strategies(card, train["bf16"])
+    phase_lora_export(card)
+    stamp("strategies, LoRA export")
+    return {"methods": methods, "strategies": strategies}
+
+
 def lifecycle(card: str, train: dict, stamp) -> None:
     """Slice 12's phases: olmoe on the packed bases (reduced card vs CPU,
     then full width: selection, training, the gate run, on int8 the
@@ -4459,6 +5008,16 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
             f.write("\n".join(LOG) + "\n")
         return 0
+    if sys.argv[1:] == ["--peft"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        dev, gen = torch.device("cuda"), torch.Generator(device="cuda").manual_seed(1234)
+        summary = {"topk_select": {}}
+        selection_modes(gen, dev, summary, [], card)
+        peft_slice(card, {"bf16": phase_train(card, "bf16")}, lambda name: None)
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -4515,6 +5074,7 @@ def main() -> int:
     train["olmoe"] = phase_train(card, "bf16", MOE_ARCH)
     stamp("olmoe training and serving")
     lifecycle(card, train, stamp)
+    peft = peft_slice(card, train, stamp)
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
@@ -4529,6 +5089,9 @@ def main() -> int:
     # steps and the packed serving gate runs
     by_phase = {f"train-{b}": train[b]["launches"]["fused_linear_q"] for b in PACKED}
     by_phase.update({f"serve-{b}": n for b, n in packed_serving.items()})
+    # slice 13: QLoRA's measured steps (the base products at k = 0)
+    by_phase.update({f"train-lora-{b}": int(peft["methods"][f"lora-{b}"]["launches_per_step"]
+                                             ["fused_linear_q"] * REMAT_STEPS) for b in PACKED})
     launches["fused_linear_q"] = sum(by_phase.values())
 
     # this slice's path: the long-context run's measured steps (flash) and
@@ -4537,6 +5100,10 @@ def main() -> int:
     launches["topk_select"] = long["select_launches"]
     select_by_phase = {("train-" + b if b != "bf16" else "train"): train[b]["select_launches"]
                        for b in train}
+    # slice 13: the strategies' full-width selections and the masked run's set-up
+    select_by_phase.update({f"strategy-{k}": v["launches"]
+                            for k, v in peft["strategies"].items()})
+    select_by_phase["method-masked"] = peft["methods"]["masked-bf16"]["select_launches"]
     olmoe_launches = {**train["olmoe"]["serve_launches"], **train["olmoe"]["launches"],
                       "topk_select": train["olmoe"]["select_launches"]}
     # slice 12's olmoe paths: the packed bases' training steps and gate runs,
@@ -4575,7 +5142,9 @@ def main() -> int:
         if name == "sparse_delta_dval":
             row.update(m4096=s["m4096"], launch_route=sd_mod.DVAL_ROUTE)
         if name == "topk_select":
-            row["launches_by_phase"] = select_by_phase
+            # the smallest-first mode (reverse) and float32 scores (gradient, random)
+            row.update(launches_by_phase=select_by_phase, smallest_first=s["smallest_first"],
+                       f32_scores=s["f32_scores"])
         if "spec" in s:
             # the speculative round's shapes (kernel phase) and the full-width
             # spec gate runs' launches by drafter

@@ -6,6 +6,10 @@ int32 tensor of positions along ``d_in`` and a ``val (..., k, d_out)``
 tensor. The forward contribution is
 
     yΔ[..., o] = Σ_j val[j, o] · x[..., idx[j, o]]
+
+:func:`delta_matmul` computes it in plain PyTorch (the reference's jnp
+path; the model runs the kernels of ``repro_torch.kernels``), and
+:func:`scatter_to_dense` materialises Δ for tests and the merge.
 """
 
 from __future__ import annotations
@@ -44,3 +48,31 @@ def merge(w: torch.Tensor, delta: Delta) -> torch.Tensor:
     idx = delta.idx.long()
     sel = torch.gather(w, -2, idx)
     return w.scatter(-2, idx, sel + delta.val.to(w.dtype))
+
+
+def delta_matmul(x: torch.Tensor, delta: Delta) -> torch.Tensor:
+    """Apply the bypass connections: x (..., d_in) -> (..., d_out), a gather
+    along the feature axis and a sum over the k terms, in x's dtype."""
+    idx, val = delta.idx, delta.val
+    if idx.ndim != 2:
+        raise ValueError(f"delta_matmul wants rank-2 idx (k, d_out); got {tuple(idx.shape)}")
+    xg = x[..., idx.long()]  # (..., k, d_out)
+    return (xg * val.to(x.dtype)).sum(dim=-2)
+
+
+def scatter_to_dense(delta: Delta, d_in: int, dtype=None) -> torch.Tensor:
+    """Δ as a dense (..., d_in, d_out) matrix (tests and merges only)."""
+    idx, val = delta.idx, delta.val
+    dtype = dtype or val.dtype
+    dense = torch.zeros((*idx.shape[:-2], d_in, idx.shape[-1]), dtype=dtype, device=idx.device)
+    return dense.scatter(-2, idx.long(), val.to(dtype))
+
+
+def trainable_count(delta: Delta) -> int:
+    return delta.val.numel()
+
+
+def adapter_bytes(delta: Delta) -> int:
+    """The paper's Table 1 accounting: the value bytes plus an int32 index
+    for every selected weight."""
+    return delta.val.numel() * (delta.val.element_size() + delta.idx.element_size())

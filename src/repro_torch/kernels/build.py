@@ -87,8 +87,8 @@ SIGNATURES = {
     # head strides of q, k and v, key tile, stages | stream (bf16, the TMA +
     # wgmma route)
     "rt_flash_attention_fwd_wgmma": [_P] * 5 + [_I] * 18 + [_P],
-    # w, idx | batch, d_in, d_out, k, dtype | stream
-    "rt_topk_select": [_P] * 2 + [_I] * 5 + [_P],
+    # w, idx | batch, d_in, d_out, k, dtype, smallest | stream
+    "rt_topk_select": [_P] * 2 + [_I] * 6 + [_P],
 }
 
 

@@ -2,7 +2,10 @@
 // the k input rows of largest |w|,
 //   idx[b, j, o] = the row of the j-th largest |w[b, :, o]|,
 // in descending |w| with ties to the lower row: the order of a stable
-// descending sort, and of lax.top_k in the reference.
+// descending sort, and of lax.top_k in the reference. The smallest-first
+// mode (the reference's "reverse" strategy, lax.top_k(-|w|)) takes the k
+// rows of smallest |w|, ascending, ties again to the lower row: the order of
+// a stable ascending sort.
 //
 // Replaces the TPU kernel src/repro/kernels/topk_select.py
 // topk_select_pallas (body _topk_kernel). That kernel streams (1024, 128)
@@ -20,7 +23,16 @@
 // values the lower row has the larger key. Keys are distinct, a column's
 // top-k are its k largest keys, and sorting them descending is the
 // stable sort's order. (The strictly-greater rule of the Pallas kernel is
-// the same tie rule.)
+// the same tie rule.) Smallest-first flips the value half of the key,
+// (bits(|w|) ^ 0x7fffffff) << 32 | ~row: fabsf clears the sign bit, so the
+// bits lie in [0, 0x7fffffff] and the xor reverses their order inside that
+// range, while the row half keeps ties to the lower row. The xor (not a
+// full ~bits) keeps the top bit of every key clear, so the pass limit's
+// start, ~0ull, stays above every real key (|w| = 0 at row 0 would
+// otherwise make the key ~0ull itself and never pass "key < limit"); and
+// the row half, ~row with row < 2^31, keeps every key above the lists'
+// start, 0ull, in both modes. Lanes past d_out never enter a list (the
+// live[] guards), whatever their zero-filled value would key to.
 //
 // Bound: memory. Selection reads each weight once (qwen2-1.5b's seven
 // stacks: 2.62 GB of bf16, 0.78 ms at 3.35 TB/s). Design, a simple first
@@ -40,8 +52,9 @@ namespace {
 using rt::to_f;
 constexpr int kWarps = 8;  // row splits a block
 
-__device__ __forceinline__ unsigned long long make_key(float a, int row) {
-  return (static_cast<unsigned long long>(__float_as_uint(a)) << 32) |
+// flip: 0 for largest-first, 0x7fffffff for smallest-first (see above)
+__device__ __forceinline__ unsigned long long make_key(float a, int row, unsigned flip) {
+  return (static_cast<unsigned long long>(__float_as_uint(a) ^ flip) << 32) |
          static_cast<unsigned>(~row);
 }
 
@@ -58,7 +71,8 @@ __device__ __forceinline__ void insert(unsigned long long (&top)[KT], unsigned l
 
 template <typename T, int KT>
 __global__ void __launch_bounds__(kWarps * 32)
-    topk_kernel(const T* __restrict__ w, int32_t* __restrict__ idx, int d_in, int d_out, int k) {
+    topk_kernel(const T* __restrict__ w, int32_t* __restrict__ idx, int d_in, int d_out, int k,
+                unsigned flip) {
   constexpr int V = sizeof(T) == 2 ? 2 : 1;  // adjacent columns a lane
   constexpr int CB = 32 * V;                 // columns a block
   __shared__ unsigned long long lists[kWarps][KT][CB];
@@ -94,7 +108,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int s = 0; s < 4; ++s) {
 #pragma unroll
         for (int u = 0; u < V; ++u) {
-          const unsigned long long key = make_key(a[s][u], r + s * kWarps);
+          const unsigned long long key = make_key(a[s][u], r + s * kWarps, flip);
           if (live[u] && key < lim[u]) insert<KT>(top[u], key);
         }
       }
@@ -104,7 +118,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int u = 0; u < V; ++u) {
         if (!live[u]) continue;
-        const unsigned long long key = make_key(fabsf(to_f(row[u])), r);
+        const unsigned long long key = make_key(fabsf(to_f(row[u])), r, flip);
         if (key < lim[u]) insert<KT>(top[u], key);
       }
     }
@@ -141,34 +155,36 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <typename T>
 cudaError_t launch(const void* w, int32_t* idx, int batch, int d_in, int d_out, int k,
-                   cudaStream_t stream) {
+                   unsigned flip, cudaStream_t stream) {
   constexpr int CB = 32 * (sizeof(T) == 2 ? 2 : 1);
   dim3 grid((d_out + CB - 1) / CB, batch);
   const T* wt = static_cast<const T*>(w);
   if (k == 1)
-    topk_kernel<T, 1><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k);
+    topk_kernel<T, 1><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k, flip);
   else if (k == 2)
-    topk_kernel<T, 2><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k);
+    topk_kernel<T, 2><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k, flip);
   else if (k <= 4)
-    topk_kernel<T, 4><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k);
+    topk_kernel<T, 4><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k, flip);
   else
-    topk_kernel<T, 8><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k);
+    topk_kernel<T, 8><<<grid, kWarps * 32, 0, stream>>>(wt, idx, d_in, d_out, k, flip);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // w (batch, d_in, d_out) contiguous, float32 or bf16 -> idx (batch, k, d_out)
-// int32, 1 <= k <= d_in, batch <= 65535.
+// int32, 1 <= k <= d_in, batch <= 65535; smallest != 0 selects the k
+// smallest |w| (ascending) instead of the k largest (descending).
 extern "C" int rt_topk_select(const void* w, void* idx, int batch, int d_in, int d_out, int k,
-                              int dtype, void* stream) {
+                              int dtype, int smallest, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* out = static_cast<int32_t*>(idx);
+  const unsigned flip = smallest ? 0x7fffffffu : 0u;
   cudaError_t err;
   if (dtype == RT_BF16)
-    err = launch<__nv_bfloat16>(w, out, batch, d_in, d_out, k, s);
+    err = launch<__nv_bfloat16>(w, out, batch, d_in, d_out, k, flip, s);
   else if (dtype == RT_F32)
-    err = launch<float>(w, out, batch, d_in, d_out, k, s);
+    err = launch<float>(w, out, batch, d_in, d_out, k, flip, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

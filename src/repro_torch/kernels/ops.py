@@ -312,10 +312,11 @@ def bmm_q(eh, w):
     return torch.bmm(eh, dequantize(w).to(eh.dtype))
 
 
-def topk_select(w, k: int):
+def topk_select(w, k: int, largest: bool = True):
     """Per-column top-k of |w| over a stack (..., d_in, d_out) -> (..., k,
-    d_out) int32, by descending |w| with ties to the lower row: one launch
-    for the whole stack, w read in its own dtype."""
+    d_out) int32, by descending |w| with ties to the lower row (ascending
+    for ``largest=False``): one launch for the whole stack, w read in its
+    own dtype."""
     lead, (d_in, d_out) = w.shape[:-2], w.shape[-2:]
-    idx = _topk_select(w.reshape(-1, d_in, d_out).contiguous(), k)
+    idx = _topk_select(w.reshape(-1, d_in, d_out).contiguous(), k, largest)
     return idx.reshape(*lead, k, d_out)

@@ -233,14 +233,17 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool):
     return out.reshape(b, sq, h, hd).to(q.dtype), lse
 
 
-def topk_select_ref(w, k: int):
+def topk_select_ref(w, k: int, largest: bool = True):
     """(..., d_in, d_out) -> (..., k, d_out) int32: per column the k rows of
     largest |w| in float32, by descending |w| with ties to the lower row (a
-    stable sort: ``lax.top_k``'s order). One matrix at a time, so a stack
-    never needs a stack-sized float32 copy or sort."""
+    stable sort: ``lax.top_k``'s order); with ``largest=False`` the k rows
+    of smallest |w|, ascending, ties to the lower row (``lax.top_k(-|w|)``).
+    One matrix at a time, so a stack never needs a stack-sized float32 copy
+    or sort."""
     flat = w.reshape(-1, *w.shape[-2:])
     out = torch.empty((flat.shape[0], k, w.shape[-1]), dtype=torch.int32, device=w.device)
     for i in range(flat.shape[0]):
-        order = torch.sort(flat[i].abs().float(), dim=0, descending=True, stable=True).indices
+        order = torch.sort(flat[i].abs().float(), dim=0, descending=largest,
+                           stable=True).indices
         out[i] = order[:k].to(torch.int32)
     return out.reshape(*w.shape[:-2], k, w.shape[-1])

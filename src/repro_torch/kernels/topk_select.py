@@ -5,6 +5,11 @@ w (B, d_in, d_out), float32 or bf16 -> (B, k, d_out) int32: for each
 column of each matrix the k rows of largest |w|, by descending |w| with
 ties to the lower row — the order of a stable descending sort and of the
 reference's ``lax.top_k``, so the card and the CPU select the same bytes.
+With ``largest=False`` the k rows of smallest |w|, by ascending |w|, ties
+again to the lower row (a stable ascending sort; ``lax.top_k(-|w|)``, the
+reference's ``reverse`` strategy). The ``gradient`` and ``random``
+strategies pass their float32 scores as ``w``: they are non-negative, so
+|score| is the score.
 
 Replaces ``src/repro/kernels/topk_select.py::topk_select_pallas`` (body
 ``_topk_kernel``): one launch a whole stack, w read in its own dtype (no
@@ -28,11 +33,11 @@ SOURCE = "src/repro_torch/kernels/csrc/topk_select.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def topk_select_plain(w, k: int):
-    """Plain PyTorch version: a stable descending sort of |w| in float32,
-    one matrix at a time."""
+def topk_select_plain(w, k: int, largest: bool = True):
+    """Plain PyTorch version: a stable sort of |w| in float32 (descending,
+    or ascending for ``largest=False``), one matrix at a time."""
     counter.plain += 1
-    return ref.topk_select_ref(w, k)
+    return ref.topk_select_ref(w, k, largest)
 
 
 def _check(w, k: int) -> None:
@@ -48,17 +53,18 @@ def _check(w, k: int) -> None:
         raise ValueError("w must be contiguous")
 
 
-def topk_select(w, k: int):
-    """(B, d_in, d_out) -> (B, k, d_out) int32, sorted per column."""
+def topk_select(w, k: int, largest: bool = True):
+    """(B, d_in, d_out) -> (B, k, d_out) int32, sorted per column (largest
+    |w| first, or smallest first for ``largest=False``)."""
     if not w.is_cuda:
-        return topk_select_plain(w, k)
+        return topk_select_plain(w, k, largest)
     _check(w, k)
     b, d_in, d_out = w.shape
     idx = torch.empty((b, k, d_out), dtype=torch.int32, device=w.device)
     if d_out == 0:
         return idx
     rc = build.library().rt_topk_select(
-        w.data_ptr(), idx.data_ptr(), b, d_in, d_out, k, _DTYPES[w.dtype],
+        w.data_ptr(), idx.data_ptr(), b, d_in, d_out, k, _DTYPES[w.dtype], int(not largest),
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     build.check(rc, "topk_select")

@@ -1,9 +1,11 @@
 """Training launcher of the port: NeuroAda sparse-bypass fine-tuning of a
-dense or MoE decoder on the GPU (Alg. 1: magnitude selection, training of
-the bypass values only, merged or adapter export).
+dense or MoE decoder on the GPU (Alg. 1: selection, training of the bypass
+values only, merged or adapter export), and the paper's baselines.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --task lm --steps 200 --batch 4 --seq 512 --k 1 \\
+      [--strategy magnitude|gradient|reverse|random] \\
+      [--peft neuroada|lora|bitfit|masked|full [--lora-rank 8]] \\
       [--base-dtype int8|nf4 [--quant-block 64]] [--remat full|dots] \\
       [--ckpt run1/ [--resume]] [--export merged.npz] [--export-adapter tenant.npz]
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b ...
@@ -11,7 +13,18 @@ the bypass values only, merged or adapter export).
       --task lm --batch 1 --seq 4096 --k 1     # long context
 
 Selection (Alg. 1 phase 1) runs one top-k kernel launch per adapted stack
-(per layer, or per expert matrix, on a packed base). At ``--seq`` from the
+(per layer, or per expert matrix, on a packed base). ``--strategy``:
+``magnitude`` (the default), ``reverse`` (smallest |w|), ``random``
+(uniform scores from a generator seeded by ``--seed``); ``gradient`` needs
+a warm-up |dL/dW| the launcher does not form, so it raises the reference's
+``ValueError`` (pass ``grads=`` to ``peft.neuroada`` from Python).
+``--peft``: NeuroAda (the default), ``lora`` (rank ``--lora-rank``; QLoRA
+on a packed base), ``bitfit``, ``masked`` (the paper's mask-based
+baseline: a dense trainable copy, dense gradients and moments, the
+unselected gradients masked) and ``full``; ``masked`` and ``full`` train
+the dense weights and refuse a packed base, LoRA refuses the MoE family
+(the reference cannot train it either), and only NeuroAda has an unmerged
+adapter to export. At ``--seq`` from the
 config's ``flash_threshold`` (2048) on, every layer's attention runs the
 flash forward kernel and a FlashAttention-2 backward, on both families.
 
@@ -34,8 +47,6 @@ also from a packed base), which ``launch/serve.py --params`` serves; the
 ``--export-adapter`` file serves as a tenant in either package's engine.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
-Flags of the reference launcher that the port does not have yet are
-accepted only at their defaults and otherwise raise.
 """
 
 from __future__ import annotations
@@ -61,13 +72,6 @@ from repro_torch.train import Trainer
 
 log = logging.getLogger("repro_torch.launch.train")
 
-# flag -> (default, the ROADMAP.md item that brings it)
-NOT_YET = {
-    "peft": ("neuroada", "§1 item 9, remaining PEFT methods"),
-    "strategy": ("magnitude", "§1 item 9, remaining selection strategies"),
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS + PAPER_ARCH_IDS)
@@ -80,6 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rows per quantization scale block (d_in axis; even, >= 2)")
     ap.add_argument("--k", type=int, default=1)
     ap.add_argument("--strategy", default="magnitude")
+    ap.add_argument("--lora-rank", type=int, default=8)
     ap.add_argument("--task", default="reasoning", choices=("lm", "reasoning", "arithmetic"))
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=16)
@@ -102,16 +107,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(args) -> None:
-    """Reject what the port does not have yet, and bad values, before any
-    model is built."""
-    for flag, (default, item) in NOT_YET.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {getattr(args, flag)!r} is not ported yet "
-                f"(ROADMAP.md {item})")
-    for flag in ("k", "steps", "batch", "microbatches"):
+    """Reject bad values and what no method can do, before any model is
+    built: a packed base under a method that trains the dense weights, an
+    unmerged adapter export of a method other than NeuroAda (the
+    reference's refusals), LoRA on the MoE family."""
+    if args.base_dtype != "fp32" and args.peft in ("masked", "full"):
+        raise SystemExit(f"--base-dtype {args.base_dtype} requires a frozen base; --peft "
+                         f"{args.peft} trains the dense weights")
+    if args.export_adapter and args.peft != "neuroada":
+        raise SystemExit("--export-adapter requires --peft neuroada")
+    if args.peft == "lora" and get_config(args.arch).num_experts:
+        raise SystemExit(f"--peft lora cannot train the MoE family ({args.arch}): its expert "
+                         "stacks take NeuroAda deltas only, as in the reference")
+    for flag in ("k", "steps", "batch", "microbatches", "lora_rank"):
         if getattr(args, flag) < 1:
-            raise SystemExit(f"--{flag} must be >= 1, got {getattr(args, flag)}")
+            raise SystemExit(f"--{flag.replace('_', '-')} must be >= 1, got "
+                             f"{getattr(args, flag)}")
     if args.seq < 2:
         raise SystemExit(f"--seq must be >= 2, got {args.seq}")
     if args.quant_block < 2 or args.quant_block % 2:
@@ -136,7 +147,8 @@ def main(argv=None):
         params = quantize_base(params, args.base_dtype, block=args.quant_block)
         log.info("base quantized to %s: %.1f MB -> %.1f MB (%.2fx)", args.base_dtype,
                  before / 2**20, tree_bytes(params) / 2**20, before / tree_bytes(params))
-    peft = get_peft(PeftConfig(method=args.peft, k=args.k, strategy=args.strategy))
+    peft = get_peft(PeftConfig(method=args.peft, k=args.k, strategy=args.strategy,
+                               lora_rank=args.lora_rank))
     tcfg = TrainConfig(learning_rate=args.lr, steps=args.steps, seed=args.seed,
                        microbatches=args.microbatches, remat=args.remat,
                        checkpoint_dir=args.ckpt, checkpoint_every=100 if args.ckpt else 0)

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.delta import Delta
+from repro_torch.core.delta import BatchedDelta, Delta
 from repro_torch.kernels import ops
 from repro_torch.quant.qtensor import QuantizedTensor
 
@@ -44,31 +44,63 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+LORA_KEYS = frozenset({"A", "B", "scale"})
+
+
+def is_lora(leaf) -> bool:
+    """A LoRA adapter leaf: ``{"A": (..., d_in, r), "B": (..., r, d_out),
+    "scale": (...)}``."""
+    return isinstance(leaf, dict) and set(leaf) == LORA_KEYS
+
+
+def adapter_leaf(a, name: str):
+    """The adapter of projection ``name`` in the adapter dict ``a``: a
+    :class:`~repro_torch.core.delta.Delta`, a
+    :class:`~repro_torch.core.delta.BatchedDelta`, a LoRA leaf (see
+    :func:`is_lora`) or ``None``. An adapter nested beside the bias slot
+    (``{"w": leaf, "b": None}``, the shape of a training adapter tree) is
+    opened. Any other leaf raises: no adapter is dropped silently."""
+    d = a.get(name) if a else None
+    if isinstance(d, dict) and "w" in d:
+        d = d["w"]
+    if d is None or isinstance(d, (Delta, BatchedDelta)) or is_lora(d):
+        return d
+    raise TypeError(f"adapter leaf of {name!r} is neither a Delta, a BatchedDelta nor a LoRA "
+                    f"{{'A', 'B', 'scale'}} dict: {type(d).__name__}")
+
+
 def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+ bypass) (+ b). ``p[name]`` is ``{"w": (d_in, d_out),
-    ["b": (d_out,)]}``; ``a`` maps projection names to a
-    :class:`~repro_torch.core.delta.BatchedDelta` (serving: every row's
-    tenant), to a :class:`~repro_torch.core.delta.Delta` — or an adapter
-    leaf ``{"w": Delta, ...}`` beside the bias slot — (training: the fused
-    kernel, W frozen), or is ``None``.
+    """y = x @ W (+ bypass | LoRA) (+ b). ``p[name]`` is ``{"w": (d_in,
+    d_out), ["b": (d_out,)]}``; ``a`` maps projection names to adapter
+    leaves (:func:`adapter_leaf`):
+
+    * a :class:`~repro_torch.core.delta.Delta` (NeuroAda training): the
+      fused kernel, W frozen;
+    * a :class:`~repro_torch.core.delta.BatchedDelta` (serving: every row's
+      tenant): the base matmul, then the bypass and the bias in the bypass
+      kernel's epilogue;
+    * a LoRA leaf: ``x @ W + (x @ A @ B) · scale`` with ``scale`` a
+      constant (no gradient), then the bias, as the reference;
+    * ``None``: the base matmul and the bias.
 
     W may be a :class:`~repro_torch.quant.QuantizedTensor` (an int8 or NF4
     frozen base): the matmul then runs the fused dequant kernel
-    (``ops.fused_linear_q`` with a Delta, ``ops.matmul_q`` otherwise) and
-    the dense weight never exists."""
+    (``ops.fused_linear_q`` with a Delta, ``ops.matmul_q`` otherwise — at
+    zero bypass, differentiable in x: QLoRA's base product) and the dense
+    weight never exists."""
     leaf = p[name]
     w, b = leaf["w"], leaf.get("b")
-    d = a.get(name) if a else None
-    if isinstance(d, dict):
-        d = d.get("w")
+    d = adapter_leaf(a, name)
     if isinstance(d, Delta):
         if isinstance(w, QuantizedTensor):
             return ops.fused_linear_q(x, w, d.idx, d.val, b)
         # a Delta bypass implies the NeuroAda contract: W is frozen
         return ops.fused_linear(x, w, d.idx, d.val, b, w_frozen=True)
     y = ops.matmul_q(x, w)
-    if d is not None:  # the bypass and the bias in the kernel's epilogue, into y
+    if isinstance(d, BatchedDelta):  # the bypass and the bias in the kernel's epilogue, into y
         return ops.delta_apply_batched(x, d.idx, d.val, d.aid, y, b)
+    if d is not None:  # LoRA
+        y = y + (x @ d["A"]) @ d["B"] * d["scale"].detach()
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -38,8 +38,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.delta import BatchedDelta
+from repro_torch.core.delta import BatchedDelta, Delta
 from repro_torch.kernels import ops
+from repro_torch.models.layers import adapter_leaf
 
 EXPERT_LINEARS = ("wgate", "wup", "wdown")
 
@@ -123,18 +124,13 @@ def _combine_group(out_e: torch.Tensor, route: Route, dtype) -> torch.Tensor:
     return (contrib * route.gate.to(dtype)[..., None]).sum(dim=2)
 
 
-def _delta_of(a, name: str):
-    d = a.get(name) if a else None
-    return d.get("w") if isinstance(d, dict) else d
-
-
 def _dispatch_adapter_ids(a, route: Route, b: int, s: int, e: int):
     """Per-sequence tenant ids scattered through the dispatch: (E, G·C)
     int32 combined ids ``tenant · E + e`` into the ``(N·E, k, F)`` stacks,
     or None without tenant stacks. An empty buffer row keeps tenant 0 (its
     activations are zero, so its delta adds zero); the router stays the
     base model's (DESIGN §7)."""
-    d0 = next((d for d in (_delta_of(a, n) for n in EXPERT_LINEARS)
+    d0 = next((d for d in (adapter_leaf(a, n) for n in EXPERT_LINEARS)
                if isinstance(d, BatchedDelta)), None)
     if d0 is None:
         return None
@@ -150,13 +146,18 @@ def _expert_linear_g(p: dict, a, name: str, eh: torch.Tensor, aid_buf=None) -> t
     bypass -> (E, R, Dout). A packed (int8 / NF4) stack is dequantized per
     call (``ops.bmm_q``), as the reference does."""
     y = ops.bmm_q(eh, p[name]["w"])
-    d = _delta_of(a, name)
+    d = adapter_leaf(a, name)
     if isinstance(d, BatchedDelta):  # serving: added into y in the kernel's epilogue
         n, e, k, f = d.idx.shape
         ops.delta_apply_batched(eh, d.idx.reshape(n * e, k, f), d.val.reshape(n * e, k, f),
                                 aid_buf, y)
-    elif d is not None:
+    elif isinstance(d, Delta):
         y = y + ops.delta_apply(eh, d.idx, d.val)
+    elif d is not None:
+        raise ValueError(
+            f"a LoRA leaf on the expert stack {name!r}: LoRA cannot train the MoE family — the "
+            "reference hands it to ops.delta_apply (repro/models/moe.py:163-166, an "
+            "AttributeError), and the port refuses it likewise")
     return y
 
 

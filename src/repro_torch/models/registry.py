@@ -3,10 +3,12 @@
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.tree import flatten
 
 FAMILIES = ("dense", "moe")
 
@@ -17,7 +19,8 @@ class Model(nn.Module):
     in the reference, so one ``Model`` serves any param tree of its config.
     Per-layer views of the last two param trees (a served model and its
     speculative drafter) and of the last tenant stacks seen are kept, so
-    the serving loop does not re-slice the layer stacks every step."""
+    the serving loop does not re-slice the layer stacks every step; views
+    of a tree with trainable (``requires_grad``) leaves are not kept."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -42,6 +45,10 @@ class Model(nn.Module):
 
     def _layers(self, params) -> list[dict]:
         blocks = params["blocks"]
+        if any(isinstance(x, torch.Tensor) and x.requires_grad for _, x in flatten(blocks)):
+            # a training step's live trainable tree (bitfit, masked, full): its
+            # views are not kept, or they would hold its tensors past the step
+            return transformer.layer_views(params)
         hit = next((e for e in self._views if e[0] is blocks), None)
         if hit is None:
             hit = (blocks, transformer.layer_views(params))

@@ -52,6 +52,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     KV_QUANT_GROUP,
+    adapter_leaf,
     alinear,
     apply_rope,
     chunk_slots,
@@ -404,32 +405,41 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
 
 
 def delta_views(adapters, n_layers: int) -> list[dict]:
-    """Per-layer ``{name: Delta}`` views into the ``(L, k, d_out)`` leaves
-    of a training adapter tree (slicing keeps the autograd link to the
-    stacked values)."""
+    """Per-layer views into the stacked leaves of a training adapter tree:
+    ``{name: Delta}`` from ``(L, k, d_out)`` deltas, ``{name: {"A", "B",
+    "scale"}}`` from LoRA's ``(L, d_in, r)`` / ``(L, r, d_out)`` / ``(L,)``
+    leaves (slicing keeps the autograd link to the stacked trainables). A
+    tenant stack has no place in training and raises, as any leaf
+    :func:`~repro_torch.models.layers.adapter_leaf` does not know."""
     out = [{} for _ in range(n_layers)]
     blocks = adapters.get("blocks") if adapters else None
-    for name, leaf in (blocks or {}).items():
-        d = leaf.get("w") if isinstance(leaf, dict) else leaf
+    for name in blocks or {}:
+        d = adapter_leaf(blocks, name)
         if d is None:
             continue
+        if isinstance(d, BatchedDelta):
+            raise TypeError(f"training adapters hold a tenant stack at {name!r}")
         for i in range(n_layers):
-            out[i][name] = Delta(d.idx[i], d.val[i])
+            out[i][name] = (Delta(d.idx[i], d.val[i]) if isinstance(d, Delta)
+                            else {key: t[i] for key, t in d.items()})
     return out
 
 
 def _train_head(cfg, params, adapters, h):
     """Tied: ``h @ embed.T``; untied: the head matmul plus, when the
     adapters carry one, its NeuroAda delta through the single-tenant bypass
-    kernel (differentiable in h and the values)."""
+    kernel (differentiable in h and the values). A LoRA leaf on the head is
+    not applied — the reference's ``_head_logits``
+    (``repro/models/transformer.py:261-265``) applies only deltas — so its
+    gradient is zero, as there (``peft.lora`` warns at init)."""
     if cfg.tie_embeddings:
         return h @ params["embed"]["w"].T
     logits = ops.matmul_q(h, params["head"]["w"])
-    d = adapters.get("head") if adapters else None
-    if isinstance(d, dict):
-        d = d.get("w")
-    if d is not None:
+    d = adapter_leaf(adapters, "head")
+    if isinstance(d, Delta):
         logits = logits + ops.delta_apply(h, d.idx, d.val)
+    elif isinstance(d, BatchedDelta):
+        raise TypeError("training adapters hold a tenant stack at 'head'")
     return logits
 
 

@@ -1,5 +1,6 @@
-"""Port of ``repro.peft``: NeuroAda for the trainer, adapter export/load,
-the quantized base."""
+"""Port of ``repro.peft``: NeuroAda and the paper's baselines (LoRA /
+QLoRA, BitFit, mask-based sparse, full fine-tuning) for the trainer,
+adapter export/load, the quantized base."""
 
 from repro_torch.peft.api import (
     BASE_DTYPES,

@@ -6,7 +6,11 @@ The step is method-agnostic: it differentiates only the ``trainable`` tree
 (for NeuroAda the ``(…, k, d_out)`` bypass values — the paper's memory
 story follows from this). Frozen params never have ``requires_grad``, so
 autograd forms no dense weight gradient and the optimizer keeps no dense
-state.
+state — unless the method's trainable tree is itself dense (``masked``,
+``full``). For those the step lets go of each dense tree as soon as the
+next one no longer needs it, and the NaN guard's select writes into the
+new tensors, so a step holds one new copy of the trainables and moments
+beside the old, never two.
 """
 
 from __future__ import annotations
@@ -34,14 +38,15 @@ class TrainState(NamedTuple):
 
 def _select(cond, new, old):
     """``new`` where ``cond`` else ``old``, leaf by leaf over dicts and
-    named tuples (``None`` stays ``None``)."""
+    named tuples (``None`` stays ``None``), written into ``new``'s tensors
+    (fresh results of this step, never aliases of ``old``)."""
     if new is None:
         return None
     if isinstance(new, dict):
         return {k: _select(cond, new[k], old[k]) for k in new}
     if isinstance(new, tuple):
         return type(new)(*(_select(cond, a, b) for a, b in zip(new, old)))
-    return torch.where(cond, new, old)
+    return torch.where(cond, new, old, out=new)
 
 
 def _slice_mb(key: str, x, i: int, m: int):
@@ -105,7 +110,9 @@ def make_train_step(model, peft, tcfg):
             gnorm = global_norm(grads)
         good = torch.isfinite(loss) & torch.isfinite(gnorm)
         updates, new_opt = optimizer.update(grads, state.opt_state, state.trainable)
+        del grads
         new_trainable = apply_updates(state.trainable, updates)
+        del updates
         # NaN guard: keep the old state on a bad step (the step still advances)
         new_trainable = _select(good, new_trainable, state.trainable)
         new_opt = _select(good, new_opt, state.opt_state)
@@ -119,19 +126,23 @@ def make_train_step(model, peft, tcfg):
 class Trainer:
     """The loop: data, the step, checkpoints and resume, the straggler
     monitor and the NaN guard. Runs wherever ``params`` live; batches
-    (numpy) move there each step. With ``tcfg.checkpoint_dir`` the trainable
-    values and the optimizer state are saved every ``checkpoint_every``
-    steps and at the end of :meth:`run`, and :meth:`try_resume` picks up the
-    latest save (either package's)."""
+    (numpy) move there each step. ``rng`` (a ``torch.Generator``; by
+    default one on the params' device seeded from ``tcfg.seed``) goes to
+    ``peft.init`` (LoRA's ``A``, the ``random`` strategy). With
+    ``tcfg.checkpoint_dir`` the trainable values and the optimizer state are
+    saved every ``checkpoint_every`` steps and at the end of :meth:`run`,
+    and :meth:`try_resume` picks up the latest save (either package's). The
+    initial trees live only in ``state``: no dense copy outlives its step."""
 
-    def __init__(self, model, peft, tcfg, params):
+    def __init__(self, model, peft, tcfg, params, *, rng=None):
         self.model, self.peft, self.tcfg = model, peft, tcfg
         self.params = params
         self.device = next(x for _, x in flatten(params) if x is not None).device
-        self.trainable, self.aux = peft.init(params)
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        trainable, self.aux = peft.init(params, rng)
         self._step_fn, self.optimizer = make_train_step(model, peft, tcfg)
-        self.opt_state = self.optimizer.init(self.trainable)
-        self.state = TrainState(self.trainable, self.opt_state,
+        self.state = TrainState(trainable, self.optimizer.init(trainable),
                                 torch.zeros((), dtype=torch.int32, device=self.device))
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
         self.monitor = StragglerMonitor()

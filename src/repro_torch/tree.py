@@ -47,5 +47,12 @@ def map_leaves(fn, tree, *rest):
     return {k: map_leaves(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
+def with_paths(tree, prefix: tuple = ()):
+    """Same structure as ``tree`` with each leaf replaced by (path, leaf)."""
+    if not isinstance(tree, dict):
+        return (prefix, tree)
+    return {k: with_paths(v, prefix + (k,)) for k, v in tree.items()}
+
+
 def path_str(path: tuple) -> str:
     return "/".join(str(p) for p in path)

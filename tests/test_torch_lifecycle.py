@@ -10,7 +10,9 @@ a run exactly (the twin of ``tests/train/test_checkpoint.py::test_resume_exact``
 and a checkpoint crosses the packages both ways: the reference's
 ``CheckpointManager`` writes at step 2 and the port resumes to the
 reference's uninterrupted losses; the port writes and the reference's
-``restore_into`` loads it exactly. The launcher's ``--ckpt`` / ``--resume``.
+``restore_into`` loads it exactly — for NeuroAda, and for LoRA (dict
+leaves) and BitFit (a tree of ``None`` leaves and copies) too. The
+launcher's ``--ckpt`` / ``--resume``.
 """
 
 import logging
@@ -254,6 +256,66 @@ def test_port_checkpoint_loads_exactly_in_the_reference(world, tmp_path):
             assert (got[p] is None) == (y is None), p
             if y is not None:
                 np.testing.assert_array_equal(got[p].numpy(), y)
+
+
+def method_trainer(world, ckdir, method):
+    tcfg = TrainConfig(steps=4, log_every=0, checkpoint_every=2, checkpoint_dir=ckdir)
+    return Trainer(world["tm"], get_peft(PeftConfig(method=method, lora_rank=4)), tcfg,
+                   world["tp"])
+
+
+@pytest.mark.parametrize("method", ["lora", "bitfit"])
+def test_resume_exact_under_other_methods(world, tmp_path, method):
+    """A LoRA and a BitFit run resumed at step 2 equal the uninterrupted run
+    bit for bit: the restored state, the losses and the trainables."""
+    full = method_trainer(world, str(tmp_path / "full"), method)
+    want = run(full, 4)
+    a = method_trainer(world, str(tmp_path / "ck"), method)
+    got = run(a, 2)
+    saved = {"trainable": a.state.trainable, "opt_state": a.state.opt_state}
+    b = method_trainer(world, str(tmp_path / "ck"), method)
+    assert b.try_resume() == 2
+    assert_same(saved, {"trainable": b.state.trainable, "opt_state": b.state.opt_state})
+    got += run(b, 4, start=2)
+    assert got == want
+    assert_same(full.state.trainable, b.state.trainable)
+
+
+@pytest.mark.parametrize("method", ["lora", "bitfit"])
+def test_checkpoints_of_other_methods_cross_packages(world, tmp_path, method):
+    """The reference writes at step 2 and the port resumes it exactly (its
+    steps 3-4 within 1e-5 of the reference's uninterrupted losses); the
+    port writes at step 2 and the reference's ``restore_into`` maps it onto
+    its own state exactly."""
+    jcfg = dict(steps=4, log_every=0, checkpoint_every=2)
+    jpc = JPeftConfig(method=method, lora_rank=4)
+    want = run(JTrainer(world["jm"], j_get_peft(jpc), JTrainConfig(
+        checkpoint_dir=str(tmp_path / "jfull"), **jcfg), world["jp"]), 4, loader=JLoader)
+    jt = JTrainer(world["jm"], j_get_peft(jpc), JTrainConfig(checkpoint_dir=str(tmp_path / "j"),
+                                                             **jcfg), world["jp"])
+    run(jt, 2, loader=JLoader)
+    b = method_trainer(world, str(tmp_path / "j"), method)
+    assert b.try_resume() == 2
+    j_state = dict(flatten(np_tree(jt.state.trainable)))
+    for p, v in flatten(b.state.trainable):
+        assert (v is None) == (j_state[p] is None), p
+        if v is not None:
+            np.testing.assert_array_equal(v.numpy(), j_state[p])
+    np.testing.assert_allclose(run(b, 4, start=2), want[2:], rtol=1e-5)
+
+    a = method_trainer(world, str(tmp_path / "t"), method)
+    run(a, 2)
+    tree = j_load_pytree(a.ckpt._path(2))
+    jv = j_restore_into(jt.state.trainable, tree["trainable"])
+    jo = j_restore_into(jt.state.opt_state, tree["opt_state"])
+    assert int(jo.step) == 2
+    for want_tree, got_tree in ((a.state.trainable, jv), (a.state.opt_state.mu, jo.mu),
+                                (a.state.opt_state.nu, jo.nu)):
+        got = dict(flatten(np_tree(got_tree)))
+        for p, x in flatten(want_tree):
+            assert (x is None) == (got[p] is None), p
+            if x is not None:
+                np.testing.assert_array_equal(x.numpy(), got[p])
 
 
 def test_launcher_checkpoints_and_resumes(tmp_path, caplog):
