@@ -9,6 +9,8 @@
     python3 chip_smoke.py --delta-variants
     python3 chip_smoke.py --lifecycle
     python3 chip_smoke.py --peft
+    python3 chip_smoke.py --serve-lifecycle
+    python3 chip_smoke.py --sparse-dx
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -24,6 +26,9 @@ and heads a block); the sixth times the two bypass kernels redesigned for
 Hopper at their path shapes under the plans their planners pick among
 (the apply's rows a tile, stages, blocks an SM, column spans and route;
 the value gradient's rows a tile, stages, blocks an SM and column spans).
+``--sparse-dx`` runs the training backward's sparse-dx check and two
+resumes, then times the 4 x 512 step with the ordered dx and with the
+``index_add_`` it replaced, in turn.
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
@@ -133,6 +138,21 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    gate run (its attention kernels launched and no other, pool bytes as
    reckoned: 234,881,024 bf16, 117,669,888 int8), the same run profiled
    (busy share, launches per layer-forward) and one window run;
+   then the serving production lifecycle (slice 14; also alone with
+   ``--serve-lifecycle``) on the same gate run: its host operations counted
+   again with metrics off and with a tracer (GATE_OPS each time, op by op,
+   the same tokens), the registry and the trace reconciled with the run,
+   the gate run timed with metrics off / on / on with a tracer in turn,
+   exact TTFT and ITL from the trace of one 16 x 64 window, a hot tenant's
+   12 requests before a cold tenant's 4 under fifo and drr, a seeded
+   ``ChaosMonkey`` run (every request terminal, survivors' tokens the gate
+   run's or parted at a near-tie, the pool drained with nothing stolen,
+   only the path's kernels),
+   deadlines on the real clock (shed at intake; expired mid-decode), the
+   SSE front end over loopback (the 10 gate prompts streamed concurrently,
+   one cancelled mid-stream, the others held to the gate run by the same
+   tie rule, the engine thread's forwards under the sync guard) and ``launch/serve.py`` with ``--metrics-out``, ``--trace-out``
+   and ``--profile-dir`` (``chiprun_out/serve_lifecycle.json``);
 6. reduced training: reduced qwen2-1.5b in fp32, the same params and three
    batches trained on the card (kernels) and on the CPU (plain versions),
    on the fp32, an int8 and an NF4 base, and on the fp32 base with every
@@ -190,11 +210,15 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    launches a step, the peak below the same call's none run); checkpoint
    and resume through ``Trainer`` and ``CheckpointManager`` (a save at step
    2 timed as host copy and file write; a fresh Trainer resumes: values and
-   moments bit-equal, its step-3 loss bit-equal, step 4 within 1e-5);
+   moments bit-equal, its step-3 and step-4 losses bit-equal);
    ``launch/train.py --export`` of full-width qwen2 served by
    ``launch/serve.py --params`` (its ``main``, on the card) for the gate
    run against the unmerged tenant on the same base (partings only at
-   near-ties), and on reduced fp32 with identical tokens.
+   near-ties), and on reduced fp32 with identical tokens;
+10. the PEFT baselines and selection strategies (slice 13; also alone with
+    ``--peft``): every method and strategy on reduced models card vs CPU,
+    the full-width method table and memory gate against NeuroAda, the
+    strategies' selections at full width, LoRA's merged export served.
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
@@ -217,6 +241,8 @@ the MoE serving ``full_profile_olmoe.txt`` and ``window_olmoe.json``.
 
 from __future__ import annotations
 
+import asyncio
+import collections
 import contextlib
 import io
 import json
@@ -255,6 +281,7 @@ from repro_torch.kernels import (  # noqa: E402
     TRAINING,
     build,
     ops,
+    ref,
     reset_counters,
 )
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -272,6 +299,7 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import flash_attention_bwd  # noqa: E402
 from repro_torch.models.layers import quant_kv_page  # noqa: E402
+from repro_torch.obs import Tracer, percentile  # noqa: E402
 from repro_torch.peft import (  # noqa: E402
     export_adapter,
     get_peft,
@@ -280,7 +308,13 @@ from repro_torch.peft import (  # noqa: E402
     stats,
 )
 from repro_torch.quant import QuantizedTensor, dequantize, quantize, tree_bytes  # noqa: E402
-from repro_torch.serve import AdapterStore, ServeEngine  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    AdapterStore,
+    ChaosMonkey,
+    QueueFullError,
+    ServeEngine,
+    ServeFrontend,
+)
 from repro_torch.serve.sampler import Sampler  # noqa: E402
 from repro_torch.train import Trainer, TrainState, make_train_step  # noqa: E402
 from repro_torch.tree import flatten, map_leaves, unflatten  # noqa: E402
@@ -2566,7 +2600,9 @@ def forwards_of(eng) -> int:
     return eng.model.cfg.num_layers * (len(st["mixed"]) + eng.decode_chunk * len(st["decode"]))
 
 
-def phase_full(card: str) -> dict:
+def gate_inputs() -> tuple:
+    """The gate run's model, weights (seed 0), 3 tenants (seed 7), 10
+    prompts of 40-700 tokens, max_new and engine settings."""
     cfg = get_config("qwen2-1.5b")
     model = get_model(cfg)
     t0 = time.perf_counter()
@@ -2579,9 +2615,13 @@ def phase_full(card: str) -> dict:
     rng = np.random.default_rng(11)
     lens = [40, 700, 130, 256, 511, 64, 300, 620, 90, 410]
     prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in lens]
-    max_new = 32
     kw = dict(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PREFILL_CHUNK,
               decode_chunk=DECODE_CHUNK, page_size=PAGE)
+    return model, params, tenants, prompts, 32, kw
+
+
+def phase_full(card: str) -> tuple:
+    model, params, tenants, prompts, max_new, kw = gate_inputs()
     # warm-up: cuBLAS handles and allocator pools, outside the measured run
     serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)
     torch.cuda.synchronize()
@@ -2646,7 +2686,9 @@ def phase_full(card: str) -> dict:
     packed = {qd: phase_full_packed(model, params, tenants, prompts, max_new, kw, card, qd)
               for qd in PACKED}
     launches["apply_by_route"] = apply_by_route
-    return launches, packed
+    gate = dict(model=model, params=params, tenants=tenants, prompts=prompts,
+                max_new=max_new, kw=kw, tally=tally, off_outs=off_outs)
+    return launches, packed, gate
 
 
 # the KV caches beside the paged bf16 one: (paged, kv_dtype), and the cache
@@ -3091,6 +3133,7 @@ BUCKETS = (("paged_prefill_attention", ("paged_prefill",)),
            ("sparse_delta_dval", ("dval_",)),
            ("flash_attention_fwd", ("flash_fwd",)),
            ("topk_select", ("topk_kernel",)),
+           ("sparse dx (segment sum)", ("segment_reduce",)),
            ("index ops (index_add_, gathers)", ("index",)),
            ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitk")))
 
@@ -4259,9 +4302,10 @@ def phase_remat(card: str, long_none_peak: int) -> dict:
 
 def phase_reduced_remat(card: str, arch: str) -> None:
     """Reduced ``arch`` in fp32 on the card, three AdamW steps under each
-    remat mode with deterministic algorithms on (the backward's
-    ``index_add_`` scatter has float atomics otherwise): losses and values
-    of ``full`` and ``dots`` equal ``none``'s bit for bit."""
+    remat mode with deterministic algorithms on (for the scatter-adds of
+    autograd's own backwards, those of the MoE's gathers; the port's sparse
+    dx is deterministic by itself): losses and values of ``full`` and
+    ``dots`` equal ``none``'s bit for bit."""
     cfg, model, params, batches = reduced_train_case(arch, "bf16", 4, 16)
     params = map_leaves(lambda x: None if x is None else x.cuda(), params)
     runs = {}
@@ -4284,14 +4328,87 @@ def phase_reduced_remat(card: str, arch: str) -> None:
         f"full / dots [{card}]")
 
 
+def sparse_dx_shapes(cfg) -> list:
+    """(d_in, d_out) of a dense layer's 7 adapted projections."""
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.num_kv_heads * cfg.resolved_head_dim
+    return [(d, d), (d, kv), (d, kv), (d, d), (d, f), (d, f), (f, d)]
+
+
+def index_add_dx(idx, val, dy, d_in: int):
+    """The sparse dx as the ordered segment sum replaced it, the yardstick
+    it is timed against: a float32 ``index_add_`` (2-D) or ``scatter_add_``
+    (batched) of the materialised terms, whose float atomics on the card
+    add in no fixed order."""
+    if dy.ndim == 3:
+        b, m, _ = dy.shape
+        kd = idx.shape[1] * idx.shape[2]
+        upd = (dy.float()[:, :, None, :] * val.float()[:, None]).reshape(b, m, kd)
+        ind = idx.long().reshape(b, 1, kd).expand(b, m, kd)
+        return torch.zeros((b, m, d_in), device=dy.device).scatter_add_(2, ind, upd)
+    upd = (dy.float()[:, None, :] * val.float()[None]).reshape(dy.shape[0], -1)
+    return torch.zeros((dy.shape[0], d_in), device=dy.device).index_add_(
+        1, idx.reshape(-1).long(), upd)
+
+
+def sparse_dx_variants(card: str) -> None:
+    """``--sparse-dx``: the sparse dx check and two resumes (steps 3 and 4
+    bit-equal each time), then the qwen2 4 x 512 training step with the
+    ordered dx and with ``index_add_dx`` in turn (ordered, index_add_,
+    index_add_, ordered), all in one call."""
+    for _ in range(2):
+        phase_resume(card)
+    ordered, steps = ref.sparse_delta_dx_ref, {}
+    try:
+        for name in ("ordered", "index_add_", "index_add_", "ordered"):
+            ref.sparse_delta_dx_ref = ordered if name == "ordered" else index_add_dx
+            steps.setdefault(name, []).append(phase_train(card, "bf16")["median_s"] * 1e3)
+    finally:
+        ref.sparse_delta_dx_ref = ordered
+    log(f"[sparse-dx] qwen2-1.5b {TRAIN_BATCH} x {TRAIN_SEQ} step medians, ms, in turn: "
+        + "; ".join(f"{n} {[round(t, 2) for t in ts]}" for n, ts in steps.items()) + f" [{card}]")
+
+
+def check_sparse_dx(card: str) -> dict:
+    """The training backward's sparse dx (``ref.sparse_delta_dx_ref``, plain
+    PyTorch) at qwen2's 4 x 512 shapes, k = TRAIN_K, a bf16 dy: two calls on
+    the card identical bit for bit and equal to the CPU's bit for bit (each
+    column summed in one fixed order), also with every term on 7 columns;
+    then its device time a step (7 projections x 28 layers) beside the
+    ``index_add_`` scatter it replaced, whose float atomics add in no fixed
+    order."""
+    cfg = get_config("qwen2-1.5b")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    new_ms = old_ms = 0.0
+    for d_in, d_out in sparse_dx_shapes(cfg):
+        idx = torch.randint(0, d_in, (TRAIN_K, d_out), device="cuda", generator=gen)
+        val = torch.randn((TRAIN_K, d_out), device="cuda", generator=gen)
+        dy = torch.randn((m, d_out), device="cuda", generator=gen).bfloat16()
+        for ix in (idx, idx % 7):
+            got = ref.sparse_delta_dx_ref(ix, val, dy, d_in)
+            assert torch.equal(got, ref.sparse_delta_dx_ref(ix, val, dy, d_in)), (d_in, d_out)
+            cpu = ref.sparse_delta_dx_ref(ix.cpu(), val.cpu(), dy.cpu(), d_in)
+            assert torch.equal(got.cpu(), cpu), (d_in, d_out)
+        new_ms += cuda_ms(lambda: ref.sparse_delta_dx_ref(idx, val, dy, d_in))
+        old_ms += cuda_ms(lambda: index_add_dx(idx, val, dy, d_in))
+    layers = cfg.num_layers
+    log(f"[sparse-dx] qwen2-1.5b {TRAIN_BATCH} x {TRAIN_SEQ}, k={TRAIN_K}: the 7 projections' dx "
+        f"on the card twice bit-equal and equal to the CPU's (also with every term on 7 "
+        f"columns); {new_ms * layers:.2f} ms a step by the ordered segment sum against "
+        f"{old_ms * layers:.2f} ms by index_add_'s atomics ({layers} layers) [{card}]")
+    return {"dx_ms_step": new_ms * layers, "index_add_ms_step": old_ms * layers}
+
+
 def phase_resume(card: str) -> dict:
     """Checkpoint and resume through ``Trainer`` at full width (qwen2-1.5b
     bf16, 4 x 512), the checkpoints in a scratch directory. Run A: 4 steps,
     a save at step 2 (its copy to the host and its file write timed). Run
     B: a fresh Trainer resumes from A's step-2 file and runs to 4. B's
-    restored values and moments equal A's state at 2 bit for bit, B's step-3
-    loss equals A's bit for bit, its step-4 loss within 1e-5 relative (the
-    backward's float atomics make later steps non-bitwise)."""
+    restored values and moments equal A's state at 2 bit for bit, and B's
+    step-3 and step-4 losses equal A's bit for bit: the backward has no
+    float atomics (the sparse dx sums each column in a fixed order), so a
+    resumed run repeats the uninterrupted one exactly."""
+    dx = check_sparse_dx(card)
     cfg = get_config("qwen2-1.5b")
     model = get_model(cfg)
     params = model.init(seed=0, device="cuda")
@@ -4333,17 +4450,15 @@ def phase_resume(card: str) -> dict:
     finally:
         data.close()
     got_loss = [h["loss"] for h in b.history]
-    assert got_loss[0] == want[2], (got_loss, want)
-    assert abs(got_loss[1] - want[3]) <= 1e-5 * abs(want[3]), (got_loss, want)
+    assert got_loss == want[2:], (got_loss, want)
     assert b.ckpt.steps() == [2, 4]
     log(f"[resume] qwen2-1.5b bf16 {TRAIN_BATCH} x {TRAIN_SEQ}: A's losses {want}; B resumed "
         f"at step {start} in {resume_s * 1e3:.1f} ms (values and moments bit-equal to A's at "
-        f"2), its losses {got_loss} (step 3 bit-equal, step 4 |rel| "
-        f"{abs(got_loss[1] - want[3]) / abs(want[3]):.2e}); a save: host copy "
+        f"2), its losses {got_loss} (steps 3 and 4 bit-equal); a save: host copy "
         f"{copy_s * 1e3:.1f} ms on the training thread, file write {write_s * 1e3:.1f} ms "
         f"behind it ({nbytes:,} bytes) [{card}]")
     out = {"card": card, "losses_a": want, "losses_b": got_loss, "resume_s": resume_s,
-           "save_copy_s": copy_s, "save_write_s": write_s, "bytes": nbytes}
+           "save_copy_s": copy_s, "save_write_s": write_s, "bytes": nbytes, **dx}
     with open(os.path.join(OUT_DIR, "train_resume.json"), "w") as f:
         json.dump(out, f, indent=1)
     shutil.rmtree(SCRATCH, ignore_errors=True)
@@ -4901,6 +5016,388 @@ def phase_lora_export(card: str) -> None:
         f"requests ({sum(map(len, got))} tokens) [{card}]")
 
 
+# ------------------------------------------------- serving production lifecycle
+
+# chaos at full width: the CPU grid's knobs (tests/test_torch_chaos.py) and
+# the first seed from 0 up that, on the gate run's schedule, fires all three
+# engine-side injections and leaves requests to survive (seed 0 storms no
+# deadline; seed 7, the grid's, cancels or expires all 10)
+LIFECYCLE_CHAOS = dict(seed=1, cancel_prob=0.3, deadline_prob=0.2, pressure_prob=0.5,
+                       pressure_frac=0.9)
+# the fairness run: a hot tenant's requests, then a cold tenant's, each of
+# FAIR_PROMPT tokens and FAIR_NEW new
+FAIR_HOT, FAIR_COLD, FAIR_PROMPT, FAIR_NEW = 12, 4, 200, 16
+# a request whose deadline passes mid-decode: its timeout (seconds) and budget
+MID_DECODE_TIMEOUT, MID_DECODE_NEW = 1.0, 200
+
+
+def trace_latency(tracer, reqs) -> dict:
+    """Exact per-request latency from a lifecycle trace (µs): TTFT is the
+    first_token instant less the submit instant; every later token arrives
+    at the end of the decode span that emitted it (a mixed step's one-token
+    ``decode`` span included). Returns TTFT a request, the gap to each
+    step's arrivals ("burst": one a step that emitted) and the even split
+    of each gap over the tokens that step brought (ITL a token)."""
+    by_rid = collections.defaultdict(list)
+    for e in tracer.events:
+        by_rid[e["rid"]].append(e)
+    ttft, burst, itl = [], [], []
+    for r in reqs:
+        ev = by_rid[r.rid]
+        submit = next(e["ts"] for e in ev if e["name"] == "submit")
+        last = next(e["ts"] for e in ev if e["name"] == "first_token")
+        ttft.append(last - submit)
+        arrived = 1
+        for e in ev:
+            n = e["args"].get("tokens", 0) if e["name"] == "decode" else 0
+            if n:
+                gap = e["ts"] + e["dur"] - last
+                burst.append(gap)
+                itl += [gap / n] * n
+                last = e["ts"] + e["dur"]
+                arrived += n
+        assert arrived == len(r.out), (r.rid, arrived, len(r.out))
+    return {"ttft": ttft, "burst": burst, "itl": itl}
+
+
+def held_to_gate(what: str, model, eng, reqs, off_outs, prompts) -> int:
+    """Hold requests that ran on another schedule than the gate run's (a
+    cancel, a deadline or an arrival moves which step, mixed or decode,
+    computes a token) to its tokens: each identical, or parted at a
+    near-tie of the teacher-forced logits as ``divergence_gaps`` judges
+    (bf16 products of another row count may round the other way). Logs
+    every parting; returns how many were identical."""
+    gaps = divergence_gaps(model, eng, reqs, [off_outs[r.rid] for r in reqs], prompts)
+    for rid, i, gap, ulps, near in gaps:
+        log(f"[serve-lifecycle] {what} rid {rid} parts from the gate run at token {i}: top-2 "
+            f"gap {gap:.5f} = {ulps:.2f} bf16 ulps, both within {SPEC_TIE_ULPS}: {near}")
+    assert all(near for *_, near in gaps), f"{what}: a parting off a near-tie: {gaps}"
+    return len(reqs) - len(gaps)
+
+
+def quantiles_ms(values_us) -> dict:
+    return {f"p{int(q * 100)}": percentile(values_us, q) / 1e3 for q in (0.5, 0.95)}
+
+
+async def http_open(port: int, method: str, path: str, body=None):
+    """One HTTP/1.1 request over loopback: (status, headers, reader, writer)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode() if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: t\r\n"
+                 f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    headers = {}
+    while True:
+        line = await reader.readline()
+        if line in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = line.decode().partition(":")
+        headers[k.strip().lower()] = v.strip()
+    return status, headers, reader, writer
+
+
+async def http_body(port: int, method: str, path: str, body=None):
+    status, headers, reader, writer = await http_open(port, method, path, body)
+    raw = await reader.readexactly(int(headers["content-length"]))
+    writer.close()
+    return status, raw
+
+
+async def sse_tokens(reader, limit: int = 1 << 20) -> tuple[list, str]:
+    """Tokens of an SSE stream up to its done event (at most ``limit``),
+    and the done event's reason (None when the limit came first)."""
+    toks = []
+    while len(toks) < limit:
+        line = await asyncio.wait_for(reader.readline(), timeout=120)
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            ev = json.loads(line[6:])
+            if ev.get("done"):
+                return toks, ev["reason"]
+            toks.append(ev["token"])
+    return toks, None
+
+
+def front_end_run(model, params, tenants, prompts, max_new, kw) -> dict:
+    """The 10 gate prompts streamed concurrently over SSE through
+    ``ServeFrontend`` on port 0, each with its tenant; one (rid 1) cancelled
+    after its first token; ``/metrics`` read; ``/admin/shutdown`` drains."""
+    eng = engine_for(model, params, tenants, [], max_new, "cuda", **kw)
+    out = {"engine": eng}
+
+    async def scenario():
+        front = ServeFrontend(eng, port=0)
+        port = await front.start()
+        opened = [await http_open(port, "POST", "/v1/generate",
+                                  {"prompt": p, "max_new": max_new,
+                                   "adapter_id": i % (len(tenants) + 1)})
+                  for i, p in enumerate(prompts)]
+        assert all(o[0] == 200 for o in opened), [o[0] for o in opened]
+        rids = [int(o[1]["x-request-id"]) for o in opened]
+        first, _ = await sse_tokens(opened[1][2], limit=1)
+        st, body = await http_body(port, "POST", "/v1/cancel", {"rid": rids[1]})
+        assert st == 200 and json.loads(body)["cancelled"], body
+        streams = await asyncio.gather(*(sse_tokens(o[2]) for o in opened))
+        for o in opened:
+            o[3].close()
+        st, text = await http_body(port, "GET", "/metrics")
+        assert st == 200
+        samples = {}
+        for line in text.decode().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+        st, _ = await http_body(port, "POST", "/admin/shutdown")
+        assert st == 200
+        await front.serve()  # returns after the drain; raises the engine thread's error
+        out.update(rids=rids, streams=[(first + t if i == 1 else t, reason)
+                                       for i, (t, reason) in enumerate(streams)],
+                   samples=samples, fatal=front._fatal)
+
+    asyncio.run(scenario())
+    return out
+
+
+def serve_lifecycle(card: str, stamp, gate: dict | None = None) -> dict:
+    """Slice 14's phase on the qwen2 paged bf16 gate run (``gate`` as
+    phase_full returns it; built here when alone): instrumentation's host
+    operations and cost, the registry and trace against the run, TTFT and
+    ITL of a window, fifo against drr, seeded chaos, deadlines on the real
+    clock, the SSE front end and the launcher's observability flags."""
+    t_phase = time.perf_counter()
+    if gate is None:
+        model, params, tenants, prompts, max_new, kw = gate_inputs()
+        serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
+        n_ops, tally, (_, reqs) = host_ops(
+            lambda: serve(model, params, tenants, prompts, max_new, "cuda", **kw))
+        assert n_ops == GATE_OPS, (n_ops, GATE_OPS)
+        gate = dict(model=model, params=params, tenants=tenants, prompts=prompts,
+                    max_new=max_new, kw=kw, tally=tally, off_outs=[r.out for r in reqs])
+    model, params, tenants, prompts = (gate[k] for k in ("model", "params", "tenants",
+                                                         "prompts"))
+    max_new, kw, off_outs = gate["max_new"], gate["kw"], gate["off_outs"]
+    run = lambda **extra: serve(model, params, tenants, prompts, max_new, "cuda",  # noqa: E731
+                                **kw, **extra)
+    result = {"card": card}
+
+    # 1. instrumentation dispatches nothing: metrics off, and on with a tracer
+    for tag, extra in (("metrics off", {"metrics": False}), ("tracer", {"tracer": Tracer()})):
+        n_ops, tally, (eng, reqs) = host_ops(lambda: run(**extra))
+        moved = {k: (gate["tally"].get(k, 0), tally.get(k, 0))
+                 for k in set(tally) | set(gate["tally"])
+                 if tally.get(k, 0) != gate["tally"].get(k, 0)}
+        assert not moved and n_ops == GATE_OPS, (tag, n_ops, moved)
+        assert [r.out for r in reqs] == off_outs, f"{tag}: tokens moved"
+    log(f"[serve-lifecycle] gate run with metrics off and with metrics and a tracer: "
+        f"{GATE_OPS} host operations each, op by op those of metrics on (the default); "
+        f"the same greedy tokens [{card}]")
+
+    # 2. the registry and the trace against the traced run
+    reg, tracer = eng.metrics, eng.tracer
+    n_tok = sum(len(r.out) for r in reqs)
+    assert eng.transfers == eng.steps == reg.value("serve_transfers_total"), \
+        (eng.transfers, eng.steps)
+    assert reg.get("serve_tokens_total").total == n_tok
+    want = collections.Counter((str(r.adapter_id), r.reason) for r in reqs)
+    got = {(s["labels"]["tenant"], s["labels"]["reason"]): s["value"]
+           for s in reg.snapshot()["serve_requests_finished_total"]["series"]}
+    assert got == want and sum(want.values()) == len(prompts), (got, want)
+    assert reg.get("serve_ttft_seconds").count == len(prompts)
+    assert reg.get("serve_itl_seconds").count == n_tok - len(prompts)
+    assert reg.value("serve_pool_blocks_free") == eng.kv.num_blocks
+    assert reg.value("serve_pool_blocks_used") == 0 and eng.kv.drained()
+    finishes = sorted(e["rid"] for e in tracer.events if e["name"] == "finish")
+    assert finishes == sorted(r.rid for r in reqs), finishes
+    log(f"[serve-lifecycle] registry of the traced gate run: {eng.steps} transfers = steps, "
+        f"{n_tok} tokens, finished {dict(collections.Counter(r.reason for r in reqs))}, "
+        f"TTFT count {len(prompts)}, ITL count {n_tok - len(prompts)}, pool gauges "
+        f"{eng.kv.num_blocks} free / 0 used; {len(tracer)} trace events, one finish a "
+        f"request [{card}]")
+
+    # 3. deadlines on the real clock, on that idle engine (its EMA measured)
+    ema = eng.step_seconds_ema
+    assert ema is not None and ema > 0
+    try:
+        eng.submit(prompts[0], max_new=8, timeout=ema / 10)
+        raise AssertionError("a request with a timeout below a step was admitted")
+    except QueueFullError as e:
+        assert "deadline unreachable" in str(e), e
+    assert eng.metrics.get("serve_requests_shed_total").labels("deadline").value == 1
+    t0 = time.perf_counter()
+    rid = eng.submit(prompts[0], max_new=MID_DECODE_NEW, timeout=MID_DECODE_TIMEOUT)
+    late = eng.scheduler.get(rid)
+    eng.run_to_completion()
+    waited = time.perf_counter() - t0
+    assert late.reason == "deadline" and 0 < len(late.out) < MID_DECODE_NEW, \
+        (late.reason, len(late.out))
+    assert eng.metrics.get("serve_deadline_expired_total").labels("decode").value == 1
+    assert eng.kv.drained() and eng.transfers == eng.steps
+    log(f"[serve-lifecycle] deadlines: step EMA {ema * 1e3:.2f} ms; a {ema / 10 * 1e3:.2f} ms "
+        f"timeout shed at intake; a {MID_DECODE_TIMEOUT:.1f} s timeout ended mid-decode "
+        f"after {len(late.out)} of {MID_DECODE_NEW} tokens ({waited:.3f} s), pool drained "
+        f"[{card}]")
+    result["deadline"] = {"ema_ms": ema * 1e3, "tokens": len(late.out), "wall_s": waited}
+    stamp("serve lifecycle: counts, registry, deadlines")
+
+    # 4. what instrumentation costs on this host-bound engine: off / on / traced
+    walls = {"off": [], "on": [], "traced": []}
+    for _ in range(3):
+        for tag in walls:
+            extra = {"off": {"metrics": False}, "on": {}, "traced": {"tracer": Tracer()}}[tag]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, timed = run(**extra)
+            torch.cuda.synchronize()
+            walls[tag].append(time.perf_counter() - t0)
+            assert [r.out for r in timed] == off_outs
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    result["instrumentation_s"] = walls
+    log(f"[serve-lifecycle] gate run wall, 3 each in turn: metrics off {med['off']:.3f} s, "
+        f"on {med['on']:.3f} s ({med['on'] / med['off']:.4f}x), on + tracer "
+        f"{med['traced']:.3f} s ({med['traced'] / med['off']:.4f}x); runs "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in walls.items()})} [{card}]")
+
+    # 5. exact TTFT and ITL of the 16 x 64 window from its trace
+    rng = np.random.default_rng(13)
+    lens = rng.integers(40, 701, size=WINDOW_REQUESTS)
+    wprompts = [rng.integers(3, model.cfg.vocab_size, size=int(n)).tolist() for n in lens]
+    t0 = time.perf_counter()
+    weng, wreqs = serve(model, params, tenants, wprompts, WINDOW_NEW, "cuda", tracer=Tracer(),
+                        **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat = trace_latency(weng.tracer, wreqs)
+    w_tok = sum(len(r.out) for r in wreqs)
+    result["window"] = {"tok_s": w_tok / wall, "ttft_ms": quantiles_ms(lat["ttft"]),
+                        "itl_ms": quantiles_ms(lat["itl"]), "burst_ms": quantiles_ms(lat["burst"]),
+                        "itl_mean_ms": float(np.mean(lat["itl"])) / 1e3,
+                        "hist_ttft_p50_ms": weng.metrics.get("serve_ttft_seconds").quantile(0.5)
+                        * 1e3}
+    w = result["window"]
+    log(f"[serve-lifecycle] window {WINDOW_REQUESTS} x {WINDOW_NEW} traced: {w_tok} tokens in "
+        f"{wall:.3f} s ({w['tok_s']:.1f} tok/s); TTFT p50 {w['ttft_ms']['p50']:.1f} ms, p95 "
+        f"{w['ttft_ms']['p95']:.1f} ms; ITL a token (a step's gap split over its tokens) p50 "
+        f"{w['itl_ms']['p50']:.2f} ms, p95 {w['itl_ms']['p95']:.2f} ms, mean "
+        f"{w['itl_mean_ms']:.2f} ms; gap between a request's token arrivals p50 "
+        f"{w['burst_ms']['p50']:.1f} ms, p95 {w['burst_ms']['p95']:.1f} ms [{card}]")
+
+    # 6. fairness: a hot tenant's requests ahead of a cold tenant's
+    rng = np.random.default_rng(17)
+    fprompts = [rng.integers(3, model.cfg.vocab_size, size=FAIR_PROMPT).tolist()
+                for _ in range(FAIR_HOT + FAIR_COLD)]
+    result["fairness"] = {}
+    for policy in ("fifo", "drr"):
+        store = AdapterStore(base_params=params)
+        for i, (idx, val) in enumerate(tenants):
+            store.register(idx, val, name=f"tenant{i + 1}")
+        feng = ServeEngine(model, params, adapter_store=store, device="cuda", tracer=Tracer(),
+                           fairness=policy, **kw)
+        aids = [1] * FAIR_HOT + [2] * FAIR_COLD
+        freqs = [feng.scheduler.get(feng.submit(p, max_new=FAIR_NEW, adapter_id=a))
+                 for p, a in zip(fprompts, aids)]
+        feng.run_to_completion()
+        assert all(r.reason in ("eos", "max_new") for r in freqs) and feng.kv.drained()
+        ttft = trace_latency(feng.tracer, freqs)["ttft"]
+        result["fairness"][policy] = {
+            "cold_ttft_ms": float(np.mean(ttft[FAIR_HOT:])) / 1e3,
+            "hot_ttft_ms": float(np.mean(ttft[:FAIR_HOT])) / 1e3, "steps": feng.steps}
+    f = result["fairness"]
+    log(f"[serve-lifecycle] fairness, {FAIR_HOT} hot then {FAIR_COLD} cold requests of "
+        f"{FAIR_PROMPT} + {FAIR_NEW} tokens: cold tenant's mean TTFT fifo "
+        f"{f['fifo']['cold_ttft_ms']:.1f} ms, drr {f['drr']['cold_ttft_ms']:.1f} ms; hot "
+        f"tenant's fifo {f['fifo']['hot_ttft_ms']:.1f} ms, drr {f['drr']['hot_ttft_ms']:.1f} ms "
+        f"[{card}]")
+    stamp("serve lifecycle: cost, window, fairness")
+
+    # 7. chaos at full width
+    chaos = ChaosMonkey(**LIFECYCLE_CHAOS)
+    reset_counters()
+    with forwards_never_wait(model):
+        ceng, creqs = run(chaos=chaos)
+    for name, c in COUNTERS.items():
+        assert name not in SERVING or c.kernel > 0, f"chaos run never launched {name}"
+        assert c.plain == 0, f"chaos run called the plain version of {name}"
+    survivors = [r for r in creqs if r.reason in ("eos", "max_new")]
+    assert all(r.done and r.reason in ("eos", "max_new", "cancelled", "deadline")
+               for r in creqs), [(r.rid, r.reason) for r in creqs]
+    assert survivors, "chaos left no request to hold to the gate run"
+    same = held_to_gate("chaos survivor", model, ceng, survivors, off_outs, prompts)
+    assert ceng.kv.drained() and ceng.kv.stolen_blocks == 0
+    assert sum(chaos.injected.values()) > 0 and ceng.transfers == ceng.steps
+    reasons = dict(collections.Counter(r.reason for r in creqs))
+    result["chaos"] = {"injected": chaos.injected, "reasons": reasons,
+                       "preemptions": ceng.preemptions, "steps": ceng.steps}
+    log(f"[serve-lifecycle] chaos (seed {LIFECYCLE_CHAOS['seed']}): injected "
+        f"{json.dumps(chaos.injected)}, reasons {json.dumps(reasons)}, preemptions "
+        f"{ceng.preemptions}; {same} of {len(survivors)} survivors token-identical to the gate "
+        f"run, the others parted at a near-tie; pool drained, "
+        f"nothing stolen; launches {json.dumps({n: COUNTERS[n].kernel for n in SERVING})}, "
+        f"plain 0; {ceng.transfers} transfers = steps [{card}]")
+
+    # 8. the SSE front end on the card
+    with forwards_never_wait(model):
+        front = front_end_run(model, params, tenants, prompts, max_new, kw)
+    feng = front["engine"]
+    assert front["fatal"] is None and feng.draining and feng.kv.drained()
+    streams = front["streams"]
+    assert streams[1][1] == "cancelled" and 0 < len(streams[1][0]) < max_new, streams[1]
+    assert all(reason in ("eos", "max_new") for i, (_, reason) in enumerate(streams) if i != 1)
+    kept = [types.SimpleNamespace(rid=i, out=toks, adapter_id=i % (len(tenants) + 1))
+            for i, (toks, _) in enumerate(streams) if i != 1]
+    same = held_to_gate("stream", model, feng, kept, off_outs, prompts)
+    samples = front["samples"]
+    assert samples["serve_transfers_total"] == feng.steps
+    assert samples['serve_requests_cancelled_total{phase="decode"}'] + \
+        samples['serve_requests_cancelled_total{phase="prefill"}'] == 1
+    log(f"[serve-lifecycle] SSE front end: 10 gate prompts streamed concurrently, rid 1 "
+        f"cancelled after {len(streams[1][0])} tokens; {same} of the other 9 streams "
+        f"token-identical to the gate run, the others parted at a near-tie; /metrics {len(samples)} samples ({feng.steps} transfers = steps); drained "
+        f"by /admin/shutdown, _fatal None, forwards under the sync guard [{card}]")
+
+    # 9. the launcher's observability flags at full width
+    out_dir = os.path.join(SCRATCH, "serve")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    paths = {k: os.path.join(out_dir, n) for k, n in
+             (("metrics", "metrics.json"), ("trace", "trace.jsonl"), ("profile", "profile"))}
+    argv = ["--arch", "qwen2-1.5b", "--prompts", ";".join(",".join(map(str, p))
+                                                          for p in prompts[:3]),
+            "--max-new", "8", "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--prefill-chunk", str(PREFILL_CHUNK), "--decode-chunk", str(DECODE_CHUNK),
+            "--page-size", str(PAGE), "--metrics-every", "2",
+            "--metrics-out", paths["metrics"], "--trace-out", paths["trace"],
+            "--profile-dir", paths["profile"]]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        launch_serve.main(argv)
+    wall = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    snap = json.load(open(paths["metrics"]))
+    events = [json.loads(ln) for ln in open(paths["trace"])]
+    prof = [os.path.join(paths["profile"], n) for n in os.listdir(paths["profile"])]
+    chrome = json.load(open(prof[0]))
+    n_kernels = sum(1 for e in chrome["traceEvents"] if e.get("cat") == "kernel")
+    assert sum(s["value"] for s in snap["serve_requests_finished_total"]["series"]) == 3
+    assert sum(e["name"] == "finish" for e in events) == 3
+    assert any(ln.startswith("[metrics] step=") for ln in lines)
+    assert len(prof) == 1 and n_kernels > 0, (prof, n_kernels)
+    sizes = {k: sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(p) for f in fs)
+             if os.path.isdir(p) else os.path.getsize(p) for k, p in paths.items()}
+    log(f"[serve-lifecycle] launch/serve.py at full width, 3 prompts x 8 new ({wall:.1f} s with "
+        f"init): --metrics-out {len(snap)} families, --trace-out {len(events)} events, "
+        f"--profile-dir a Chrome trace with {n_kernels} device kernels; bytes "
+        f"{json.dumps(sizes)} [{card}]")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    with open(os.path.join(OUT_DIR, "serve_lifecycle.json"), "w") as fh:
+        json.dump(result, fh, indent=1)
+    stamp("serve lifecycle: chaos, front end, launcher")
+    return result
+
+
 def peft_slice(card: str, train: dict, stamp) -> dict:
     """Slice 13's phases: the methods and strategies card vs CPU at reduced
     size, the full-width method table and memory gate, the strategies'
@@ -4993,6 +5490,13 @@ def main() -> int:
     if sys.argv[1:] == ["--delta-variants"]:
         delta_variants(card)
         return 0
+    if sys.argv[1:] == ["--sparse-dx"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        sparse_dx_variants(card)
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
+        return 0
     if sys.argv[1:] == ["--lifecycle"]:
         secs, build_log = build.timed_build()
         log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
@@ -5015,6 +5519,16 @@ def main() -> int:
         summary = {"topk_select": {}}
         selection_modes(gen, dev, summary, [], card)
         peft_slice(card, {"bf16": phase_train(card, "bf16")}, lambda name: None)
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
+        return 0
+    if sys.argv[1:] == ["--serve-lifecycle"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        stamps = [("build", time.perf_counter())]
+        serve_lifecycle(card, lambda name: stamps.append((name, time.perf_counter())))
+        log("[timing] seconds by phase: " + ", ".join(
+            f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
         with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
             f.write("\n".join(LOG) + "\n")
         return 0
@@ -5048,8 +5562,10 @@ def main() -> int:
     log("[reduced] paged and dense int8 KV: identical greedy tokens on the card")
     phase_reduced_spec()
     stamp("reduced serving")
-    launches, packed_serving = phase_full(card)
+    launches, packed_serving, gate = phase_full(card)
     stamp("full serving")
+    serve_lifecycle(card, stamp, gate)
+    del gate
     for base in ("bf16",) + PACKED:
         phase_reduced_train(card, base)
     phase_reduced_train(card, "bf16", flash=True)

@@ -166,8 +166,8 @@ def _kept(launch):
 class _FusedLinear(torch.autograd.Function):
     """Forward: the fused kernel. Backward, as the reference's
     ``_fused_bwd``: ``dx = dy @ Wᵀ`` (a plain matmul, as the reference
-    leaves it to XLA) plus the sparse scatter of the bypass (plain
-    ``index_add_``, as the reference's ``sparse_delta_dx_ref``); ``dval``
+    leaves it to XLA) plus the sparse scatter of the bypass (the plain,
+    deterministic ``sparse_delta_dx_ref``); ``dval``
     from the value-gradient kernel, written in the values' dtype; ``dbias =
     Σ_m dy``; a ``dw`` only for a W declared trainable. Gradients are
     computed only for the inputs that need them."""

@@ -11,6 +11,8 @@ wrapper lands here.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from repro_torch.quant.qtensor import dequantize_f32
@@ -86,22 +88,58 @@ def sparse_delta_dval_ref(x, idx, dy):
     return torch.einsum("mko,mo->ko", xg, dy.float())
 
 
+_DX_PLANS: dict = {}
+
+
+def _dx_plan(idx, d_in: int):
+    """(rows, order, offsets) of the sparse dx for ``idx`` (B, k, d_out):
+    ``order`` sorts the terms p = (b, j, o) stably by their column b·d_in +
+    idx, ``rows`` is the dy row b·d_out + o of each sorted term, and
+    ``offsets`` bounds each of the B·d_in columns' runs.
+
+    idx is frozen through training, so a plan is made once and kept while
+    the tensor lives. Training passes a new view of the stacked (L, ...)
+    leaf each step, so plans are kept by the view's base and its place in
+    it, and made anew after an in-place change (the version the views
+    share)."""
+    base = idx if idx._base is None else idx._base
+    entry = _DX_PLANS.get(id(base))
+    if entry is None or entry[0]() is not base:
+        i = id(base)
+        entry = _DX_PLANS[i] = (weakref.ref(base, lambda _: _DX_PLANS.pop(i, None)), {})
+    key = (idx.storage_offset(), tuple(idx.shape), idx.stride(), d_in)
+    hit = entry[1].get(key)
+    if hit is not None and hit[0] == idx._version:
+        return hit[1]
+    idx3 = idx if idx.ndim == 3 else idx[None]
+    b, k, d_out = idx3.shape
+    dev = idx.device
+    col = (idx3.long() + torch.arange(b, device=dev).view(b, 1, 1) * d_in).reshape(-1)
+    order = torch.argsort(col, stable=True)
+    rows = order // (k * d_out) * d_out + order % d_out
+    offsets = torch.searchsorted(col[order], torch.arange(b * d_in + 1, device=dev))
+    entry[1][key] = (idx._version, (rows, order, offsets))
+    return rows, order, offsets
+
+
 def sparse_delta_dx_ref(idx, val, dy, d_in: int):
-    """dx[m, i] = Σ_{(j, o): idx[j, o] = i} dy[m, o] · val[j, o]: a float32
-    scatter-add of the k·d_out terms of each row (``index_add_``). With a
-    leading batch axis (idx/val (B, k, d_out), dy (B, M, d_out)) each batch
-    scatters into its own (M, d_in) rows."""
-    if dy.ndim == 3:
-        b, m, _ = dy.shape
-        kd = idx.shape[1] * idx.shape[2]
-        upd = (dy.float()[:, :, None, :] * val.float()[:, None]).reshape(b, m, kd)
-        ind = idx.long().reshape(b, 1, kd).expand(b, m, kd)
-        dx = torch.zeros((b, m, d_in), dtype=torch.float32, device=dy.device)
-        return dx.scatter_add_(2, ind, upd)
-    m = dy.shape[0]
-    upd = (dy.float()[:, None, :] * val.float()[None]).reshape(m, -1)
-    dx = torch.zeros((m, d_in), dtype=torch.float32, device=dy.device)
-    return dx.index_add_(1, idx.reshape(-1).long(), upd)
+    """dx[m, i] = Σ_{(j, o): idx[j, o] = i} dy[m, o] · val[j, o] in float32
+    -> (M, d_in). With a leading batch axis (idx/val (B, k, d_out), dy (B,
+    M, d_out)) each batch sums into its own (M, d_in) rows.
+
+    Deterministic on every device: the terms, sorted by column once for an
+    ``idx`` (``_dx_plan``), are summed column by column in (j, o) order by
+    a segment sum, the order of a sequential ``index_add_``. A CUDA
+    ``index_add_`` / ``scatter_add_`` adds them by float atomics in no fixed
+    order, so two backwards of one step could differ in their last bits.
+    The result is a transposed view of a (d_in, M) tensor."""
+    rows, order, offsets = _dx_plan(idx, d_in)
+    batched = dy.ndim == 3
+    b, m, d_out = dy.shape if batched else (1, *dy.shape)
+    dy_t = dy.transpose(-1, -2).reshape(b * d_out, m)
+    upd = dy_t.index_select(0, rows) * val.reshape(-1).index_select(0, order).float()[:, None]
+    dx_t = torch.segment_reduce(upd, "sum", offsets=offsets, axis=0, unsafe=True)
+    return dx_t.view(b, d_in, m).transpose(1, 2) if batched else dx_t.t()
 
 
 def gather_paged_kv(pool, table):

@@ -26,24 +26,51 @@ tree written by ``repro_torch.checkpoint.save_pytree``, e.g. from
 the weights are random from seed 0.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
+
+Observability (DESIGN §13): ``--metrics-out m.prom`` (Prometheus text;
+``.json`` for the snapshot) and ``--trace-out t.json`` (Chrome trace-event
+JSON; ``.jsonl`` for one event a line) dump the run's metrics and request
+trace on exit; ``--metrics-every N`` prints a one-line digest every N steps;
+``--profile-dir d`` runs the batch under ``torch.profiler`` (CPU and, on
+the card, CUDA activities) and writes its Chrome trace into ``d``. None of
+it adds a device operation to a step.
+
+``--serve [--port P]`` runs the SSE front end instead of a batch
+(:class:`~repro_torch.serve.ServeFrontend`: ``POST /v1/generate``,
+``/v1/cancel``, ``GET /metrics``, ``/healthz``, ``POST /admin/shutdown``);
+``--queue-limit`` bounds its backlog and ``--fairness drr`` admits tenants
+in deficit round robin.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import contextlib
+import os
 
 from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS, get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
+from repro_torch.obs import Tracer
 from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
 from repro_torch.quant import tree_bytes
-from repro_torch.serve import DRAFT_MODES, KV_DTYPES, AdapterStore, ServeEngine
+from repro_torch.serve import (
+    DRAFT_MODES,
+    KV_DTYPES,
+    POLICIES,
+    AdapterStore,
+    ServeEngine,
+    ServeFrontend,
+)
 from repro_torch.tree import map_leaves
 
 
 def validate_args(args) -> None:
-    """Reject bad flag combinations before any model is built."""
+    """Reject bad flag combinations before any model is built; every
+    refusal the reference's launcher makes, with its words, and a few of
+    the port's own."""
     if args.decode_chunk < 1:
         raise SystemExit(f"--decode-chunk must be >= 1, got {args.decode_chunk}")
     if args.prefill_chunk < 1:
@@ -60,23 +87,49 @@ def validate_args(args) -> None:
         raise SystemExit(f"--top-p must be in [0, 1], got {args.top_p}")
     if args.temperature < 0:
         raise SystemExit(f"--temperature must be >= 0, got {args.temperature}")
-    prompts = [p for p in args.prompts.split(";") if p]
-    if not prompts:
-        raise SystemExit("--prompts holds no prompt")
-    for p in prompts:
-        if not any(t.strip() for t in p.split(",")):
-            raise SystemExit(f"--prompts entry {p!r} holds no token ids")
     if args.quant_block < 2 or args.quant_block % 2:
         raise SystemExit(f"--quant-block must be even and >= 2, got {args.quant_block}")
-    if args.kv_dtype not in KV_DTYPES:
-        raise SystemExit(f"--kv-dtype {args.kv_dtype!r} must be one of {', '.join(KV_DTYPES)}")
     if args.draft not in DRAFT_MODES:
         raise SystemExit(f"--draft {args.draft!r} must be one of {', '.join(DRAFT_MODES)}")
     if args.spec_k < 1:
         raise SystemExit(f"--spec-k must be >= 1, got {args.spec_k}")
+    if args.kv_dtype not in KV_DTYPES:
+        raise SystemExit(f"--kv-dtype {args.kv_dtype!r} must be one of {', '.join(KV_DTYPES)}")
     if args.draft == "merged" and not args.adapters:
-        raise SystemExit("--draft merged drafts with the mean of the registered tenants and "
-                         "so needs --adapters; use --draft int8/nf4/ngram without tenants")
+        raise SystemExit(
+            "--draft merged drafts with the mean of the registered tenants "
+            "and so needs --adapters; use --draft int8/nf4 for a "
+            "single-model (quantized self-draft) setup")
+    if args.metrics_every < 0:
+        raise SystemExit(f"--metrics-every must be >= 0, got {args.metrics_every}")
+    if args.port is not None:
+        if not args.serve:
+            raise SystemExit("--port needs --serve")
+        if not 0 <= args.port <= 65535:
+            raise SystemExit(f"--port must be in [0, 65535], got {args.port}")
+    if args.queue_limit is not None and args.queue_limit < 1:
+        raise SystemExit(f"--queue-limit must be >= 1, got {args.queue_limit}")
+    if args.fairness not in POLICIES:
+        raise SystemExit(f"--fairness {args.fairness!r} must be one of {', '.join(POLICIES)}")
+    prompts = [p for p in args.prompts.split(";") if p]
+    for p in prompts:
+        if not any(t.strip() for t in p.split(",")):
+            raise SystemExit(f"--prompts entry {p!r} holds no token ids")
+    if not prompts and not args.serve:
+        for flag, val in (("--metrics-out", args.metrics_out), ("--trace-out", args.trace_out),
+                          ("--profile-dir", args.profile_dir)):
+            if val:
+                raise SystemExit(f"{flag} needs a serve run to observe; --prompts is empty")
+        raise SystemExit("--prompts holds no prompt")
+    if args.profile_dir:
+        parent = os.path.dirname(os.path.abspath(args.profile_dir))
+        if not os.path.isdir(parent):
+            raise SystemExit(f"--profile-dir parent {parent!r} does not exist")
+    for flag, path in (("--metrics-out", args.metrics_out), ("--trace-out", args.trace_out)):
+        if path:
+            parent = os.path.dirname(os.path.abspath(path))
+            if not os.path.isdir(parent):
+                raise SystemExit(f"{flag} parent {parent!r} does not exist")
     _validate_adapter_ids(args, prompts)
     if args.dense:
         if args.paged:
@@ -97,7 +150,7 @@ def validate_args(args) -> None:
 
 
 def _validate_adapter_ids(args, prompts) -> None:
-    if args.adapter_ids:
+    if args.adapter_ids and not args.serve:
         n_ids = len(args.adapter_ids.split(","))
         if n_ids != len(prompts):
             raise SystemExit(f"--adapter-ids has {n_ids} entries for {len(prompts)} prompts")
@@ -152,9 +205,47 @@ def build_parser() -> argparse.ArgumentParser:
                          "one of " + ", ".join(DRAFT_MODES))
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens a slot a speculative round")
+    ap.add_argument("--metrics-out", default="",
+                    help="dump the metrics registry here on exit: .json = snapshot (with "
+                         "histogram p50/p95), any other extension = Prometheus text")
+    ap.add_argument("--trace-out", default="",
+                    help="dump the request-lifecycle trace here on exit: .jsonl = one event "
+                         "a line, any other extension = Chrome trace-event JSON (Perfetto)")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    help="print a one-line metrics digest every N serve steps (0 = off)")
+    ap.add_argument("--profile-dir", default="",
+                    help="run the batch under torch.profiler (CPU and CUDA activities) and "
+                         "write its Chrome trace into this directory")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the SSE front end instead of a batch: POST /v1/generate, "
+                         "/v1/cancel, GET /metrics, /healthz, POST /admin/shutdown drains; "
+                         "--prompts is ignored")
+    ap.add_argument("--port", type=int, default=None,
+                    help="front-end TCP port (needs --serve; 0 = ephemeral, default 8000)")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="bound the admission backlog: submits past it are shed (HTTP 503 + "
+                         "Retry-After under --serve, QueueFullError from the API)")
+    ap.add_argument("--fairness", default="fifo",
+                    help="admission policy: fifo = global arrival order, drr = per-tenant "
+                         "deficit round robin; one of " + ", ".join(POLICIES))
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain versions)")
     return ap
+
+
+def _metrics_line(engine, step: int) -> str:
+    """One-line digest of the live registry for ``--metrics-every``."""
+    v = engine.metrics.value
+    fin = engine.metrics.get("serve_requests_finished_total")
+    sub = engine.metrics.get("serve_requests_submitted_total")
+    line = (f"[metrics] step={step} finished={int(fin.total)}/{int(sub.total)}"
+            f" queue={int(v('serve_queue_depth'))} active={int(v('serve_slots_active'))}"
+            f" transfers={int(v('serve_transfers_total'))}"
+            f" compiles={int(v('serve_jit_compiles'))}")
+    if engine.paged:
+        used = int(v("serve_pool_blocks_used"))
+        line += f" pool={used}/{used + int(v('serve_pool_blocks_free'))}"
+    return line
 
 
 def main(argv=None):
@@ -180,6 +271,7 @@ def main(argv=None):
         store = AdapterStore(base_params=params)
         for path in args.adapters.split(","):
             print(f"tenant {store.register(*load_adapter(path), name=path)}: {path}")
+    tracer = Tracer() if args.trace_out else None
     engine = ServeEngine(
         model, params, slots=args.slots, max_len=args.max_len,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
@@ -187,8 +279,12 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk,
         page_size=16 if args.page_size is None else args.page_size,
         num_blocks=args.num_blocks, paged=not args.dense, kv_dtype=args.kv_dtype,
-        draft=args.draft, spec_k=args.spec_k, device=device,
+        draft=args.draft, spec_k=args.spec_k, tracer=tracer,
+        queue_limit=args.queue_limit, fairness=args.fairness, device=device,
     )
+    if args.serve:
+        _serve_http(engine, args, tracer)
+        return
     prompts = [p for p in args.prompts.split(";") if p]
     n_tenants = store.num_adapters if store is not None else 0
     if args.adapter_ids:
@@ -198,7 +294,14 @@ def main(argv=None):
     for p, aid in zip(prompts, ids):
         engine.submit([int(t) for t in p.split(",") if t.strip()], max_new=args.max_new,
                       adapter_id=aid)
-    for req in engine.run_to_completion():
+    reqs = engine.scheduler.in_flight()
+    with _profiled(args.profile_dir, device):
+        steps = 0
+        while engine.step():
+            steps += 1
+            if args.metrics_every and steps % args.metrics_every == 0:
+                print(_metrics_line(engine, steps))
+    for req in reqs:
         tenant = "base" if req.adapter_id == 0 else f"tenant{req.adapter_id}"
         print(f"req{req.rid} [{tenant}]: prompt={req.prompt} -> {req.out}")
     layout = "paged" if engine.paged else "dense"
@@ -209,6 +312,64 @@ def main(argv=None):
         rate = engine.spec_accepted / max(engine.spec_drafted, 1)
         print(f"spec[{args.draft} k={args.spec_k}]: drafted={engine.spec_drafted} "
               f"accepted={engine.spec_accepted} ({rate:.0%}) emitted={engine.spec_emitted}")
+    _dump_obs(engine, tracer, args)
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, device):
+    """``--profile-dir``: the batch under ``torch.profiler`` (CPU activity,
+    and CUDA on the card), its Chrome trace written into ``profile_dir``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile written to {path}")
+
+
+def _dump_obs(engine, tracer, args) -> None:
+    """Flush --metrics-out / --trace-out (after the drain in serve mode, so
+    the dumps cover every request the server handled)."""
+    if args.metrics_out:
+        text = (engine.metrics.dump_json() if args.metrics_out.endswith(".json")
+                else engine.metrics.expose())
+        with open(args.metrics_out, "w") as f:
+            f.write(text)
+        print(f"metrics written to {args.metrics_out}")
+    if args.trace_out:
+        tracer.write(args.trace_out)
+        print(f"trace written to {args.trace_out} ({len(tracer)} events)")
+
+
+def _serve_http(engine, args, tracer) -> None:
+    """--serve: run the SSE front end until a graceful shutdown (POST
+    /admin/shutdown or Ctrl-C) drains the engine."""
+    front = ServeFrontend(engine, port=8000 if args.port is None else args.port)
+
+    async def run():
+        port = await front.start()
+        print(f"serving on http://{front.host}:{port} "
+              f"(POST /v1/generate streams SSE; POST /admin/shutdown drains)", flush=True)
+        try:
+            await front.serve()
+        except KeyboardInterrupt:
+            await front.shutdown()
+            await front.serve()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    print("server drained")
+    _dump_obs(engine, tracer, args)
 
 
 if __name__ == "__main__":

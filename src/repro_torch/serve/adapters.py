@@ -45,6 +45,10 @@ class AdapterStore:
         self._stacked: dict = {}  # device -> (idx_tree, val_tree)
         self._base = base_params
         self.removals = 0  # bumped by remove(): ids shift
+        # full re-stacks of the tenant trees (the engine's
+        # serve_adapter_stack_builds gauge): one a register/remove and
+        # device, never one a step
+        self.stack_builds = 0
 
     @property
     def num_adapters(self) -> int:
@@ -127,6 +131,7 @@ class AdapterStore:
             return None
         device = torch.device(device)
         if device not in self._stacked:
+            self.stack_builds += 1
             base_val = map_leaves(lambda v: None if v is None else torch.zeros_like(v),
                                   self._values[0])
             idx_all = [self._indices[0], *self._indices]

@@ -46,9 +46,23 @@ positions a slot, so every row a rejected draft wrote is already the
 slot's. Still one device-to-host transfer a megastep. A model drafter also
 takes every mixed step's chunk into its scratch (its k/v only, no head).
 
-Out of the port so far: tensor parallelism, metrics and tracing,
-deadlines, fairness policies and cancellation (the reference's engine has
-them).
+Observability (DESIGN §13) is host-side by construction: every counter,
+gauge, histogram and trace span derives from the step's one fetched bundle
+or from host bookkeeping (queue, pool free list, the clock), so metrics
+and tracing add no device operation and no transfer. ``metrics=False``
+swaps in the no-op registry; ``tracer=None`` (the default) skips tracing.
+
+The request lifecycle (DESIGN §16): ``submit(deadline=, timeout=)`` with
+deadline-aware shedding, a bounded queue (``queue_limit``), per-tenant
+token buckets (:meth:`set_rate_limit`), ``fairness="fifo"|"drr"``
+admission, :meth:`cancel` wherever a request is, the boundary deadline
+sweep, :meth:`drain`, and a seeded :class:`~repro_torch.serve.chaos.ChaosMonkey`
+called at the top of every step. Every request leaves through
+:meth:`_terminate`. One clock (``clock=``, else the tracer's, else
+:func:`repro_torch.obs.now`) stamps requests, histograms, deadlines and
+spans alike.
+
+Out of the port so far: tensor parallelism (the reference's engine has it).
 """
 
 from __future__ import annotations
@@ -61,15 +75,35 @@ import torch
 import repro_torch.obs.clock as _clock
 from repro_torch.core.delta import BatchedDelta
 from repro_torch.device import resolve_device
+from repro_torch.obs import MetricsRegistry, NullRegistry, Tracer
 from repro_torch.peft import BASE_DTYPES, quantize_base
 from repro_torch.serve.adapters import AdapterStore
 from repro_torch.serve.draft import DRAFT_MODES, build_draft_params
 from repro_torch.serve.kv_cache import KV_DTYPES, DraftKVCache, KVCache, PagedKVCache
 from repro_torch.serve.sampler import Sampler
-from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.scheduler import (
+    POLICIES,
+    QueueFullError,
+    RateLimitedError,
+    Request,
+    Scheduler,
+)
 from repro_torch.tree import map_leaves
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["QueueFullError", "RateLimitedError", "Request", "ServeEngine"]
+
+
+def _finite_or_raise(name: str, value):
+    """None passes through; anything else must coerce to a finite float."""
+    if value is None:
+        return None
+    try:
+        value = float(value)
+    except (TypeError, ValueError):
+        raise ValueError(f"{name} must be a finite number, got {value!r}") from None
+    if not math.isfinite(value):
+        raise ValueError(f"{name} must be a finite number, got {value!r}")
+    return value
 
 
 class ServeEngine:
@@ -102,6 +136,13 @@ class ServeEngine:
         kv_dtype: str = "fp32",
         draft: str = "off",
         spec_k: int = 4,
+        metrics: MetricsRegistry | bool | None = None,
+        tracer: Tracer | None = None,
+        queue_limit: int | None = None,
+        fairness: str = "fifo",
+        quantum: int = 256,
+        chaos=None,
+        clock=None,
         device=None,
     ):
         if decode_chunk < 1:
@@ -120,6 +161,8 @@ class ServeEngine:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if draft == "merged" and (adapter_store is None or adapter_store.num_adapters == 0):
             raise ValueError("draft='merged' needs an adapter store with registered tenants")
+        if fairness not in POLICIES:
+            raise ValueError(f"fairness {fairness!r} not in {POLICIES}")
         self.device = resolve_device(device)
         self.model = model
         self.params = map_leaves(lambda t: None if t is None else t.to(self.device), params)
@@ -132,7 +175,36 @@ class ServeEngine:
         self.store = adapter_store
         self.decode_chunk = decode_chunk
         self.prefill_chunk = min(prefill_chunk, max_len)
-        self.scheduler = Scheduler(slots)
+        # one registry an engine unless the caller shares one; False swaps
+        # in the no-op registry. The transfer, preemption and spec tallies
+        # live in it, re-exported as read-only properties.
+        if metrics is None or metrics is True:
+            self.metrics = MetricsRegistry()
+        elif metrics is False:
+            self.metrics = NullRegistry()
+        else:
+            self.metrics = metrics
+        self.tracer = tracer
+        self._queued_ts: dict[int, float] = {}  # rid -> the tracer's enqueue ts
+        # one clock for every lifecycle timestamp: an explicit clock= wins,
+        # else the tracer's (spans and histograms share a source), else
+        # repro_torch.obs.clock
+        if clock is not None:
+            self.clock = clock
+        elif tracer is not None:
+            self.clock = tracer.clock
+        else:
+            self.clock = _clock.now
+        self.chaos = chaos
+        self.draining = False  # graceful shutdown: intake closed
+        # seconds-a-step EMA for deadline-aware admission (None until
+        # measured). The first step of each kind never feeds it: that step
+        # loads the kernel library and creates cuBLAS's handles, seconds
+        # that would shed every deadline-bearing request.
+        self.step_seconds_ema: float | None = None
+        self._step_timed: set[str] = set()
+        self.scheduler = Scheduler(slots, policy=fairness, queue_limit=queue_limit,
+                                   quantum=quantum, clock=self.clock)
         self.paged = paged
         self.kv_dtype = kv_dtype
         if paged:
@@ -152,45 +224,287 @@ class ServeEngine:
                                                quant_block=quant_block)
         self.draft_kv = (None if self.draft_params is None
                          else DraftKVCache(model, slots, max_len, self.device))
-        self.transfers = 0  # device-to-host fetches: one per step
         self.steps = 0
-        self.preemptions = 0
-        self.preemptions_mid_prefill = 0  # of them, victims still owing prompt chunks
-        # drafter proposals (spec_k a live slot-round) and those accepted
-        self.spec_drafted = self.spec_accepted = 0
         self.step_times: dict[str, list[float]] = {"mixed": [], "decode": [], "spec": []}
         self.emitted = {kind: 0 for kind in self.step_times}  # tokens by step kind
+        self._obs_init()
+
+    # ------------------------------------------------ observability (§13)
+
+    def _obs_init(self) -> None:
+        """Bind every metric child once, with the reference's series names
+        and labels: the hot path touches bound instruments only. Step-kind
+        series carry ``kind`` (mixed | decode | spec), request series
+        ``tenant`` (the adapter id as a string, ``0`` = base)."""
+        reg = self.metrics
+        self._c_transfers = reg.counter(
+            "serve_transfers_total",
+            "Device-to-host fetches (exactly one per compiled step).")
+        steps = reg.counter("serve_steps_total", "Compiled serving steps.", labels=("kind",))
+        toks = reg.counter("serve_tokens_total", "Tokens emitted.", labels=("kind",))
+        secs = reg.histogram("serve_step_seconds", "Compiled-step wall time.", labels=("kind",))
+        kinds = ("mixed", "decode", "spec")
+        self._c_step = {k: steps.labels(k) for k in kinds}
+        self._c_tokens = {k: toks.labels(k) for k in kinds}
+        self._h_step = {k: secs.labels(k) for k in kinds}
+        self._c_submitted = reg.counter(
+            "serve_requests_submitted_total", "Requests accepted by submit().",
+            labels=("tenant",))
+        self._c_admitted = reg.counter(
+            "serve_requests_admitted_total",
+            "Queue-to-slot admissions (re-admissions after preemption included).",
+            labels=("tenant",))
+        self._c_finished = reg.counter(
+            "serve_requests_finished_total", "Completed requests by termination reason.",
+            labels=("tenant", "reason"))
+        shed = reg.counter(
+            "serve_requests_shed_total",
+            "Requests refused at intake or admission (never a slot): bounded-queue "
+            "overflow, tenant rate limit, or a deadline that cannot be met.",
+            labels=("reason",))
+        self._c_shed = {k: shed.labels(k) for k in ("queue_full", "rate_limit", "deadline")}
+        cancelled = reg.counter(
+            "serve_requests_cancelled_total",
+            "cancel() calls that found a live request (mid-queue, mid-prefill or "
+            "mid-decode).", labels=("phase",))
+        self._c_cancelled = {k: cancelled.labels(k) for k in ("queued", "prefill", "decode")}
+        expired = reg.counter(
+            "serve_deadline_expired_total",
+            "Requests evicted by the boundary deadline sweep.", labels=("phase",))
+        self._c_expired = {k: expired.labels(k) for k in ("queued", "prefill", "decode")}
+        pre = reg.counter(
+            "serve_preemptions_total", "Block-pool OOM evictions back to the queue head.",
+            labels=("phase",))
+        self._c_preempt = {"decode": pre.labels("decode"), "prefill": pre.labels("prefill")}
+        self._c_tenant_tokens = reg.counter(
+            "serve_tenant_tokens_total", "Tokens emitted per tenant (adapter id 0 = base).",
+            labels=("tenant",))
+        self._h_ttft = reg.histogram("serve_ttft_seconds", "Submit-to-first-token latency.")
+        self._h_itl = reg.histogram(
+            "serve_itl_seconds",
+            "Inter-token latency (host arrival; tokens sharing a megastep split its "
+            "wall evenly).")
+        self._g_queue = reg.gauge("serve_queue_depth", "Requests waiting for a slot.")
+        self._g_active = reg.gauge("serve_slots_active", "Slots holding an admitted request.")
+        self._g_tenants = reg.gauge("serve_tenants_registered", "Adapters in the tenant store.")
+        # the port compiles no step variants: the series stays (the serve
+        # launcher's digest reads it) at 0
+        reg.gauge("serve_jit_compiles",
+                  "Compiled variants across all step functions (jit cache entries); "
+                  "flat after warmup.")
+        self._g_stack_builds = reg.gauge(
+            "serve_adapter_stack_builds",
+            "Full tenant-tree re-stacks (should track register/remove count, not step "
+            "count).")
+        reg.gauge("serve_tp_size",
+                  "Tensor-parallel shards serving this engine (1 = unsharded).").set(1)
+        reg.gauge("serve_pool_bytes",
+                  "Effective packed KV cache/pool bytes (data + scales) across all shards "
+                  "(logical total).", labels=("kv_dtype",)
+                  ).labels(self.kv_dtype).set(self.kv.pool_bytes())
+        reg.gauge("serve_pool_bytes_per_shard",
+                  "Effective packed KV cache/pool bytes ONE shard holds (total / TP "
+                  "sharded).", labels=("kv_dtype",)
+                  ).labels(self.kv_dtype).set(self.kv.pool_bytes_per_shard())
+        if self.paged:
+            self._g_pool_used = reg.gauge("serve_pool_blocks_used", "KV pool blocks allocated.")
+            self._g_pool_free = reg.gauge("serve_pool_blocks_free",
+                                          "KV pool blocks on the free list.")
+            self._g_pool_shared = reg.gauge("serve_pool_shared_blocks",
+                                            "Blocks referenced by >1 slot (live prefix reuse).")
+            self._c_prefix_hit = reg.counter(
+                "serve_prefix_pages_hit_total",
+                "Admission prompt pages dedup'd against resident blocks.")
+            self._c_prefix_fresh = reg.counter(
+                "serve_prefix_pages_fresh_total", "Admission prompt pages freshly allocated.")
+            self._scraped_prefix = (0, 0)
+        if self.draft != "off":
+            self._c_spec_drafted = reg.counter("serve_spec_drafted_total",
+                                               "Drafter proposals (all slots).")
+            self._c_spec_accepted = reg.counter("serve_spec_accepted_total",
+                                                "Proposals the verifier accepted.")
+            self._c_spec_emitted = reg.counter("serve_spec_emitted_total",
+                                               "Tokens emitted through the speculative path.")
+            self._h_spec_accept = reg.histogram(
+                "serve_spec_accept_len",
+                "Accepted-prefix length per live slot-round (0..spec_k).",
+                buckets=tuple(float(i) for i in range(self.spec_k + 1)))
+
+    def _update_gauges(self) -> None:
+        """Refresh the point-in-time gauges after a step from host state
+        (queue, slots, the pool's free list and host refcounts)."""
+        self._g_queue.set(self.scheduler.queue_depth)
+        self._g_active.set(sum(r is not None for r in self.scheduler.active))
+        if self.store is not None:
+            self._g_tenants.set(self.store.num_adapters)
+            self._g_stack_builds.set(self.store.stack_builds)
+        if self.paged:
+            self._g_pool_used.set(self.kv.used_blocks)
+            self._g_pool_free.set(self.kv.free_blocks)
+            self._g_pool_shared.set(self.kv.shared_blocks)
+            hits, fresh = self.kv.prefix_page_hits, self.kv.prefix_page_fresh
+            h0, f0 = self._scraped_prefix
+            self._c_prefix_hit.inc(hits - h0)
+            self._c_prefix_fresh.inc(fresh - f0)
+            self._scraped_prefix = (hits, fresh)
+
+    def _emit_token(self, req: Request, tok: int, now: float) -> None:
+        """Append one emitted token and observe its latency: the first token
+        of a request TTFT, a later one ITL (tokens of one step arrive at the
+        host together, at ``now``). A clock that read 0.0 at the previous
+        token observes no ITL, as in the reference."""
+        req.out.append(tok)
+        if len(req.out) == 1:
+            self._h_ttft.observe(now - req.t_submit)
+            if self.tracer is not None:
+                self.tracer.instant(req.rid, "first_token")
+        elif req.t_last:
+            self._h_itl.observe(now - req.t_last)
+        req.t_last = now
+        self._c_tenant_tokens.labels(str(req.adapter_id)).inc()
+
+    # ---------------------------------------- registry-backed telemetry
+
+    @property
+    def transfers(self) -> int:
+        """Device-to-host fetches: one a step (0 under ``metrics=False``)."""
+        return int(self._c_transfers.value)
+
+    @property
+    def preemptions(self) -> int:
+        """Block-pool evictions back to the queue (paged only), all phases."""
+        return int(self._c_preempt["decode"].value + self._c_preempt["prefill"].value)
+
+    @property
+    def preemptions_mid_prefill(self) -> int:
+        """Of them, victims still owing prompt chunks."""
+        return int(self._c_preempt["prefill"].value)
+
+    @property
+    def spec_drafted(self) -> int:
+        """Drafter proposals: spec_k a live slot-round."""
+        return int(self._c_spec_drafted.value) if self.draft != "off" else 0
+
+    @property
+    def spec_accepted(self) -> int:
+        return int(self._c_spec_accepted.value) if self.draft != "off" else 0
 
     @property
     def spec_emitted(self) -> int:
         """Tokens the speculative megasteps emitted."""
-        return self.emitted["spec"]
+        return int(self._c_spec_emitted.value) if self.draft != "off" else 0
 
     # ------------------------------------------------------------- intake
 
     def submit(self, prompt: list[int], max_new: int = 32, *, adapter_id: int = 0,
-               temperature: float | None = None) -> int:
-        """Enqueue one request; raises ValueError on a malformed one."""
+               temperature: float | None = None, deadline: float | None = None,
+               timeout: float | None = None) -> int:
+        """Enqueue one request. ``timeout`` (seconds from now) is sugar for
+        an absolute ``deadline`` on the engine clock; a request whose
+        deadline passes, queued or admitted, ends at the next step boundary
+        with reason "deadline". Raises ValueError on a malformed request,
+        :class:`QueueFullError` / :class:`RateLimitedError` on a shed (both
+        carry ``retry_after``), RuntimeError once :meth:`drain` closed
+        intake."""
         if not prompt:
             raise ValueError("empty prompt")
         if max_new <= 0:
             raise ValueError(f"max_new must be positive, got {max_new}")
+        if self.draining:
+            raise RuntimeError("engine is draining: intake closed")
         if len(prompt) > self.max_len - 1:
             raise ValueError(f"prompt length {len(prompt)} >= max_len {self.max_len}")
         n_reg = self.store.num_adapters if self.store is not None else 0
         if not 0 <= adapter_id <= n_reg:
             raise ValueError(f"adapter_id {adapter_id} not registered (have {n_reg} + base)")
+        # coerced here: a bad value is a ValueError at intake, never a crash
+        # inside step() (which would end a whole server)
+        temperature = _finite_or_raise("temperature", temperature)
+        deadline = _finite_or_raise("deadline", deadline)
+        timeout = _finite_or_raise("timeout", timeout)
+        if timeout is not None:
+            if timeout <= 0:
+                raise ValueError(f"timeout must be positive, got {timeout}")
+            deadline = self.clock() + timeout
+        if deadline is not None and self.step_seconds_ema is not None:
+            # deadline-aware admission: a request needs about one step for a
+            # token even if admitted at once; shed it now if the deadline
+            # cannot cover that
+            if deadline - self.clock() < self.step_seconds_ema:
+                self._c_shed["deadline"].inc()
+                raise QueueFullError(
+                    self.scheduler.queue_depth, self.scheduler.queue_limit, retry_after=0.0,
+                    reason="deadline unreachable: "
+                    f"{max(deadline - self.clock(), 0.0):.3f}s left, "
+                    f"steps take ~{self.step_seconds_ema:.3f}s")
         temp = self.temperature if temperature is None else temperature
         try:
-            temp = float(temp)
-        except (TypeError, ValueError):
-            raise ValueError(f"temperature must be a finite number, got {temp!r}") from None
-        if not math.isfinite(temp):
-            raise ValueError(f"temperature must be a finite number, got {temp!r}")
-        return self.scheduler.submit(
-            prompt, max_new, adapter_id=adapter_id, temperature=temp,
-            store_rev=self.store.removals if self.store is not None else 0,
-        )
+            rid = self.scheduler.submit(
+                prompt, max_new, adapter_id=adapter_id, temperature=temp,
+                store_rev=self.store.removals if self.store is not None else 0,
+                deadline=deadline)
+        except QueueFullError:
+            self._c_shed["queue_full"].inc()
+            raise
+        except RateLimitedError:
+            self._c_shed["rate_limit"].inc()
+            raise
+        self._c_submitted.labels(str(adapter_id)).inc()
+        self._g_queue.set(self.scheduler.queue_depth)
+        if self.tracer is not None:
+            ts = self.tracer.now()
+            self.tracer.instant(rid, "submit", ts=ts, prompt_tokens=len(prompt),
+                                max_new=max_new, tenant=adapter_id)
+            self._queued_ts[rid] = ts
+        return rid
+
+    def set_rate_limit(self, adapter_id: int, rate: float, burst: float | None = None) -> None:
+        """Per-tenant token bucket: ``rate`` submits a second sustained,
+        ``burst`` headroom; a violator gets :class:`RateLimitedError`."""
+        self.scheduler.set_rate_limit(adapter_id, rate, burst=burst)
+
+    # -------------------------------------------- cancellation and deadlines
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel one request wherever it is (queued, mid-prefill or
+        mid-decode), reclaiming its slot and pages as a preemption does,
+        without the re-queue. False when the rid is unknown or already
+        terminal. Between steps only: the front end routes cancels through
+        its engine thread."""
+        req = self.scheduler.get(rid)
+        if req is None or req.done:
+            return False
+        req.cancelled = True
+        slot = self.scheduler.slot_of(rid)
+        if slot is None:
+            phase = "queued"
+            self.scheduler.remove_queued(rid)
+        else:
+            phase = "prefill" if req.mid_prefill else "decode"
+        self._c_cancelled[phase].inc()
+        self._terminate(slot, req, "cancelled")
+        self._g_queue.set(self.scheduler.queue_depth)
+        return True
+
+    def _expire_deadlines(self) -> None:
+        """Boundary sweep before admission: every in-flight request whose
+        deadline has passed, queued or admitted, ends with reason
+        "deadline" (so an expired request never takes a slot)."""
+        now = self.clock()
+        for req in self.scheduler.expired_queued(now):
+            self._c_expired["queued"].inc()
+            self._terminate(None, req, "deadline")
+        for slot, req in enumerate(self.scheduler.active):
+            if req is not None and req.deadline is not None and req.deadline <= now:
+                self._c_expired["prefill" if req.mid_prefill else "decode"].inc()
+                self._terminate(slot, req, "deadline")
+        self._g_queue.set(self.scheduler.queue_depth)
+
+    def drain(self) -> list[Request]:
+        """Graceful shutdown: close intake, run every in-flight request to
+        its end, return them (the pool is then fully free)."""
+        self.draining = True
+        return self.run_to_completion()
 
     def _check_adapter_ids(self) -> None:
         """A ``store.remove()`` shifts ids: a request validated against an
@@ -221,6 +535,20 @@ class ServeEngine:
             req.prefilled = min(shared_lead, req.prefill_target - 1)
         return True
 
+    def _admit(self) -> None:
+        """Admission round: queued requests enter free slots (paged: when
+        the pool covers them), counted and traced."""
+        placed = self.scheduler.admissible(self._try_place if self.paged else None)
+        for slot, req in placed:
+            self._c_admitted.labels(str(req.adapter_id)).inc()
+            if self.tracer is not None:
+                now = self.tracer.now()
+                t_q = self._queued_ts.pop(req.rid, now)
+                self.tracer.span(req.rid, "queued", t_q, now)
+                self.tracer.instant(req.rid, "admitted", ts=now, slot=slot,
+                                    resume=bool(req.out), prefill_target=req.prefill_target,
+                                    prefilled=req.prefilled)
+
     def _decode_horizon(self) -> int:
         """How far one decode megastep can move a slot's position: a token
         a step plain, spec_k accepted drafts and one more a round
@@ -235,12 +563,22 @@ class ServeEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One mixed chunk step or one decode megastep over all active
-        slots; False when nothing is admitted or queued."""
+        slots; False when nothing is admitted or queued. Chaos injections,
+        the deadline sweep and admission run first, at the boundary."""
+        if self.chaos is not None:
+            # before the sweep (a stormed deadline expires this step) and
+            # before admission (stolen blocks refuse placements this step)
+            self.chaos.on_step(self)
+        self._expire_deadlines()
         self._check_adapter_ids()
-        self.scheduler.admissible(self._try_place if self.paged else None)
+        self._admit()
         if not self.scheduler.has_active():
+            if self.chaos is not None:
+                # this step's injections may have ended the last request:
+                # hand stolen blocks back before reporting idle
+                self.chaos.release(self)
             return False
-        t0 = _clock.now()
+        t0 = self.clock()
         if self.scheduler.has_prefilling():
             kind = "mixed"
             self._chunk_step()
@@ -250,8 +588,20 @@ class ServeEngine:
         else:
             kind = "decode"
             self._decode_step()
-        self.step_times[kind].append(_clock.now() - t0)
+        dt = self.clock() - t0
+        self.step_times[kind].append(dt)
         self.steps += 1
+        self._h_step[kind].observe(dt)
+        self._c_step[kind].inc()
+        # the EMA behind deadline-aware admission skips each kind's first
+        # step and later spikes of more than 10x the estimate
+        if kind not in self._step_timed:
+            self._step_timed.add(kind)
+        elif self.step_seconds_ema is None:
+            self.step_seconds_ema = dt
+        elif dt < 10.0 * self.step_seconds_ema:
+            self.step_seconds_ema = 0.9 * self.step_seconds_ema + 0.1 * dt
+        self._update_gauges()
         return True
 
     def run_to_completion(self) -> list[Request]:
@@ -267,7 +617,7 @@ class ServeEngine:
 
     def _fetch(self, bundle: torch.Tensor) -> np.ndarray:
         """The step's one device-to-host transfer."""
-        self.transfers += 1
+        self._c_transfers.inc()
         return bundle.cpu().numpy()
 
     def _adapters(self, aid: np.ndarray):
@@ -292,6 +642,7 @@ class ServeEngine:
     def _chunk_step(self) -> None:
         """Mixed prefill+decode step: carve the chunk plan, pre-reserve the
         decode slots' next position (paged), run the chunk forward, sample."""
+        tr0 = self.tracer.now() if self.tracer is not None else 0.0
         if self.paged:
             self._reserve(1)
         plan = self.scheduler.chunk_plan(self.prefill_chunk, self.kv.pos_host)
@@ -312,18 +663,29 @@ class ServeEngine:
         toks = self._fetch(self.sampler(logits, self._tensor(plan["temps"]), self.generator))
         # positions advance to q_offset + q_len; the host mirrors them
         self.kv.sync(q_offset + q_len, plan["q_offset"] + plan["q_len"])
+        now = self.clock()
+        tr1 = self.tracer.now() if self.tracer is not None else 0.0
+        n_emit = 0
         for s, req in enumerate(self.scheduler.active):
             if req is None:
                 continue
             take = int(plan["q_len"][s])
             if take and req.mid_prefill:
+                if self.tracer is not None:
+                    self.tracer.span(req.rid, "prefill_chunk", tr0, tr1, tokens=take,
+                                     offset=int(plan["q_offset"][s]))
                 req.prefilled += take
                 if self.paged:
                     self.kv.mark_prefilled(s, req.prefilled)
+            elif take and self.tracer is not None:
+                # a decode slot riding the mixed step as a one-token chunk
+                self.tracer.span(req.rid, "decode", tr0, tr1, tokens=1, mixed=True)
             if plan["emit"][s]:
-                req.out.append(int(toks[s]))
-                self.emitted["mixed"] += 1
+                n_emit += 1
+                self._emit_token(req, int(toks[s]), now)
                 self._maybe_finish(s, req)
+        self.emitted["mixed"] += n_emit
+        self._c_tokens["mixed"].inc(n_emit)
 
     def _reserve(self, horizon: int) -> None:
         """Give every decode slot pages up to ``pos + horizon`` (capped at
@@ -347,14 +709,20 @@ class ServeEngine:
         if sum(r is not None for r in self.scheduler.active) <= 1:
             raise RuntimeError("paged KV pool cannot hold a single request's chunk")
         req = self.scheduler.active[victim]
-        self.preemptions += 1
-        self.preemptions_mid_prefill += req.mid_prefill
+        phase = "prefill" if req.mid_prefill else "decode"
+        self._c_preempt[phase].inc()
+        if self.tracer is not None:
+            now = self.tracer.now()
+            self.tracer.instant(req.rid, "preempt", phase=phase, slot=victim,
+                                tokens_done=len(req.out))
+            self._queued_ts[req.rid] = now  # back at the queue head: queued again
         self.scheduler.preempt(victim)
         self.kv.evict(victim)
 
     def _decode_step(self) -> None:
         """Decode megastep: up to ``decode_chunk`` tokens per slot with the
         token, position, budget and active mask carried on the device."""
+        tr0 = self.tracer.now() if self.tracer is not None else 0.0
         if self.paged:
             self._reserve(self._decode_horizon())
         st = self.scheduler.slot_arrays()
@@ -385,12 +753,22 @@ class ServeEngine:
         emits_np = host[c * n: 2 * c * n].reshape(c, n).astype(bool)
         pos_np = host[2 * c * n: 2 * c * n + n]
         active_np = host[2 * c * n + n:].astype(bool)
+        now = self.clock()
+        tr1 = self.tracer.now() if self.tracer is not None else 0.0
         self.kv.sync(pos, pos_np)
+        n_emit = 0
         for t in range(c):
             for s, req in enumerate(self.scheduler.active):
                 if req is not None and emits_np[t, s]:
-                    req.out.append(int(toks_np[t, s]))
-                    self.emitted["decode"] += 1
+                    self._emit_token(req, int(toks_np[t, s]), now)
+                    n_emit += 1
+        self.emitted["decode"] += n_emit
+        self._c_tokens["decode"].inc(n_emit)
+        if self.tracer is not None:
+            for s, req in enumerate(self.scheduler.active):
+                if req is not None:
+                    self.tracer.span(req.rid, "decode", tr0, tr1,
+                                     tokens=int(emits_np[:, s].sum()))
         for s, req in enumerate(self.scheduler.active):
             if req is not None and not active_np[s]:
                 self._finish(s, req)
@@ -401,6 +779,7 @@ class ServeEngine:
         """Speculative decode megastep: ``decode_chunk`` draft / verify /
         accept rounds over all active slots, then the (round, slot, K + 1)
         emissions replayed into the requests from one fetched bundle."""
+        tr0 = self.tracer.now() if self.tracer is not None else 0.0
         if self.paged:
             self._reserve(self._decode_horizon())
         st = self.scheduler.slot_arrays()
@@ -425,20 +804,37 @@ class ServeEngine:
         pos_np, active_np, toks, emits, accs, lives = np.split(host, np.cumsum(sizes)[:-1])
         toks, emits = toks.reshape(r, n, c), emits.reshape(r, n, c).astype(bool)
         accs, lives = accs.reshape(r, n), lives.reshape(r, n).astype(bool)
+        now = self.clock()
+        tr1 = self.tracer.now() if self.tracer is not None else 0.0
         self.kv.sync(bundle[:n], pos_np)
+        n_emit = 0
+        slot_rounds, slot_tokens, slot_accepted = [0] * n, [0] * n, [0] * n
         for t in range(r):
             for s, req in enumerate(self.scheduler.active):
                 if req is None:
                     continue
                 if lives[t, s]:
+                    acc = int(accs[t, s])
                     req.spec_drafted += self.spec_k
-                    req.spec_accepted += int(accs[t, s])
-                    self.spec_drafted += self.spec_k
-                    self.spec_accepted += int(accs[t, s])
+                    req.spec_accepted += acc
+                    self._c_spec_drafted.inc(self.spec_k)
+                    self._c_spec_accepted.inc(acc)
+                    self._h_spec_accept.observe(acc)
+                    slot_rounds[s] += 1
+                    slot_accepted[s] += acc
                 for j in range(c):
                     if emits[t, s, j]:
-                        req.out.append(int(toks[t, s, j]))
-                        self.emitted["spec"] += 1
+                        self._emit_token(req, int(toks[t, s, j]), now)
+                        self._c_spec_emitted.inc()
+                        n_emit += 1
+                        slot_tokens[s] += 1
+        self.emitted["spec"] += n_emit
+        self._c_tokens["spec"].inc(n_emit)
+        if self.tracer is not None:
+            for s, req in enumerate(self.scheduler.active):
+                if req is not None:
+                    self.tracer.span(req.rid, "spec_round", tr0, tr1, rounds=slot_rounds[s],
+                                     accepted=slot_accepted[s], tokens=slot_tokens[s])
         for s, req in enumerate(self.scheduler.active):
             if req is not None and not active_np[s]:
                 self._finish(s, req)
@@ -583,14 +979,30 @@ class ServeEngine:
             self._finish(slot, req)
 
     def _finish(self, slot: int, req: Request) -> None:
-        """Complete a request at its stop (EOS | max_new | cache full, in
-        that order) and free its slot and pages."""
+        """Complete a request at its stop, classified as the device mask
+        fired it (EOS | max_new | cache full, in that order)."""
         if req.out and req.out[-1] == self.eos_id:
-            req.reason = "eos"
+            reason = "eos"
         elif len(req.out) >= req.max_new:
-            req.reason = "max_new"
+            reason = "max_new"
         else:
-            req.reason = "cache_full"
+            reason = "cache_full"
+        self._terminate(slot, req, reason)
+
+    def _terminate(self, slot: int | None, req: Request, reason: str) -> None:
+        """The one exit path of every request (DESIGN §16): stamp and count
+        its reason, trace it, and reclaim what it held: its slot and pages
+        when admitted (``slot`` given), nothing when it dies queued."""
+        req.reason = reason
         req.done = True
-        self.scheduler.complete(slot)
-        self.kv.evict(slot)
+        self._c_finished.labels(str(req.adapter_id), reason).inc()
+        if self.tracer is not None:
+            now = self.tracer.now()
+            t_q = self._queued_ts.pop(req.rid, None)
+            if t_q is not None and slot is None:
+                self.tracer.span(req.rid, "queued", t_q, now)  # died queued
+            self.tracer.instant(req.rid, "finish", ts=now, reason=reason,
+                                tokens=len(req.out))
+        if slot is not None:
+            self.scheduler.complete(slot)
+            self.kv.evict(slot)

@@ -40,8 +40,11 @@ def _check_kv_dtype(kv_dtype: str) -> None:
 
 
 def _pool_bytes(data: dict) -> int:
-    """Bytes of every cache leaf without its trash row (axis 1)."""
-    return sum(t.element_size() * t[:, :-1].numel() for t in data.values())
+    """Bytes of every cache leaf without its trash row (axis 1), from the
+    shapes alone: no tensor operation, so an engine's set-up dispatches
+    the same operations with its metrics on or off."""
+    return sum(t.element_size() * t.numel() // t.shape[1] * (t.shape[1] - 1)
+               for t in data.values())
 
 
 class KVCache:
@@ -60,6 +63,11 @@ class KVCache:
         the fp k/v) of the ``slots`` real slots — the trash slot is not
         counted."""
         return _pool_bytes(self.data)
+
+    def pool_bytes_per_shard(self) -> int:
+        """Bytes one tensor-parallel shard holds: the whole cache (the port
+        serves unsharded)."""
+        return self.pool_bytes()
 
     def full(self, slot: int) -> bool:
         return self.pos_host[slot] >= self.max_len - 1
@@ -130,15 +138,41 @@ class PagedKVCache:
         self._written = np.zeros((num_blocks,), np.bool_)
         self._table_dev = None  # device copies, re-uploaded after mutation
         self._wtable_dev = None
-        self.prefix_page_hits = 0  # full prompt pages shared at admission
+        # admission's page accounting, scraped into the engine's metrics:
+        # full prompt pages shared with a resident block, and pages freshly
+        # allocated
+        self.prefix_page_hits = 0
+        self.prefix_page_fresh = 0
+        # chaos pool pressure (DESIGN §16): free blocks held hostage by
+        # steal_blocks, unallocatable and owned by no slot
+        self._stolen: list[int] = []
 
     # ------------------------------------------------------------- queries
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    @property
+    def shared_blocks(self) -> int:
+        """Blocks referenced by more than one slot (live prefix reuse); the
+        refcounts are a host array, so this reads no device state."""
+        return int((self.refcount > 1).sum())
 
     def pool_bytes(self) -> int:
         """Pool bytes as the reference counts them: codes plus scales (or
         the fp k/v) of the ``num_blocks`` real blocks — the trash block is
         not counted."""
         return _pool_bytes(self.data)
+
+    def pool_bytes_per_shard(self) -> int:
+        """Bytes one tensor-parallel shard holds: the whole pool (the port
+        serves unsharded)."""
+        return self.pool_bytes()
 
     def blocks_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
@@ -228,6 +262,7 @@ class PagedKVCache:
         self.wtable[slot] = wrow
         self.alloc_count[slot] = n_pages
         self.prefix_page_hits += n_hit
+        self.prefix_page_fresh += n_pages - n_hit
         self._dirty()
         return shared_lead
 
@@ -272,11 +307,36 @@ class PagedKVCache:
         self.pos[slot] = 0
         self._dirty()
 
+    # -------------------------------------------- chaos hooks (DESIGN §16)
+
+    @property
+    def stolen_blocks(self) -> int:
+        return len(self._stolen)
+
+    def steal_blocks(self, n: int) -> int:
+        """Chaos pool pressure: pull up to ``n`` blocks off the free list and
+        hold them, unallocatable and owned by no slot, so reserve() and
+        admission come up short as in a fuller pool. Returns how many were
+        taken; :meth:`restore_blocks` gives them back."""
+        take = min(max(n, 0), len(self._free))
+        for _ in range(take):
+            self._stolen.append(self._free.pop())
+        return take
+
+    def restore_blocks(self, n: int | None = None) -> int:
+        """Return stolen blocks (all of them by default) to the free list."""
+        back = len(self._stolen) if n is None else min(n, len(self._stolen))
+        for _ in range(back):
+            self._free.append(self._stolen.pop())
+        return back
+
     def drained(self) -> bool:
         """Every block free with zero refcount, every table entry the
-        sentinel, no prefix registered."""
+        sentinel, no prefix registered, nothing stolen (so a leak cannot
+        pass for chaos pressure)."""
         return (
-            len(self._free) == self.num_blocks
+            not self._stolen
+            and len(self._free) == self.num_blocks
             and not self.refcount.any()
             and bool((self.table == self.num_blocks).all())
             and bool((self.wtable == self.num_blocks).all())

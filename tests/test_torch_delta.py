@@ -20,6 +20,11 @@ launches they replace, on the CPU.
 * ``sparse_delta_dval`` in the values' dtype equals the float32 result
   cast, and the bypass gradient of ``ops.delta_apply`` comes back in the
   values' dtype.
+* The sparse dx (``ref.sparse_delta_dx_ref``, 2-D and batched) equals a
+  sequential sum of each column's terms in (j, o) order bit for bit, with
+  columns hit many times and not at all, and the reference's scatter-add;
+  its column sort is kept for an ``idx`` (also across views of one place)
+  and redone after an in-place change.
 
 The ``gpu`` tests hold both CUDA kernels against their plain versions at
 ragged and path-like shapes, the fused epilogue against the three launches
@@ -36,12 +41,13 @@ import torch
 from repro.configs import get_config, reduced
 from repro.core.delta import BatchedDelta as JBatchedDelta
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import get_model as j_get_model
 from repro.models import layers as jlayers
 from repro.models import moe as jmoe
 from repro_torch.convert import to_tensor
 from repro_torch.core.delta import BatchedDelta
-from repro_torch.kernels import COUNTERS, ops, reset_counters
+from repro_torch.kernels import COUNTERS, ops, ref, reset_counters
 from repro_torch.kernels import sparse_delta as sd
 from repro_torch.models import layers, moe
 
@@ -298,6 +304,53 @@ def test_dval_in_values_dtype_equals_the_cast(x_dt, v_dt):
     ops.delta_apply(x, idx, val).backward(dy)
     assert val.grad.dtype == DT[v_dt]
     assert torch.equal(val.grad, got)
+
+
+def _dx_in_order(idx, val, dy, d_in):
+    """The sparse dx as a sequential loop: each column's terms added to 0 in
+    (j, o) order, in float32."""
+    dx = torch.zeros(dy.shape[0], d_in)
+    for j in range(idx.shape[0]):
+        for o in range(idx.shape[1]):
+            dx[:, idx[j, o]] += dy[:, o].float() * val[j, o].float()
+    return dx
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_sparse_dx_sums_each_column_in_order(batch, dtype):
+    # k·d_out = 26 terms over columns 0-4 of d_in 6: each column is hit
+    # about five times, the last one never
+    rng = np.random.default_rng(8)
+    b, m, k, d_in, d_out = batch or 1, 9, 2, 6, 13
+    idx = np.stack([np.stack([rng.permutation(d_in - 1)[:k] for _ in range(d_out)], 1)
+                    for _ in range(b)]).astype(np.int32)
+    val = both(rng.normal(size=(b, k, d_out)), dtype)[1]
+    dy = both(rng.normal(size=(b, m, d_out)), dtype)[1]
+    ti = torch.from_numpy(idx)
+    want = torch.stack([_dx_in_order(ti[i], val[i], dy[i], d_in) for i in range(b)])
+    if batch is None:
+        got = ref.sparse_delta_dx_ref(ti[0], val[0], dy[0], d_in)
+        assert got.shape == (m, d_in) and torch.equal(got, want[0])
+        oracle = jref.sparse_delta_dx_ref(jnp.asarray(idx[0]), jnp.asarray(val[0].float().numpy()),
+                                          jnp.asarray(dy[0].float().numpy()), d_in)
+        np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=2e-6, atol=2e-6)
+    else:
+        got = ref.sparse_delta_dx_ref(ti, val, dy, d_in)
+        assert got.shape == (b, m, d_in) and torch.equal(got, want)
+    # the column sort is kept for the tensor, found again from a new view of
+    # the same place, and made anew after an in-place change
+    idx_t = ti if batch else ti[0]
+    plan = ref._dx_plan(idx_t, d_in)
+    assert ref._dx_plan(idx_t, d_in) is plan
+    assert ref._dx_plan(ti if batch else ti[0], d_in) is plan
+    if not batch:
+        assert ref._dx_plan(ti[0], d_in - 1) is not plan
+    idx_t[..., 0, 0] = d_in - 1
+    assert ref._dx_plan(idx_t, d_in) is not plan
+    got = ref.sparse_delta_dx_ref(idx_t, val if batch else val[0], dy if batch else dy[0], d_in)
+    want = torch.stack([_dx_in_order(ti[i], val[i], dy[i], d_in) for i in range(b)])
+    assert torch.equal(got, want if batch else want[0])
 
 
 # ------------------------------------------------------------- on the card
