@@ -11,6 +11,7 @@
     python3 chip_smoke.py --peft
     python3 chip_smoke.py --serve-lifecycle
     python3 chip_smoke.py --sparse-dx
+    python3 chip_smoke.py --families
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -28,7 +29,7 @@ Hopper at their path shapes under the plans their planners pick among
 the value gradient's rows a tile, stages, blocks an SM and column spans).
 ``--sparse-dx`` runs the training backward's sparse-dx check and two
 resumes, then times the 4 x 512 step with the ordered dx and with the
-``index_add_`` it replaced, in turn.
+``index_add_`` it replaced, in turn. ``--families`` runs only phase 11.
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
@@ -218,7 +219,23 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
 10. the PEFT baselines and selection strategies (slice 13; also alone with
     ``--peft``): every method and strategy on reduced models card vs CPU,
     the full-width method table and memory gate against NeuroAda, the
-    strategies' selections at full width, LoRA's merged export served.
+    strategies' selections at full width, LoRA's merged export served;
+11. the VLM, SSM and hybrid families (slice 15; also alone with
+    ``--families``): the kernels at the shapes these paths first run them
+    at, each against its plain version (``fused_linear`` on both routes
+    and ``sparse_delta_dval`` at falcon-mamba's and zamba2's projections,
+    ``topk_select`` over their stacks, the dense decode at hd 80 group 1,
+    the flash forward's mma route at hd 80); the reduced twins card vs
+    CPU (three training steps; greedy tokens from prefill + decode with an
+    adapter); then qwen2-vl-2b, falcon-mamba-7b and zamba2-2.7b at full
+    published width and depth in bf16: selection (k = 1), 2 + 5 NeuroAda
+    steps (FAMILY_TRAIN: the VLM's batches a quarter patches with M-RoPE
+    positions; only ``fused_linear``, ``sparse_delta_dval`` and, on
+    zamba2's 1 x 2048, ``flash_attention_fwd``, as many as reckoned), one
+    profiled step, greedy generation with the trained adapter through
+    prefill + decode_step (4 x 512 prompt, 64 new tokens; the dense decode
+    at every attention site), and on qwen2-vl-2b qwen2's multi-tenant
+    paged gate run (``train_<arch>.json``).
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
@@ -268,7 +285,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.checkpoint import save_pytree  # noqa: E402
 from repro_torch.configs import PeftConfig, TrainConfig, get_config, reduced  # noqa: E402
 from repro_torch.core import adapt as adapt_mod  # noqa: E402
-from repro_torch.core.adapt import init_adapters  # noqa: E402
+from repro_torch.core.adapt import init_adapters, zip_adapters  # noqa: E402
 from repro_torch.data import TASKS, DataLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     ATTENTION,
@@ -2612,12 +2629,19 @@ def gate_inputs() -> tuple:
     torch.cuda.synchronize()
     log(f"[full] qwen2-1.5b bf16 init + {N_TENANTS} tenants: "
         f"{time.perf_counter() - t0:.1f} s")
+    return model, params, tenants, gate_prompts(cfg.vocab_size), 32, gate_kw()
+
+
+def gate_prompts(vocab: int) -> list:
+    """The gate run's 10 prompts of 40-700 tokens (seed 11)."""
     rng = np.random.default_rng(11)
     lens = [40, 700, 130, 256, 511, 64, 300, 620, 90, 410]
-    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist() for n in lens]
-    kw = dict(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PREFILL_CHUNK,
-              decode_chunk=DECODE_CHUNK, page_size=PAGE)
-    return model, params, tenants, prompts, 32, kw
+    return [rng.integers(3, vocab, size=n).tolist() for n in lens]
+
+
+def gate_kw() -> dict:
+    return dict(slots=SLOTS, max_len=MAX_LEN, prefill_chunk=PREFILL_CHUNK,
+                decode_chunk=DECODE_CHUNK, page_size=PAGE)
 
 
 def phase_full(card: str) -> tuple:
@@ -5462,6 +5486,494 @@ def lifecycle(card: str, train: dict, stamp) -> None:
     stamp("checkpoint, resume, export")
 
 
+# ------------------------------------------------- slice 15: VLM, SSM, hybrid
+
+FAMILY_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b")
+# full-width NeuroAda training, (batch, seq, remat), reckoned before the run:
+# * qwen2-vl-2b is qwen2-1.5b's trunk (1.54 B parameters with its 151936-row
+#   tied embedding): qwen2's 4 x 512, a quarter of each sequence patches;
+# * falcon-mamba-7b (7.27 B, 14.5 GB in bf16): a 512-step scan chunk is
+#   (B, 512, 8192, 16) float32 = 256 MiB a tensor at B = 1. Autograd through
+#   the doubling scan would keep ~20 of them a layer (350 GiB for 64 layers
+#   at B = 2); the scan's written-out backward keeps only its inputs, ≈ 0.2
+#   GB a layer at B = 2 (13 GB in all) and ≈ 4 GB of scan buffers while one
+#   layer's backward runs: 2 x 512 fits without remat, about 35 GB;
+# * zamba2-2.7b (2.44 B, 4.9 GB): SSD's (T, T, B, 80) float32 products are
+#   336 MB at T = 1024, B = 1, and autograd keeps several a layer (≈ 70 GB
+#   for 54 layers), so remat="full" (the reference's option: a group of the
+#   shared block and 6 Mamba-2 blocks recomputed at a time) at 1 x 2048,
+#   where the shared attention (32 heads of 80) reaches the flash threshold
+#   and its mma route on the path.
+FAMILY_TRAIN = {"qwen2-vl-2b": (4, 512, "none"), "falcon-mamba-7b": (2, 512, "none"),
+                "zamba2-2.7b": (1, 2048, "full")}
+# greedy generation through prefill + decode_step with the trained adapter
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 64
+# the projections the SSM families adapt that no earlier phase reached:
+# (arch, name, K, N, bias); zamba2's shared block has qwen2-like shapes
+FAMILY_LINEAR = (("falcon-mamba-7b", "in_proj", 4096, 16384, False),
+                 ("falcon-mamba-7b", "x_proj", 8192, 288, False),
+                 ("falcon-mamba-7b", "dt_proj", 256, 8192, True),
+                 ("falcon-mamba-7b", "out_proj", 8192, 4096, False),
+                 ("zamba2-2.7b", "in_proj", 2560, 10240, False),
+                 ("zamba2-2.7b", "bc_proj", 5120, 128, False),
+                 ("zamba2-2.7b", "dt_proj", 2560, 80, True),
+                 ("zamba2-2.7b", "out_proj", 5120, 2560, False))
+
+
+def family_stacks(cfg) -> list:
+    """(name, shape) of every stack NeuroAda selects on in the SSM and
+    hybrid families (the transformer families: :func:`weight_stacks`)."""
+    d, di, n, v = cfg.d_model, cfg.resolved_d_inner, cfg.ssm_state, cfg.padded_vocab
+    if cfg.family == "ssm":
+        L, dtr = (cfg.num_layers,), cfg.resolved_dt_rank
+        return [("in_proj", (*L, d, 2 * di)), ("x_proj", (*L, di, dtr + 2 * n)),
+                ("dt_proj", (*L, dtr, di)), ("out_proj", (*L, di, d)), ("head", (d, v))]
+    g = (cfg.num_layers // cfg.attn_every, cfg.attn_every)
+    hd = cfg.resolved_head_dim
+    dq, dkv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+    return [("in_proj", (*g, d, 2 * di)), ("bc_proj", (*g, di, 2 * n)),
+            ("dt_proj", (*g, d, cfg.ssm_heads)), ("out_proj", (*g, di, d)),
+            ("wq", (d, dq)), ("wk", (d, dkv)), ("wv", (d, dkv)), ("wo", (dq, d)),
+            ("wgate", (d, f)), ("wup", (d, f)), ("wdown", (f, d)), ("head", (d, v))]
+
+
+def dense_decode_cost(q, k, vl) -> tuple[float, float]:
+    """Of the slot cache only each slot's first ``vl`` rows of k and v read,
+    q read and out written once; 4·hd flops a (query head, row) pair."""
+    b, _, h, hd = q.shape
+    rows = float(vl.sum())
+    nbytes = 2 * rows * k.shape[2] * hd * k.element_size() + 2 * q.numel() * q.element_size()
+    return nbytes + b * 4, 4.0 * h * hd * rows
+
+
+def family_kernels(gen, dev, summary, detail, card: str) -> None:
+    """The kernels at the shapes this slice's paths first run them at, each
+    against its plain version: ``fused_linear`` on both routes (the TMA +
+    wgmma one the wrapper picks, and the WMMA kernel called directly) and
+    ``sparse_delta_dval`` at every SSM projection of FAMILY_LINEAR at its
+    training rows (falcon-mamba's x_proj N = 288 and dt_proj K = 256,
+    zamba2's dt_proj N = 80 and bc_proj N = 128); ``topk_select`` over every
+    falcon-mamba and zamba2 stack (the two-level (9, 6, d_in, d_out) ones
+    included), indices and order exactly; the dense decode at zamba2's 32
+    query and 32 kv heads of 80 (group 1) over a (4, 576) slot cache; the
+    flash forward at hd 80 on its mma route at zamba2's 1 x 2048. Timed in
+    bf16 beside the plain version, the bound and a one-call yardstick where
+    there is one, into each kernel's ``families`` entry."""
+    dt = torch.bfloat16
+    fam = {n: {} for n in ("fused_linear", "sparse_delta_dval", "topk_select",
+                           "decode_attention", "flash_attention_fwd")}
+
+    def add(kernel, arch, row, nbytes, flops):
+        acc = fam[kernel].setdefault(arch, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                            "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0,
+                                            "cases": []})
+        acc["ms"] += row["ms"]
+        acc["plain_ms"] += row["plain_ms"]
+        acc["library_ms"] = (None if acc["library_ms"] is None or row["library_ms"] is None
+                             else acc["library_ms"] + row["library_ms"])
+        acc["bytes"] += nbytes
+        acc["flops"] += flops
+        acc["max_abs_err"] = max(acc["max_abs_err"], row["max_abs_err"])
+        acc["cases"].append(row["case"])
+        detail.append({"kernel": kernel, "arch": arch, **row})
+
+    for arch, name, kd, n, has_bias in FAMILY_LINEAR:
+        b_, s_, _ = FAMILY_TRAIN[arch]
+        m = b_ * s_
+        x = torch.randn(m, kd, generator=gen, device=dev).to(dt)
+        w = (torch.randn(kd, n, generator=gen, device=dev) * kd**-0.5).to(dt)
+        idx = torch.randint(0, kd, (TRAIN_K, n), generator=gen, device=dev, dtype=torch.int32)
+        val = (torch.randn(TRAIN_K, n, generator=gen, device=dev) * 0.05).to(dt)
+        bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(dt) if has_bias else None
+        dy = (torch.randn(m, n, generator=gen, device=dev) * m**-0.5).to(dt)
+        case = f"{arch} {name} M={m} K={kd} N={n}{' +bias' if has_bias else ''}, k={TRAIN_K}"
+        want = fl_mod.fused_linear_plain(x, w, idx, val, bias)
+        reset_counters()
+        got = fl_mod.fused_linear(x, w, idx, val, bias)
+        r = fl_mod.route(m, kd, n, dt, (x.data_ptr(), w.data_ptr()))
+        expect_route(COUNTERS["fused_linear"], r, 1, f"fused_linear {case}")
+        wmma = old_fused_linear(x, w, idx, val, bias)
+        err = check_close(f"fused_linear {case} ({r})", got, want, dt)
+        err = max(err, check_close(f"fused_linear {case} (WMMA)", wmma(), want, dt))
+        lib = (lambda: torch.addmm(bias, x, w)) if has_bias else (lambda: torch.mm(x, w))
+        row = {"case": case, "route": r, "max_abs_err": err,
+               "ms": cuda_ms(lambda: fl_mod.fused_linear(x, w, idx, val, bias)),
+               "wmma_ms": cuda_ms(wmma),
+               "plain_ms": cuda_ms(lambda: fl_mod.fused_linear_plain(x, w, idx, val, bias),
+                                   iters=3),
+               "library_ms": cuda_ms(lib)}
+        cost = linear_cost(x, w, idx, val, bias)
+        row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+        add("fused_linear", arch, row, *cost)
+        got = sd_mod.sparse_delta_dval(x, idx, dy)
+        err = check_close(f"sparse_delta_dval {case}", got,
+                          sd_mod.sparse_delta_dval_plain(x, idx, dy), dt)
+        assert torch.equal(got, sd_mod.sparse_delta_dval(x, idx, dy)), case
+        row = {"case": case, "max_abs_err": err,
+               "ms": cuda_ms(lambda: sd_mod.sparse_delta_dval(x, idx, dy)),
+               "plain_ms": cuda_ms(lambda: sd_mod.sparse_delta_dval_plain(x, idx, dy), iters=3),
+               "library_ms": None}
+        cost = dval_cost(x, idx, dy)
+        row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+        add("sparse_delta_dval", arch, row, *cost)
+        del x, w, dy, want, got
+    for arch in FAMILY_ARCHS[1:]:
+        for name, shape in family_stacks(get_config(arch)):
+            w = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+            got, want = ops.topk_select(w, TRAIN_K), ts_mod.topk_select_plain(w, TRAIN_K)
+            assert torch.equal(got, want), f"topk_select {arch} {name} {shape}"
+            row = {"case": f"{name} {list(shape)}", "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: ops.topk_select(w, TRAIN_K)),
+                   "plain_ms": cuda_ms(lambda: ts_mod.topk_select_plain(w, TRAIN_K), iters=1,
+                                       warmup=1),
+                   "library_ms": cuda_ms(lambda: torch.topk(w.abs(), TRAIN_K, dim=-2))}
+            nbytes = w.numel() * w.element_size() + got.numel() * 4
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 0.0, dt)
+            add("topk_select", arch, row, nbytes, 0.0)
+            del w, got, want
+        torch.cuda.empty_cache()
+    # zamba2's shared attention: 32 query and 32 kv heads of 80
+    cfg = get_config("zamba2-2.7b")
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    smax = GEN_PROMPT + GEN_NEW
+    q = torch.randn(GEN_BATCH, 1, h, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(GEN_BATCH, smax, h, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(GEN_BATCH, smax, h, hd, generator=gen, device=dev).to(dt)
+    vl = torch.tensor([GEN_PROMPT, 300, smax, 1], dtype=torch.int32, device=dev)
+    reset_counters()
+    got = dd_mod.decode_attention(q, k, v, vl)
+    expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, 1, "dense decode hd 80")
+    err = check_close("decode_attention zamba2", got, dd_mod.decode_attention_plain(q, k, v, vl),
+                      dt)
+    mask = (torch.arange(smax, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+    row = {"case": f"q ({GEN_BATCH},1,{h},{hd}), cache ({GEN_BATCH},{smax},{h},{hd}), "
+                   f"frontiers {vl.tolist()}", "max_abs_err": err,
+           "ms": cuda_ms(lambda: dd_mod.decode_attention(q, k, v, vl)),
+           "plain_ms": cuda_ms(lambda: dd_mod.decode_attention_plain(q, k, v, vl), iters=3),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))}
+    cost = dense_decode_cost(q, k, vl)
+    row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+    add("decode_attention", "zamba2-2.7b", row, *cost)
+    s = FAMILY_TRAIN["zamba2-2.7b"][1]
+    q, k, v = (torch.randn(1, s, h, hd, generator=gen, device=dev).to(dt) for _ in range(3))
+    out, lse = flash_call("flash hd 80", q, k, v, True)
+    assert fa_mod.route(q, k, v) == "mma", fa_mod.route(q, k, v)
+    fr = check_flash("flash_attention_fwd zamba2", q, k, v, True, out, lse)
+    row = {"case": f"(1, {s}, {h}/{h}, {hd}) causal, route mma", **fr,
+           "ms": cuda_ms(lambda: fa_mod.flash_attention_fwd(q, k, v, causal=True)),
+           "plain_ms": cuda_ms(lambda: fa_mod.flash_attention_fwd_plain(q, k, v, causal=True),
+                               iters=3),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))}
+    cost = flash_cost(q, k, True)
+    row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+    add("flash_attention_fwd", "zamba2-2.7b", row, *cost)
+    for kernel, by_arch in fam.items():
+        for arch, acc in by_arch.items():
+            acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("flops"), dt)
+            lib = acc["library_ms"]
+            lib = "none" if lib is None else f"{lib:.4f}"
+            log(f"[kernels-families] {kernel} at {arch}'s {len(acc['cases'])} new shapes: "
+                f"{acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, bound {acc['bound_ms']:.4f} "
+                f"by {acc['bound_by']}, one-call yardstick {lib}); max|err| "
+                f"{acc['max_abs_err']:.3e} [{card}]")
+        summary.setdefault(kernel, {})["families"] = by_arch
+    torch.cuda.empty_cache()
+
+
+def vlm_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0):
+    """VLM training batches: ``int(seq * image_frac)`` random patch
+    embeddings first, then text from the ``lm`` task, and (3, B, seq) M-RoPE
+    positions: the patches on a square-ish grid at t = 0, the text after it
+    with t = h = w running on from the grid's extent."""
+    s_img, s_txt = get_model(cfg).vlm_split(seq)
+    side = math.isqrt(s_img)
+    grid = np.stack([np.zeros(s_img), np.arange(s_img) // side, np.arange(s_img) % side])
+    text = np.arange(s_txt)[None, :] + grid.max() + 1 + np.zeros((3, 1))
+    pos = np.broadcast_to(np.concatenate([grid, text], 1).astype(np.int32)[:, None],
+                          (3, batch, seq)).copy()
+    rng = np.random.default_rng(seed)
+    for i in range(steps):
+        b = TASKS["lm"](cfg.vocab_size, batch, s_txt, seed, i)
+        b["patches"] = rng.standard_normal((batch, s_img, cfg.d_model)).astype(np.float32)
+        b["positions"] = pos
+        yield b
+
+
+def family_step_launches(cfg, remat: str, seq: int) -> dict:
+    """Launches a NeuroAda training step makes: every adapted projection
+    once forward (``fused_linear``; once more when ``remat`` recomputes the
+    layer) and once backward (``sparse_delta_dval``); the untied heads of
+    the SSM and hybrid families take no bypass (as in the reference); a
+    flash forward an attention site from the threshold on."""
+    rec = 2 if remat != "none" else 1
+    if cfg.family == "ssm":
+        n, sites = 4 * cfg.num_layers, 0
+    elif cfg.family == "hybrid":
+        sites = cfg.num_layers // cfg.attn_every
+        n = 7 * sites + 4 * cfg.num_layers
+    else:
+        n, sites = 7 * cfg.num_layers, cfg.num_layers
+    out = {"fused_linear": rec * n, "sparse_delta_dval": n}
+    if seq >= cfg.flash_threshold and sites:
+        out["flash_attention_fwd"] = rec * sites
+    return out
+
+
+def phase_family_reduced(card: str, arch: str) -> None:
+    """The reduced twin in fp32 card vs CPU: three training steps (losses
+    1e-5, values, selected indices: ``phase_reduced_train``'s bounds), and
+    greedy tokens from prefill + 8 decode steps with a random adapter,
+    identical on both."""
+    phase_reduced_train(card, "bf16", arch)
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    (idx, val), = random_tenants(params, 1, seed=3, dtype=torch.float32, device="cpu")
+    prompt = torch.tensor(np.random.default_rng(1).integers(3, cfg.vocab_size, (2, 24)),
+                          dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        move = lambda t: map_leaves(lambda x: None if x is None else x.to(dev), t)  # noqa: E731
+        reset_counters()
+        outs.append(generate(model, move(params), zip_adapters(move(idx), move(val)),
+                             prompt.to(dev), 8)[0].cpu())
+        assert dev == "cpu" or all(c.plain == 0 for c in COUNTERS.values())
+    assert torch.equal(outs[0], outs[1]), f"{arch} reduced greedy tokens: cpu {outs[0]} != " \
+                                          f"cuda {outs[1]}"
+    log(f"[reduced-{arch}] greedy tokens from prefill + 8 decode steps with an adapter: "
+        f"identical on cpu (plain) and cuda (kernels) [{card}]")
+
+
+def extend_cache(cache: dict, n: int) -> dict:
+    """The cache ``prefill`` returned with ``n`` more rows on the sequence
+    axis of every KV leaf (the recurrent states keep their shape)."""
+    return {k: F.pad(v, (0, 0, 0, 0, 0, n)) if k in ("k", "v", "shared_k", "shared_v") else v
+            for k, v in cache.items()}
+
+
+def generate(model, params, adapters, prompt, new: int) -> tuple:
+    """Greedy tokens (B, new) from ``prefill`` over ``prompt`` (B, S) and
+    ``new`` decode steps; and the seconds of the prefill and of the decode
+    steps (each ends in a synchronize on the card)."""
+    sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
+    b, s = prompt.shape
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, adapters, {"tokens": prompt})
+        cache = extend_cache(cache, new)
+        sync()
+        t1 = time.perf_counter()
+        toks = []
+        for i in range(new):
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            logits = model.decode_step(params, adapters, cache, {
+                "token": tok, "pos": torch.full((b,), s + i, dtype=torch.int32,
+                                                device=prompt.device)})
+        sync()
+        t2 = time.perf_counter()
+    assert torch.isfinite(logits).all(), "generation gave non-finite logits"
+    return torch.stack(toks, 1), t1 - t0, t2 - t1
+
+
+def phase_family(card: str, arch: str) -> dict:
+    """Full published width and depth in bf16, random weights from a seed:
+    selection (k = 1, timed, ``topk_select`` launches), NeuroAda training
+    (FAMILY_TRAIN; 2 warm-up + TRAIN_STEPS timed steps; only the path's
+    kernels, no plain version; peak memory; one profiled step), then greedy
+    generation with the trained adapter through prefill + decode_step
+    (GEN_BATCH x GEN_PROMPT, GEN_NEW new tokens; decode tok/s)."""
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    batch, seq, remat = FAMILY_TRAIN[arch]
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shapes = adapt_mod.adaptable_shapes(params)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)),
+                      TrainConfig(steps=TRAIN_WARMUP + TRAIN_STEPS + 1, learning_rate=TRAIN_LR,
+                                  remat=remat), params)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    select_peak = torch.cuda.max_memory_allocated() - held
+    n_select = COUNTERS["topk_select"].kernel
+    assert all(c.plain == 0 for c in COUNTERS.values()), "selection called a plain version"
+    assert n_select == len(shapes), (n_select, shapes)
+    st = stats(params, trainer.state.trainable)
+    assert st["trainable"] == sum(TRAIN_K * math.prod(s[:-2]) * s[-1] for s in shapes.values())
+    log(f"[family-{arch}] {arch} bf16 at full width and depth ({st['total']:,} parameters, "
+        f"init {init_s:.2f} s), NeuroAda k={TRAIN_K} magnitude: trainable {st['trainable']:,} "
+        f"({100 * st['fraction']:.4f} % of the parameters), selection {select_s:.3f} s "
+        f"({n_select} topk_select launches, one a stack: {json.dumps({k: list(v) for k, v in shapes.items()})}; "
+        f"peak {select_peak / 2**20:.1f} MiB above the {held / 2**30:.2f} GiB held) [{card}]")
+    if cfg.family == "vlm":
+        data = vlm_batches(cfg, batch, seq, TRAIN_WARMUP + TRAIN_STEPS + 1)
+        closer = lambda: None  # noqa: E731
+    else:
+        data = DataLoader("lm", cfg.vocab_size, batch, seq, seed=0)
+        closer = data.close
+    want = family_step_launches(cfg, remat, seq)
+    try:
+        for _ in range(TRAIN_WARMUP):
+            trainer.step(next(data))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses, peak = [], [], 0
+        for _ in range(TRAIN_STEPS):
+            step_batch = next(data)
+            t0 = time.perf_counter()
+            m = trainer.step(step_batch)
+            times.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            losses.append(m["loss"])
+            assert m["skipped"] == 0, m
+        launches = {n: COUNTERS[n].kernel for n in want}
+        for name, c in COUNTERS.items():
+            assert c.plain == 0, f"{arch} training called the plain version of {name}"
+            assert name in want or c.kernel == 0, f"{arch} training launched {name}"
+        per_step = {n: v / TRAIN_STEPS for n, v in launches.items()}
+        assert per_step == want, (per_step, want)
+        routes = {n: dict(COUNTERS[n].routes) for n in want}
+        assert all(np.isfinite(losses)), losses
+        buckets = {}
+        busy, _, _ = profile_run(lambda: trainer.step(next(data)), card,
+                                 f"family-{arch}-profile", f"train_{arch}_profile.txt", buckets)
+    finally:
+        closer()
+    med = float(np.median(times))
+    tok = batch * seq
+    log(f"[family-{arch}] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
+    log(f"[family-{arch}] {TRAIN_STEPS} steps of batch {batch} x seq {seq}"
+        f"{' (a quarter patches, M-RoPE positions)' if cfg.family == 'vlm' else ''}, remat "
+        f"{remat}: step time median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}); {tok / med:.0f} training tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches per step {json.dumps(per_step)} (routes "
+        f"{json.dumps(routes)}), plain 0; device busy {busy:.1%} of a profiled step [{card}]")
+    # greedy generation with the trained adapter
+    adapters = zip_adapters(trainer.aux, trainer.state.trainable)
+    prompt = torch.tensor(np.random.default_rng(23).integers(3, cfg.vocab_size,
+                                                             (GEN_BATCH, GEN_PROMPT)),
+                          dtype=torch.int32, device="cuda")
+    generate(model, params, adapters, prompt[:, :32], 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    toks, pre_s, dec_s = generate(model, params, adapters, prompt, GEN_NEW)
+    gen_peak = torch.cuda.max_memory_allocated()
+    gen_launches = {n: c.kernel for n, c in COUNTERS.items() if c.kernel}
+    assert all(c.plain == 0 for c in COUNTERS.values()), "generation called a plain version"
+    # the prefill and every decode step run each adapted projection once
+    n_proj = want["sparse_delta_dval"]
+    assert gen_launches.get("fused_linear") == n_proj * (GEN_NEW + 1), (gen_launches, n_proj)
+    if cfg.family != "ssm":  # the attention sites' dense decode, one launch a site a step
+        sites = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
+        assert gen_launches.get("decode_attention") == sites * GEN_NEW, gen_launches
+        expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, sites * GEN_NEW,
+                     f"{arch} decode at hd {cfg.resolved_head_dim}")
+    assert toks.shape == (GEN_BATCH, GEN_NEW)
+    with torch.no_grad():  # 8 decode steps under the profiler: the decode's busy share
+        logits, cache = model.prefill(params, adapters, {"tokens": prompt})
+        cache = extend_cache(cache, 8)
+
+        def decode_steps():
+            tok = logits.argmax(-1).to(torch.int32)
+            for i in range(8):
+                tok = model.decode_step(params, adapters, cache, {
+                    "token": tok, "pos": torch.full((GEN_BATCH,), GEN_PROMPT + i,
+                                                    dtype=torch.int32, device="cuda")}
+                ).argmax(-1).to(torch.int32)
+
+        dec_busy, _, _ = profile_run(decode_steps, card, f"family-{arch}-decode-profile",
+                                     f"decode_{arch}_profile.txt")
+        del cache
+    log(f"[family-{arch}] greedy generation with the trained adapter, B={GEN_BATCH}, a "
+        f"{GEN_PROMPT}-token prompt, {GEN_NEW} new tokens: prefill {pre_s * 1e3:.1f} ms, decode "
+        f"{dec_s * 1e3:.1f} ms = {GEN_BATCH * GEN_NEW / dec_s:.1f} tok/s "
+        f"({dec_s / GEN_NEW * 1e3:.2f} ms a step); peak memory {gen_peak / 2**30:.2f} GiB; "
+        f"launches {json.dumps(gen_launches)}, plain 0; device busy {dec_busy:.1%} of 8 "
+        f"profiled decode steps [{card}]")
+    result = {"card": card, "arch": arch, "batch": batch, "seq": seq, "remat": remat,
+              "total_params": st["total"], "trainable": st["trainable"],
+              "fraction": st["fraction"], "select_s": select_s, "select_launches": n_select,
+              "losses": losses, "step_s": times, "peak_bytes": peak,
+              "launches_per_step": per_step, "routes": routes, "busy_share": busy,
+              "profiled_step_device_us_by_bucket": buckets,
+              "generate": {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+                           "prefill_s": pre_s, "decode_s": dec_s,
+                           "tok_s": GEN_BATCH * GEN_NEW / dec_s, "peak_bytes": gen_peak,
+                           "decode_busy_share": dec_busy,
+                           "launches": gen_launches}}
+    with open(os.path.join(OUT_DIR, f"train_{arch}.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    out = {"train_launches": launches, "select_launches": n_select,
+           "gen_launches": gen_launches}
+    if cfg.family == "vlm":
+        out["serve_launches"] = vlm_gate(card, model, params, trainer)
+    del trainer, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_gate(card: str, model, params, trainer) -> dict:
+    """qwen2-vl-2b's multi-tenant paged gate run, qwen2-1.5b's settings:
+    the trained adapter and 2 random tenants on its indices (k = 1: a
+    store holds one adapter shape) beside the base, the gate
+    run's 10 prompts (text; plain RoPE, as the reference's engine), every
+    forward and token draw under the sync guard. Every request ends, only
+    the serving kernels (paged prefill, ring decode, fused bypass) launch,
+    one transfer a step, the pool drains."""
+    prompts, max_new, kw = gate_prompts(model.cfg.vocab_size), 32, gate_kw()
+    tenants = [(trainer.aux, trainer.state.trainable)] + random_tenants(
+        params, 2, seed=7, dtype=torch.bfloat16, device="cuda", idx=trainer.aux)
+    serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with forwards_never_wait(model):
+        eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: COUNTERS[n].kernel for n in SERVING}
+    decode_routes("vlm-gate")
+    apply_by_route = apply_routes("vlm-gate", 7, forwards_of(eng))
+    for name, c in COUNTERS.items():
+        assert name not in SERVING or c.kernel > 0, f"vlm gate run never launched {name}"
+        assert name in SERVING or c.kernel == 0, f"vlm gate run launched {name}"
+        assert c.plain == 0, f"vlm gate run called the plain version of {name}"
+    assert all(r.done and r.reason in ("eos", "max_new") for r in reqs)
+    assert {r.adapter_id for r in reqs} == {0, 1, 2, 3}
+    assert eng.transfers == eng.steps and eng.kv.drained()
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"[family-qwen2-vl-2b] paged gate run, the trained adapter + 2 random tenants + the "
+        f"base: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s); "
+        f"steps {eng.steps}, one transfer each; launches {json.dumps(launches)}, applies "
+        f"{json.dumps(apply_by_route)}, plain 0; pool drained [{card}]")
+    return launches
+
+
+def families(card: str, summary: dict, stamp) -> dict:
+    """Slice 15's phases (also alone with ``--families``): the reduced twins
+    card vs CPU, then each family at full width (training, generation; the
+    VLM's gate run). Returns each arch's launches."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        phase_family_reduced(card, arch)
+    stamp("reduced families")
+    for arch in FAMILY_ARCHS:
+        out[arch] = phase_family(card, arch)
+        stamp(arch)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -5532,6 +6044,21 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
             f.write("\n".join(LOG) + "\n")
         return 0
+    if sys.argv[1:] == ["--families"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        stamps = [("build", time.perf_counter())]
+        stamp = lambda name: stamps.append((name, time.perf_counter()))  # noqa: E731
+        summary = {}
+        family_kernels(torch.Generator(device="cuda").manual_seed(1234), torch.device("cuda"),
+                       summary, [], card)
+        stamp("family kernels")
+        families(card, summary, stamp)
+        log("[timing] seconds by phase: " + ", ".join(
+            f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -5591,6 +6118,12 @@ def main() -> int:
     stamp("olmoe training and serving")
     lifecycle(card, train, stamp)
     peft = peft_slice(card, train, stamp)
+    family_kernels(torch.Generator(device="cuda").manual_seed(1234), torch.device("cuda"),
+                   summary, detail, card)
+    with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
+        json.dump({"card": card, "rows": detail}, f, indent=1)
+    stamp("family kernels")
+    fams = families(card, summary, stamp)
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
@@ -5666,6 +6199,19 @@ def main() -> int:
             # spec gate runs' launches by drafter
             row["spec"] = dict(s["spec"], launches_by_drafter={
                 d: n[name] for d, n in launches["spec"].items() if n.get(name)})
+        fam_launches = {arch: {phase: f[key][name] for phase, key in (
+            ("train", "train_launches"), ("generate", "gen_launches"),
+            ("serve", "serve_launches")) if f.get(key, {}).get(name)}
+            for arch, f in fams.items()}
+        for arch, f in fams.items():
+            if name == "topk_select":
+                fam_launches[arch]["select"] = f["select_launches"]
+        fam_launches = {arch: n for arch, n in fam_launches.items() if n}
+        if "families" in s or fam_launches:
+            # slice 15: the new shapes' times and bounds (kernel phase) and the
+            # launches on each family's paths (measured training steps,
+            # selection, generation, the VLM's gate run)
+            row["families"] = {"shapes": s.get("families", {}), "launches": fam_launches}
         if "olmoe" in s:
             # olmoe's own shapes and launches: the training run's measured
             # steps for the training kernels (its seq 512 runs no flash), its

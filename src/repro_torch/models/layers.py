@@ -106,6 +106,67 @@ def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class Filler:
+    """Random and constant tensors for a model's init on one device: normal
+    draws from one ``torch.Generator`` seeded with ``seed`` (the reference's
+    distributions, not its bits: parity tests convert the reference's
+    params), zeros and ones."""
+
+    def __init__(self, seed: int, device):
+        self.device = device
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(self, shape, scale: float, dtype) -> torch.Tensor:
+        return (torch.randn(shape, generator=self.gen, device=self.device) * scale).to(dtype)
+
+    def zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def ones(self, shape, dtype) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype, device=self.device)
+
+    def linear(self, d_in: int, d_out: int, dtype, bias: bool = False, stack=()) -> dict:
+        """``{"w": normal · d_in^-0.5 (*stack, d_in, d_out)[, "b": zeros]}``."""
+        out = {"w": self.normal((*stack, d_in, d_out), d_in**-0.5, dtype)}
+        if bias:
+            out["b"] = self.zeros((*stack, d_out), dtype)
+        return out
+
+
+def index_tree(node, i: int):
+    """``node[i]`` leaf by leaf over a nested dict of stacked leaves: one
+    layer's (or group's) view of a stack. A packed leaf
+    (:class:`~repro_torch.quant.QuantizedTensor`) slices its codes and
+    scales on the same axis."""
+    if isinstance(node, dict):
+        return {k: index_tree(v, i) for k, v in node.items()}
+    return None if node is None else node[i]
+
+
+def adapter_slice(a, i: int) -> dict:
+    """Stack index ``i`` of a training adapter dict ``{name: leaf}``:
+    ``Delta(idx[i], val[i])`` or a LoRA leaf's ``A``, ``B`` and ``scale``
+    each at ``i`` (slicing keeps the autograd link to the stacked
+    trainables). A tenant stack has no place in training and raises, as any
+    leaf :func:`adapter_leaf` does not know."""
+    out = {}
+    for name in a or {}:
+        d = adapter_leaf(a, name)
+        if d is None:
+            continue
+        if isinstance(d, BatchedDelta):
+            raise TypeError(f"training adapters hold a tenant stack at {name!r}")
+        out[name] = (Delta(d.idx[i], d.val[i]) if isinstance(d, Delta)
+                     else {key: t[i] for key, t in d.items()})
+    return out
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``logaddexp(x, 0)``, the reference's
+    ``jax.nn.softplus`` (no linear cut-off above a threshold)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
 def silu_mlp(p: dict, a, x: torch.Tensor) -> torch.Tensor:
     return alinear(p, a, "wdown", F.silu(alinear(p, a, "wgate", x)) * alinear(p, a, "wup", x))
 
@@ -343,6 +404,21 @@ def rope_angles(positions: torch.Tensor, inv_freq: torch.Tensor):
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
+def mrope_angles(positions3: torch.Tensor, inv_freq: torch.Tensor, sections):
+    """Qwen2-VL multimodal RoPE: (cos, sin) of shape (B, S, 1, hd/2) for
+    (t, h, w) positions ``positions3`` (3, B, S). The frequency pairs split
+    into ``sections`` (summing to hd/2), in order; each pair turns by the
+    position stream its section names. :func:`apply_rope` applies them."""
+    if sum(sections) != inv_freq.shape[0]:
+        raise ValueError(f"mrope sections {tuple(sections)} do not cover "
+                         f"{inv_freq.shape[0]} frequency pairs")
+    sec = torch.repeat_interleave(torch.arange(3, device=positions3.device),
+                                  torch.tensor(sections, device=positions3.device))
+    pos = positions3[sec].permute(1, 2, 0)  # (B, S, hd/2): each pair's own stream
+    ang = pos.float() * inv_freq
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate halves (not interleaved pairs) of x (B, S, H, hd) in float32."""
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -374,3 +450,11 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask=None
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)
     return nll.mean()
+
+
+def next_token_loss(logits: torch.Tensor, batch: dict, vocab_size: int) -> torch.Tensor:
+    """The language-model loss: position t predicts ``batch["targets"]`` at t
+    + 1, weighted by ``batch["loss_mask"]`` when given, vocab padding
+    masked."""
+    return softmax_cross_entropy(logits[:, :-1], batch["targets"][:, 1:], batch.get("loss_mask"),
+                                 real_vocab=vocab_size)

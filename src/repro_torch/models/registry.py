@@ -1,57 +1,95 @@
 """The model API the engine and the trainer drive (port of
-``repro.models.registry``, the dense and MoE families)."""
+``repro.models.registry``): the dense, MoE and VLM families through
+:mod:`~repro_torch.models.transformer`, the SSM family (falcon-mamba)
+through :mod:`~repro_torch.models.mamba_lm`, the hybrid (zamba2) through
+:mod:`~repro_torch.models.zamba2`."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
+from repro_torch.core.delta import BatchedDelta
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba_lm, transformer, zamba2
 from repro_torch.tree import flatten
 
-FAMILIES = ("dense", "moe")
+_FAMILY = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "ssm": mamba_lm,
+    "hybrid": zamba2,
+}
+FAMILIES = tuple(_FAMILY)
 
 
 class Model(nn.Module):
-    """A config-bound decoder of the dense or MoE family. Weights live in a nested param dict
-    (:func:`init`, or converted from the reference), passed to each call as
-    in the reference, so one ``Model`` serves any param tree of its config.
-    Per-layer views of the last two param trees (a served model and its
-    speculative drafter) and of the last tenant stacks seen are kept, so
-    the serving loop does not re-slice the layer stacks every step; views
-    of a tree with trainable (``requires_grad``) leaves are not kept."""
+    """A config-bound model of one of :data:`FAMILIES`. Weights live in a
+    nested param dict (:func:`init`, or converted from the reference),
+    passed to each call as in the reference, so one ``Model`` serves any
+    param tree of its config. Per-layer views of the last two param trees (a
+    served model and its speculative drafter) and of the last tenant stacks
+    seen are kept, so the serving loop does not re-slice the layer stacks
+    every step; views of a tree with trainable (``requires_grad``) leaves
+    are not kept.
+
+    Every family has ``init``, ``loss``, ``forward_train``, ``prefill``,
+    ``decode_step`` and ``init_cache``; the chunked prefill and
+    verification, the paged cache and int8 KV belong to the transformer
+    families alone and raise elsewhere with the reference's words."""
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.family not in FAMILIES:
-            raise ValueError(f"the port has the {' and '.join(FAMILIES)} families, got "
-                             f"{cfg.family!r} (ROADMAP.md §1 item 10)")
+        if cfg.family not in _FAMILY:
+            raise ValueError(f"the port has the {', '.join(FAMILIES)} families, got "
+                             f"{cfg.family!r} (ROADMAP.md §1 item 6, encdec: \"Remaining "
+                             f"families\")")
         self.cfg = cfg
+        self.mod = _FAMILY[cfg.family]
         self._views: list = []  # [(blocks, views)], the most recent first
         self._a_views: tuple = ((), None)
 
+    def _kv_lm(self, what: str) -> None:
+        """Refuse what only the transformer (KV-cache) families have."""
+        if self.mod is not transformer:
+            raise ValueError(f"family {self.cfg.family!r} has no {what}")
+
     def init(self, seed: int = 0, device=None) -> dict:
         """Random weights from ``seed`` on ``device`` (default ``cuda``)."""
-        return transformer.init_params(self.cfg, seed=seed, device=resolve_device(device))
+        return self.mod.init_params(self.cfg, seed=seed, device=resolve_device(device))
 
     def init_paged_cache(self, num_blocks: int, page_size: int, device,
                          kv_dtype: str = "fp32") -> dict:
+        self._kv_lm("paged KV cache")
         return transformer.init_paged_cache(self.cfg, num_blocks, page_size, device,
                                             kv_dtype)
 
     def init_cache(self, slots: int, max_len: int, device, kv_dtype: str = "fp32") -> dict:
-        return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype)
+        """The dense slot cache of a transformer family, or the SSM / hybrid
+        decode state (``kv_dtype`` ``fp32`` only there, as in the
+        reference)."""
+        if self.mod is transformer:
+            return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype)
+        if kv_dtype != "fp32":
+            self._kv_lm("quantized KV cache")
+        return self.mod.init_cache(self.cfg, slots, max_len, device)
+
+    def vlm_split(self, seq_len: int) -> tuple[int, int]:
+        """(patch positions, text positions) of a VLM sequence of
+        ``seq_len``: ``int(seq_len * image_frac)`` patches first."""
+        s_img = int(seq_len * self.cfg.image_frac)
+        return s_img, seq_len - s_img
 
     def _layers(self, params) -> list[dict]:
         blocks = params["blocks"]
         if any(isinstance(x, torch.Tensor) and x.requires_grad for _, x in flatten(blocks)):
             # a training step's live trainable tree (bitfit, masked, full): its
             # views are not kept, or they would hold its tensors past the step
-            return transformer.layer_views(params)
+            return self.mod.layer_views(params)
         hit = next((e for e in self._views if e[0] is blocks), None)
         if hit is None:
-            hit = (blocks, transformer.layer_views(params))
+            hit = (blocks, self.mod.layer_views(params))
         self._views = [hit] + [e for e in self._views if e is not hit][:1]
         return hit[1]
 
@@ -61,37 +99,51 @@ class Model(nn.Module):
         blocks = adapters.get("blocks") if adapters else None
         if not blocks:  # a drafter's call keeps the served stacks' views
             return None
+        if not isinstance(next(iter(blocks.values())), BatchedDelta):
+            return None  # a training adapter tree: the forward slices it
         key = tuple(id(d.idx) for d in blocks.values())
         if self._a_views[0] != key:
             self._a_views = (key, transformer.adapter_views(adapters))
         return self._a_views[1]
 
     def loss(self, params, adapters, batch, remat: str = "none"):
-        """(loss, {"ce", "aux"}) of a training batch; see
-        :func:`repro_torch.models.transformer.loss_fn`."""
-        return transformer.loss_fn(self.cfg, params, adapters, batch, self._layers(params),
-                                   remat)
+        """(loss, {"ce", "aux"}) of a training batch; see the family
+        module's ``loss_fn``."""
+        return self.mod.loss_fn(self.cfg, params, adapters, batch, self._layers(params), remat)
 
     def forward_train(self, params, adapters, batch, remat: str = "none"):
         """((B, S, V) logits, aux) of a training batch."""
-        return transformer.forward_train(self.cfg, params, adapters, batch,
-                                         self._layers(params), remat)
+        return self.mod.forward_train(self.cfg, params, adapters, batch, self._layers(params),
+                                      remat)
+
+    def prefill(self, params, adapters, batch):
+        """Whole-prompt forward: ((B, V) last-token logits, the cache
+        ``decode_step`` continues from)."""
+        return self.mod.prefill(self.cfg, params, adapters, batch, self._layers(params))
 
     def prefill_chunk(self, params, adapters, cache, batch):
+        self._kv_lm("chunked prefill")
         return transformer.prefill_chunk(self.cfg, params, adapters, cache, batch,
                                          self._layers(params), self._adapter_views(adapters))
 
     def verify_chunk(self, params, adapters, cache, batch):
         """(B, C, V) logits at every chunk column (speculative verify)."""
+        self._kv_lm("chunked verification")
         return transformer.verify_chunk(self.cfg, params, adapters, cache, batch,
                                         self._layers(params), self._adapter_views(adapters))
 
     def ingest_chunk(self, params, adapters, cache, batch):
         """A chunk's k/v writes only (a drafter riding a mixed step)."""
+        self._kv_lm("chunked prefill")
         transformer.ingest_chunk(self.cfg, params, adapters, cache, batch,
                                  self._layers(params), self._adapter_views(adapters))
 
     def decode_step(self, params, adapters, cache, batch):
+        """(B, V) logits of one token a sequence; the cache advances in
+        place."""
+        if self.mod is not transformer:
+            return self.mod.decode_step(self.cfg, params, adapters, cache, batch,
+                                        self._layers(params))
         return transformer.decode_step(self.cfg, params, adapters, cache, batch,
                                        self._layers(params), self._adapter_views(adapters))
 

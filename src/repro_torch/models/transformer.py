@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense and MoE: paged and dense-cache serving
-and training (port of the dense and MoE paths of
+"""Decoder-only transformer, dense, MoE and VLM: paged and dense-cache
+serving, whole-prompt prefill and training (port of
 ``repro.models.transformer``).
 
 Params are a nested dict in the reference's layout and names: weights
@@ -33,6 +33,14 @@ deltas, ``(L, N, E, k, F)`` tenant stacks). An untied head is adaptable
 like any linear: a training delta ``(k, V)`` goes through
 ``ops.delta_apply``, a tenant stack ``(N, k, V)`` through
 ``ops.delta_apply_batched``.
+
+The VLM family (qwen2-vl) is the dense decoder with Qwen2-VL's M-RoPE: a
+training or prefill batch may carry ``patches`` (B, S_img, D), embedded
+before the text, and (3, B, S_total) ``positions`` whose (t, h, w) streams
+turn the frequency pairs of ``cfg.mrope_sections``; the loss then runs on
+the text positions only. A decode step turns by M-RoPE when given
+``mrope_pos`` (3, B, 1), by plain RoPE otherwise (the serving engine's
+steps, and the chunked forwards, as in the reference).
 """
 
 from __future__ import annotations
@@ -52,13 +60,18 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     KV_QUANT_GROUP,
+    Filler,
     adapter_leaf,
+    adapter_slice,
     alinear,
     apply_rope,
     chunk_slots,
     decode_positions,
     dense_chunk_slots,
     dense_quant_write,
+    index_tree,
+    mrope_angles,
+    next_token_loss,
     paged_quant_write,
     quant_write,
     rms_norm,
@@ -66,8 +79,8 @@ from repro_torch.models.layers import (
     rope_freqs,
     scatter_write,
     silu_mlp,
-    softmax_cross_entropy,
 )
+from repro_torch.tree import flatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -86,32 +99,25 @@ def init_params(cfg, *, seed: int, device) -> dict:
     dt = compute_dtype(cfg)
     L, D, Fd = cfg.num_layers, cfg.d_model, cfg.d_ff
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, device=device) * scale).to(dt)
+    fill = Filler(seed, device)
 
     def lin(d_in, d_out, bias=False, stack=(L,)):
-        out = {"w": normal((*stack, d_in, d_out), d_in**-0.5)}
-        if bias:
-            out["b"] = torch.zeros((*stack, d_out), dtype=dt, device=device)
-        return out
+        return fill.linear(d_in, d_out, dt, bias=bias, stack=stack)
 
-    ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)  # noqa: E731
     blocks = {
-        "attn_norm": ones(L, D),
+        "attn_norm": fill.ones((L, D), dt),
         "wq": lin(D, H * hd, bias=cfg.qkv_bias),
         "wk": lin(D, KV * hd, bias=cfg.qkv_bias),
         "wv": lin(D, KV * hd, bias=cfg.qkv_bias),
         "wo": lin(H * hd, D),
-        "mlp_norm": ones(L, D),
+        "mlp_norm": fill.ones((L, D), dt),
     }
     if cfg.qk_norm:
-        blocks["q_norm"] = ones(L, hd)
-        blocks["k_norm"] = ones(L, hd)
+        blocks["q_norm"] = fill.ones((L, hd), dt)
+        blocks["k_norm"] = fill.ones((L, hd), dt)
     if cfg.num_experts:
         E = cfg.num_experts
-        blocks["router"] = {"w": normal((L, D, E), D**-0.5)}
+        blocks["router"] = {"w": fill.normal((L, D, E), D**-0.5, dt)}
         blocks["wgate"] = lin(D, Fd, stack=(L, E))
         blocks["wup"] = lin(D, Fd, stack=(L, E))
         blocks["wdown"] = lin(Fd, D, stack=(L, E))
@@ -120,9 +126,9 @@ def init_params(cfg, *, seed: int, device) -> dict:
         blocks["wup"] = lin(D, Fd)
         blocks["wdown"] = lin(Fd, D)
     params = {
-        "embed": {"w": normal((cfg.padded_vocab, D), 0.02)},
+        "embed": {"w": fill.normal((cfg.padded_vocab, D), 0.02, dt)},
         "blocks": blocks,
-        "final_norm": ones(D),
+        "final_norm": fill.ones((D,), dt),
     }
     if not cfg.tie_embeddings:
         params["head"] = lin(D, cfg.padded_vocab, stack=())
@@ -172,14 +178,8 @@ def layer_views(params) -> list[dict]:
     leaf (:class:`~repro_torch.quant.QuantizedTensor`, not a tuple) slices
     its codes and scales on the layer axis with the same ``node[i]``."""
     blocks = params["blocks"]
-    n = blocks["attn_norm"].shape[0]
-
-    def one(node, i):
-        if isinstance(node, dict):
-            return {k: one(v, i) for k, v in node.items()}
-        return node[i]
-
-    return [one(blocks, i) for i in range(n)]
+    n = next(x for _, x in flatten(blocks) if x is not None).shape[0]
+    return [index_tree(blocks, i) for i in range(n)]
 
 
 def adapter_views(adapters) -> list[dict] | None:
@@ -192,13 +192,18 @@ def adapter_views(adapters) -> list[dict] | None:
     return [{name: (d.idx[i], d.val[i]) for name, d in blocks.items()} for i in range(n)]
 
 
-def _bind_adapters(adapters, views) -> list[dict | None]:
-    """Each layer's ``{name: BatchedDelta}`` over the slots' (B,) adapter
-    ids: the bypass kernel reads one id for a slot's S rows."""
-    views = adapter_views(adapters) if views is None else views
-    if views is None:
+def _bind_adapters(adapters, views, n_layers: int) -> list[dict | None]:
+    """Each layer's adapters: ``{name: BatchedDelta}`` over the slots' (B,)
+    adapter ids (the bypass kernel reads one id for a slot's S rows), or,
+    for a training adapter tree (one adapter for every row, as the
+    reference's decode takes it), its per-layer :func:`delta_views`."""
+    blocks = adapters.get("blocks") if adapters else None
+    if not blocks:
         return None
-    aid = next(iter(adapters["blocks"].values())).aid.to(torch.int32).contiguous()
+    if not isinstance(next(iter(blocks.values())), BatchedDelta):
+        return delta_views(adapters, n_layers)
+    views = adapter_views(adapters) if views is None else views
+    aid = next(iter(blocks.values())).aid.to(torch.int32).contiguous()
     return [{name: BatchedDelta(idx, val, aid) for name, (idx, val) in layer.items()}
             for layer in views]
 
@@ -228,22 +233,93 @@ def _mlp(cfg, p, a, x, with_aux: bool = False):
 
 
 def _head_logits(cfg, params, adapters, h):
-    """Tied: ``h @ embed.T``; untied: the head linear plus its tenant
-    bypass, when the adapters carry one."""
+    """Tied: ``h @ embed.T``; untied: the head linear plus its bypass, when
+    the adapters carry one: a tenant stack in the kernel's epilogue, a
+    training delta (one adapter for every row) through ``ops.delta_apply``.
+    A LoRA leaf on the head is not applied, as in the reference."""
     if cfg.tie_embeddings:
         return h @ params["embed"]["w"].T
     logits = ops.matmul_q(h, params["head"]["w"])
-    d = adapters.get("head") if adapters else None
-    if d is not None:  # added into the logits in the kernel's epilogue
+    d = adapter_leaf(adapters, "head")
+    if isinstance(d, BatchedDelta):  # added into the logits in the kernel's epilogue
         ops.delta_apply_batched(h, d.idx, d.val, d.aid, logits)
+    elif isinstance(d, Delta):
+        logits = logits + ops.delta_apply(h, d.idx, d.val)
     return logits
 
 
-def _embed(cfg, params, tokens):
+def embed_tokens(cfg, params, tokens):
     return params["embed"]["w"][tokens.long()].to(compute_dtype(cfg))
 
 
+def _angles(cfg, positions, mrope_pos, device):
+    """RoPE (cos, sin) for a forward: M-RoPE from the (3, B, S) ``mrope_pos``
+    when the config has sections and the batch brings them, else plain
+    RoPE at ``positions`` (B, S) (the reference's ``_qkv`` dispatch)."""
+    inv = rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, device=device)
+    if cfg.mrope_sections and mrope_pos is not None:
+        return mrope_angles(mrope_pos.to(device), inv, cfg.mrope_sections)
+    return rope_angles(positions, inv)
+
+
+def _embed_inputs(cfg, params, batch):
+    """(h, cos, sin) of a whole-sequence forward (port of the reference's
+    ``_embed_inputs``). A VLM batch with ``patches`` (B, S_img, D) puts them
+    before the token embeddings and turns by M-RoPE at its (3, B, S_total)
+    ``positions``; any other batch takes plain RoPE at ``batch["positions"]``
+    (B, S) or ``0..S-1``."""
+    tokens = batch["tokens"]
+    h = embed_tokens(cfg, params, tokens)
+    if cfg.family == "vlm" and "patches" in batch:
+        h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+        return (h, *_angles(cfg, None, batch["positions"], h.device))
+    positions = batch.get("positions")
+    if positions is None:
+        b, s = tokens.shape
+        positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    return (h, *_angles(cfg, positions, None, h.device))
+
+
 # ------------------------------------------------------------------- serve
+
+
+def prefill(cfg, params, adapters, batch, layers=None):
+    """Whole-prompt forward (port of the reference's ``prefill``): (last-token
+    (B, V) logits, a dense ``{"k", "v"}`` cache of the prompt's length in
+    the slot cache's layout, ``(L, B + 1, S, KV, hd)`` with the zeroed trash
+    slot). Pad its sequence axis to continue with :func:`decode_step` at
+    ``pos = S``. ``batch`` holds ``tokens`` (B, S) (and a VLM's ``patches``
+    and (3, B, S_total) ``positions``, as :func:`forward_train`), and
+    optionally ``last_pos`` (B,): the final real token of a right-padded
+    prompt, where the logits are gathered instead of at -1 (causal
+    attention never lets a real position see a pad). Attention is the
+    training forward's: dense below ``cfg.flash_threshold``, the flash
+    kernel from it on. ``adapters`` is a training adapter tree or None."""
+    layers = layer_views(params) if layers is None else layers
+    h, cos, sin = _embed_inputs(cfg, params, batch)
+    b, s, _ = h.shape
+    ks, vs = [], []
+    for p, a in zip(layers, delta_views(adapters, len(layers))):
+        x = rms_norm(h, p["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, a, x, cos, sin)
+        o = train_attention(q, k, v, cfg)
+        h = h + alinear(p, a, "wo", o.reshape(b, s, -1))
+        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))[0]
+        ks.append(k)
+        vs.append(v)
+    last = batch.get("last_pos")
+    if last is None:
+        hs = h[:, -1:]
+    else:
+        hs = torch.gather(h, 1, last.long()[:, None, None].expand(-1, 1, h.shape[-1]))
+    hs = rms_norm(hs, params["final_norm"], cfg.norm_eps)
+    logits = _head_logits(cfg, params, adapters, hs)[:, 0]
+
+    def with_trash(parts):
+        kv = torch.stack(parts)
+        return torch.cat([kv, kv.new_zeros((kv.shape[0], 1, *kv.shape[2:]))], dim=1)
+
+    return logits, {"k": with_trash(ks), "v": with_trash(vs)}
 
 
 def _layer_cache(cache, i: int) -> dict:
@@ -298,14 +374,14 @@ def _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views, hidden=
     tokens, q_offset, q_len = batch["tokens"], batch["q_offset"], batch["q_len"]
     table, wtable = batch.get("block_table"), batch.get("write_table")
     b, c = tokens.shape
-    h = _embed(cfg, params, tokens)
+    h = embed_tokens(cfg, params, tokens)
     positions = q_offset[:, None] + torch.arange(c, device=h.device)[None, :]
     cos, sin = rope_angles(positions, rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
                                                  device=h.device))
     vl = q_offset + q_len
     n = cache["k"].shape[1] - 1  # real blocks (paged) or slots (dense)
     plan = _write_plan(cache, wtable, q_offset, q_len, c)
-    bound = _bind_adapters(adapters, a_views)
+    bound = _bind_adapters(adapters, a_views, len(layers))
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
         lc = _layer_cache(cache, i)
@@ -369,13 +445,14 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
     (without it the cache is the dense slot cache), and optionally
     ``active`` (B,) bool. Each layer writes at ``pos`` and attends with
     ``kv_valid_len = pos + 1``, or 0 where ``active`` is False: an idle slot
-    reads no cache row (its output is zeros and discarded). Returns (B, V)
-    logits."""
+    reads no cache row (its output is zeros and discarded). A VLM batch may
+    bring ``mrope_pos`` (3, B, 1): M-RoPE then turns q and k, else plain
+    RoPE at ``pos``. ``adapters`` are tenant stacks or a training adapter
+    tree (one adapter for every slot). Returns (B, V) logits."""
     layers = layer_views(params) if layers is None else layers
     pos, table = batch["pos"], batch.get("block_table")
-    h = _embed(cfg, params, batch["token"])[:, None]
-    cos, sin = rope_angles(decode_positions(pos),
-                           rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, device=h.device))
+    h = embed_tokens(cfg, params, batch["token"])[:, None]
+    cos, sin = _angles(cfg, decode_positions(pos), batch.get("mrope_pos"), h.device)
     vl = pos + 1
     if table is None:  # a drafter's step past the dense cache's end reads all of it
         vl = vl.clamp(max=cache["k"].shape[2])
@@ -383,7 +460,7 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
         vl = torch.where(batch["active"], vl, 0)
     n = cache["k"].shape[1] - 1
     plan = _write_plan(cache, table, pos, torch.ones_like(pos), 1)
-    bound = _bind_adapters(adapters, a_views)
+    bound = _bind_adapters(adapters, a_views, len(layers))
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
         lc = _layer_cache(cache, i)
@@ -411,18 +488,8 @@ def delta_views(adapters, n_layers: int) -> list[dict]:
     leaves (slicing keeps the autograd link to the stacked trainables). A
     tenant stack has no place in training and raises, as any leaf
     :func:`~repro_torch.models.layers.adapter_leaf` does not know."""
-    out = [{} for _ in range(n_layers)]
     blocks = adapters.get("blocks") if adapters else None
-    for name in blocks or {}:
-        d = adapter_leaf(blocks, name)
-        if d is None:
-            continue
-        if isinstance(d, BatchedDelta):
-            raise TypeError(f"training adapters hold a tenant stack at {name!r}")
-        for i in range(n_layers):
-            out[i][name] = (Delta(d.idx[i], d.val[i]) if isinstance(d, Delta)
-                            else {key: t[i] for key, t in d.items()})
-    return out
+    return [adapter_slice(blocks, i) for i in range(n_layers)]
 
 
 def _train_head(cfg, params, adapters, h):
@@ -444,6 +511,17 @@ def _train_head(cfg, params, adapters, h):
 
 
 REMAT_MODES = ("none", "full", "dots")
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)``, a layer's (or group's) body, recomputed in the
+    backward unless ``remat`` is ``none`` (see :func:`forward_train`)."""
+    if remat == "none":
+        return fn(*args)
+    keep = ops.keep_linear_outputs if remat == "dots" else noop_context_fn
+    with set_checkpoint_early_stop(False):  # the whole body, every kernel
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=keep)
 
 
 def _train_layer(cfg, p, a, h, cos, sin):
@@ -477,25 +555,11 @@ def forward_train(cfg, params, adapters, batch, layers=None, remat: str = "none"
     if remat not in REMAT_MODES:
         raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
     layers = layer_views(params) if layers is None else layers
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = _embed(cfg, params, tokens)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
-    cos, sin = rope_angles(positions, rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
-                                                 device=h.device))
+    h, cos, sin = _embed_inputs(cfg, params, batch)
     deltas = delta_views(adapters, len(layers))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p, a in zip(layers, deltas):
-        if remat == "none":
-            h, aux_l = _train_layer(cfg, p, a, h, cos, sin)
-        else:
-            keep = ops.keep_linear_outputs if remat == "dots" else noop_context_fn
-            with set_checkpoint_early_stop(False):  # the whole body, every kernel
-                h, aux_l = checkpoint(_train_layer, cfg, p, a, h, cos, sin,
-                                      use_reentrant=False, preserve_rng_state=False,
-                                      context_fn=keep)
+        h, aux_l = remat_call(remat, _train_layer, cfg, p, a, h, cos, sin)
         if aux_l is not None:
             aux = aux + aux_l
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -508,6 +572,7 @@ def loss_fn(cfg, params, adapters, batch, layers=None, remat: str = "none"):
     masked) plus ``router_aux_coef`` × the auxiliary loss. Returns
     (loss, {"ce", "aux"})."""
     logits, aux = forward_train(cfg, params, adapters, batch, layers, remat)
-    ce = softmax_cross_entropy(logits[:, :-1], batch["targets"][:, 1:],
-                               batch.get("loss_mask"), real_vocab=cfg.vocab_size)
+    if cfg.family == "vlm" and "patches" in batch:  # only text positions carry loss
+        logits = logits[:, batch["patches"].shape[1]:]
+    ce = next_token_loss(logits, batch, cfg.vocab_size)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}

@@ -27,6 +27,12 @@ engine's device (blocks of ``quant_block`` rows): every base matmul of a
 step then runs the fused dequant kernel and the tenants' bypasses apply on
 top, so N tenants share one packed base.
 
+A VLM (qwen2-vl) serves text prompts as the dense family does: its steps
+carry no M-RoPE positions, so q and k turn by plain RoPE at the token
+positions, as in the reference's engine. The SSM and hybrid families have
+no KV cache to page and are refused, with the reference's words; they
+decode through their model API (``Model.prefill``, ``Model.decode_step``).
+
 An MoE model (``cfg.num_experts > 0``) serves as the dense family does, on
 any base and cache: the step's ``BatchedDelta`` leaves carry the slots' ids
 into the MoE FFN, which scatters them through its expert dispatch. On a
@@ -145,6 +151,10 @@ class ServeEngine:
         clock=None,
         device=None,
     ):
+        if model.cfg.family not in ("dense", "moe", "vlm"):
+            # the engine drives the KV-cache LMs; the SSM and hybrid families
+            # decode through their model API (prefill, decode_step)
+            raise ValueError(f"ServeEngine supports KV LMs, got {model.cfg.family}")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         if prefill_chunk < 1:

@@ -323,12 +323,17 @@ class ServeFrontend:
         await self._start_drain()
 
     async def aclose(self) -> None:
-        """Hard-stop the transport after the engine thread exited."""
+        """Hard-stop the transport after the engine thread exited, and join
+        that thread: it signals the drain from its last lines, and a caller
+        that returns (and a process that exits) while it still runs races
+        interpreter finalization against a thread that has run torch code,
+        which can abort the process."""
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
             self._server = None
-        if self._thread is not None and not self._thread.is_alive():
+        if self._thread is not None and (self._stopped or not self._thread.is_alive()):
+            self._thread.join()
             self._thread = None
 
     # ------------------------------------------------------------- HTTP/1.1

@@ -141,11 +141,13 @@ def test_serve_mode_answers_and_drains(tmp_path):
             line = proc.stdout.readline()
             assert line, "the launcher exited before serving"
         url = line.split()[2]
+        # loopback straight, whatever proxy the environment names
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
         def post(path, body):
             req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
                                          method="POST")
-            with urllib.request.urlopen(req, timeout=60) as r:
+            with opener.open(req, timeout=60) as r:
                 return r.status, r.read()
 
         st, body = post("/v1/generate", {"prompt": [1, 17, 25], "max_new": 5, "stream": False})
@@ -155,7 +157,7 @@ def test_serve_mode_answers_and_drains(tmp_path):
         frames = [json.loads(ln[6:]) for ln in body.decode().splitlines()
                   if ln.startswith("data: ")]
         assert st == 200 and frames[-1]["done"]
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        with opener.open(url + "/healthz", timeout=60) as r:
             assert json.loads(r.read())["ok"]
         st, _ = post("/admin/shutdown", {})
         assert st == 200
@@ -164,7 +166,7 @@ def test_serve_mode_answers_and_drains(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    assert proc.returncode == 0 and "server drained" in rest
+    assert proc.returncode == 0 and "server drained" in rest, (proc.returncode, rest)
     snap = json.loads((tmp_path / "m.json").read_text())
     assert sum(s["value"] for s in snap["serve_requests_finished_total"]["series"]) == 2
     events = [json.loads(ln) for ln in (tmp_path / "t.jsonl").read_text().splitlines()]
