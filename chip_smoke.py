@@ -235,7 +235,21 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     profiled step, greedy generation with the trained adapter through
     prefill + decode_step (4 x 512 prompt, 64 new tokens; the dense decode
     at every attention site), and on qwen2-vl-2b qwen2's multi-tenant
-    paged gate run (``train_<arch>.json``).
+    paged gate run (``train_<arch>.json``). Slice 16 adds
+    seamless-m4t-large-v2, the encoder-decoder, to all of it: its kernels
+    (``fused_linear`` and ``sparse_delta_dval`` at M = 4096 / 1024,
+    ``topk_select`` over its 18 stacks and head, the dense decode at hd 64
+    group 1, the flash forward not causal against 2048 frames), its reduced
+    twin with the flash threshold lowered (the non-causal flash kernel
+    card vs CPU), 2 x 512 target tokens over 2 x 2048 frames (the encoder's
+    and the cross-attention's flash forwards, 48 a step) and generation
+    over 2048 frames from a 16-token prompt; ``fused_linear_q`` at the
+    packed families' new shapes; qwen2-vl's gate run on an int8 pool and
+    its reduced int8 KV engines card vs CPU; then all four families on an
+    int8 and an NF4 base: the reduced twins card vs CPU, and at full width
+    selection one matrix at a time, 2 + 3 steps (only ``fused_linear_q``,
+    ``sparse_delta_dval`` and the flash forward where reckoned; the packed
+    bytes unchanged), 16 greedy tokens (``train_<arch>_<base>.json``).
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
@@ -3304,8 +3318,13 @@ def trainable_count(cfg, k: int) -> int:
 # steps of another size (Adam's first step is ±lr whatever the gradient's
 # magnitude). Losses are held to 1e-5 for both. The flash-path runs (batch 4
 # x seq 64) hold both families to the dense bound: reduced olmoe reads
-# 3.5e-6 there on an H100 (``--reduced-train-distances``).
-VALUE_TOL = {"dense": 1e-5, "moe": 1e-4, "flash": 1e-5}
+# 3.5e-6 there on an H100 (``--reduced-train-distances``). Reduced
+# seamless-m4t on an NF4 base is the same kind of case: on the CPU alone its
+# flash path and its dense path (one function, two orders of float32 sums)
+# part by 1.55e-5, 99.9 % of it one dec_blocks/wgate value whose first
+# gradient nearly vanishes (its bf16 and int8 bases: 7.6e-7 / 6.5e-7), so it
+# is held to about three times that witness.
+VALUE_TOL = {"dense": 1e-5, "moe": 1e-4, "flash": 1e-5, "encdec-nf4": 5e-5}
 # (batch, seq, flash threshold, flash block) of ``--reduced-train-distances``;
 # a threshold above seq keeps every layer on dense attention
 DISTANCE_SHAPES = ((2, 128, 64, 32), (2, 128, 4096, 32), (4, 64, 32, 16), (4, 16, 2048, 512))
@@ -3320,6 +3339,10 @@ def reduced_train_case(arch: str, base: str, batch: int, seq: int, **cfg_kw):
     if base != "bf16":
         params = quantize_base(params, base, block=QUANT_BLOCK)
     batches = [TASKS["reasoning"](cfg.vocab_size, batch, seq, 0, i) for i in range(3)]
+    if cfg.family == "encdec":  # 2 x seq frames: the cross-attention's Sq != Skv
+        rng = np.random.default_rng(0)
+        for b in batches:
+            b["frames"] = rng.standard_normal((batch, 2 * seq, cfg.d_model)).astype(np.float32)
     return cfg, model, params, batches
 
 
@@ -3871,7 +3894,10 @@ def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
             f"reduced training never launched {name}"
         assert name not in must_not or c.kernel == 0, f"reduced training launched {name}"
         assert c.plain == 0, f"reduced training on the card called plain {name}"
-    assert not flash or COUNTERS["flash_attention_fwd"].kernel == 3 * cfg.num_layers
+    # a flash forward a layer a step; the encoder-decoder's decoder layers run
+    # two (causal self-attention, non-causal cross-attention), its encoder one
+    sites = cfg.num_layers * (2 if cfg.family == "encdec" else 1) + cfg.encoder_layers
+    assert not flash or COUNTERS["flash_attention_fwd"].kernel == 3 * sites
     for (p, a), (_, b) in zip(flatten(want_idx), flatten(got_idx)):
         assert (a is None) == (b is None) and (a is None or torch.equal(a, b.cpu())), \
             f"selected indices of {p} differ card vs cpu"
@@ -3879,7 +3905,8 @@ def phase_reduced_train(card: str, base: str = "bf16", arch: str = "qwen2-1.5b",
         assert abs(a - b) <= 1e-5, f"step {i}: loss cpu {a!r} != cuda {b!r}"
     # relative error of the whole value tree: ||cuda - cpu|| / ||cpu||
     rel = value_distance(want_val, got_val)[0]
-    tol = VALUE_TOL["flash" if flash else "moe" if cfg.num_experts else "dense"]
+    tol = VALUE_TOL["encdec-nf4" if cfg.family == "encdec" and base == "nf4" else
+                    "flash" if flash else "moe" if cfg.num_experts else "dense"]
     assert rel <= tol, f"values: ||cuda - cpu|| / ||cpu|| = {rel:.3e} > {tol}"
     base_txt = "fp32 base" if base == "bf16" else f"{base} base"
     path = (f", flash path (threshold {cfg.flash_threshold}, block {cfg.flash_block}, seq "
@@ -5488,7 +5515,7 @@ def lifecycle(card: str, train: dict, stamp) -> None:
 
 # ------------------------------------------------- slice 15: VLM, SSM, hybrid
 
-FAMILY_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b")
+FAMILY_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b", "seamless-m4t-large-v2")
 # full-width NeuroAda training, (batch, seq, remat), reckoned before the run:
 # * qwen2-vl-2b is qwen2-1.5b's trunk (1.54 B parameters with its 151936-row
 #   tied embedding): qwen2's 4 x 512, a quarter of each sequence patches;
@@ -5503,11 +5530,23 @@ FAMILY_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b")
 #   for 54 layers), so remat="full" (the reference's option: a group of the
 #   shared block and 6 Mamba-2 blocks recomputed at a time) at 1 x 2048,
 #   where the shared attention (32 heads of 80) reaches the flash threshold
-#   and its mma route on the path.
+#   and its mma route on the path;
+# * seamless-m4t-large-v2 (slice 16; 2.03 B, 4.1 GB): 2 x 512 target tokens
+#   over 2 x ENC_FRAMES frames, remat none (the reference ignores remat on
+#   this family). The encoder keeps ≈ 24 x 4096 x 8192 x 2 B x 3 = 4.8 GB of
+#   MLP activations, the decoder ≈ 1.2 GB, the float32 logits and their
+#   gradient 2 x 1.05 GB: a peak near 15 GB. The encoder's self-attention
+#   and the cross-attention (Skv = 2048 frames) reach the flash threshold,
+#   not causal; the decoder's self-attention (512) stays dense.
 FAMILY_TRAIN = {"qwen2-vl-2b": (4, 512, "none"), "falcon-mamba-7b": (2, 512, "none"),
-                "zamba2-2.7b": (1, 2048, "full")}
-# greedy generation through prefill + decode_step with the trained adapter
+                "zamba2-2.7b": (1, 2048, "full"), "seamless-m4t-large-v2": (2, 512, "none")}
+# greedy generation through prefill + decode_step with the trained adapter;
+# the encoder-decoder's prompt is ENC_FRAMES frames and ENCDEC_PROMPT tokens
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 64
+ENC_FRAMES, ENCDEC_PROMPT = 2048, 16
+# slice 16: the packed families' training steps after the 2 warm-up ones, and
+# their greedy tokens (from a PACKED_PROMPT-token prompt; the frames as above)
+PACKED_STEPS, PACKED_NEW, PACKED_PROMPT = 3, 16, 64
 # the projections the SSM families adapt that no earlier phase reached:
 # (arch, name, K, N, bias); zamba2's shared block has qwen2-like shapes
 FAMILY_LINEAR = (("falcon-mamba-7b", "in_proj", 4096, 16384, False),
@@ -5518,12 +5557,43 @@ FAMILY_LINEAR = (("falcon-mamba-7b", "in_proj", 4096, 16384, False),
                  ("zamba2-2.7b", "bc_proj", 5120, 128, False),
                  ("zamba2-2.7b", "dt_proj", 2560, 80, True),
                  ("zamba2-2.7b", "out_proj", 5120, 2560, False))
+# slice 16: seamless-m4t-large-v2's projections at the rows they run at,
+# (name, M, K, N): the encoder at 2 x 2048 frames (the cross k/v projections
+# read the encoder's output at the same M and shape as its wq), the decoder
+# at 2 x 512 tokens
+SEAMLESS_LINEAR = (("enc wq, cross wk / wv", 4096, 1024, 1024),
+                   ("enc wgate / wup", 4096, 1024, 8192), ("enc wdown", 4096, 8192, 1024),
+                   ("dec self / cross wq", 1024, 1024, 1024), ("dec wgate / wup", 1024, 1024, 8192),
+                   ("dec wdown", 1024, 8192, 1024))
+# the packed shapes no earlier phase ran fused_linear_q at: (arch, name, M, K,
+# N, bias) at the training rows
+FAMILY_PACKED = (("falcon-mamba-7b", "x_proj", 1024, 8192, 288, False),
+                 ("falcon-mamba-7b", "dt_proj", 1024, 256, 8192, True),
+                 ("zamba2-2.7b", "bc_proj", 2048, 5120, 128, False),
+                 ("zamba2-2.7b", "dt_proj", 2048, 2560, 80, True),
+                 ("seamless-m4t-large-v2", "enc wgate", 4096, 1024, 8192, False),
+                 ("seamless-m4t-large-v2", "dec wdown", 1024, 8192, 1024, False))
 
 
 def family_stacks(cfg) -> list:
-    """(name, shape) of every stack NeuroAda selects on in the SSM and
-    hybrid families (the transformer families: :func:`weight_stacks`)."""
+    """(name, shape) of every stack NeuroAda selects on in the SSM, hybrid
+    and encoder-decoder families (the transformer families:
+    :func:`weight_stacks`)."""
     d, di, n, v = cfg.d_model, cfg.resolved_d_inner, cfg.ssm_state, cfg.padded_vocab
+    if cfg.family == "encdec":
+        hd, f = cfg.resolved_head_dim, cfg.d_ff
+        dq, dkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+
+        def layer(L, attn):
+            out = []
+            for p in attn:
+                out += [(p + "wq", (L, d, dq)), (p + "wk", (L, d, dkv)), (p + "wv", (L, d, dkv)),
+                        (p + "wo", (L, dq, d))]
+            return out + [("wgate", (L, d, f)), ("wup", (L, d, f)), ("wdown", (L, f, d))]
+
+        return ([("enc " + a, sh) for a, sh in layer(cfg.encoder_layers, ("",))]
+                + [("dec " + a, sh) for a, sh in layer(cfg.num_layers, ("self_", "cross_"))]
+                + [("head", (d, v))])
     if cfg.family == "ssm":
         L, dtr = (cfg.num_layers,), cfg.resolved_dt_rank
         return [("in_proj", (*L, d, 2 * di)), ("x_proj", (*L, di, dtr + 2 * n)),
@@ -5556,12 +5626,20 @@ def family_kernels(gen, dev, summary, detail, card: str) -> None:
     falcon-mamba and zamba2 stack (the two-level (9, 6, d_in, d_out) ones
     included), indices and order exactly; the dense decode at zamba2's 32
     query and 32 kv heads of 80 (group 1) over a (4, 576) slot cache; the
-    flash forward at hd 80 on its mma route at zamba2's 1 x 2048. Timed in
-    bf16 beside the plain version, the bound and a one-call yardstick where
-    there is one, into each kernel's ``families`` entry."""
+    flash forward at hd 80 on its mma route at zamba2's 1 x 2048. Slice 16:
+    ``fused_linear`` and ``sparse_delta_dval`` at seamless's projections
+    (SEAMLESS_LINEAR), ``topk_select`` over its 18 stacks and head, the
+    dense decode at its 16 / 16 heads of 64 (group 1), the flash forward
+    not causal at (2, 2048, 16, 64) and (2, 512, 16, 64) queries against
+    2048 keys (the encoder's and the cross-attention's, wgmma route), and
+    ``fused_linear_q`` (int8 and NF4) at FAMILY_PACKED's shapes, at the
+    training rows (timed) and the decode rows, and on layers of a two-level
+    packed (g, per, K, N) stack. Timed in bf16 beside the plain version,
+    the bound and a one-call yardstick where there is one, into each
+    kernel's ``families`` entry."""
     dt = torch.bfloat16
     fam = {n: {} for n in ("fused_linear", "sparse_delta_dval", "topk_select",
-                           "decode_attention", "flash_attention_fwd")}
+                           "decode_attention", "flash_attention_fwd", "fused_linear_q")}
 
     def add(kernel, arch, row, nbytes, flops):
         acc = fam[kernel].setdefault(arch, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -5577,9 +5655,11 @@ def family_kernels(gen, dev, summary, detail, card: str) -> None:
         acc["cases"].append(row["case"])
         detail.append({"kernel": kernel, "arch": arch, **row})
 
-    for arch, name, kd, n, has_bias in FAMILY_LINEAR:
-        b_, s_, _ = FAMILY_TRAIN[arch]
-        m = b_ * s_
+    linear = [(arch, name, math.prod(FAMILY_TRAIN[arch][:2]), kd, n, has_bias)
+              for arch, name, kd, n, has_bias in FAMILY_LINEAR]
+    linear += [("seamless-m4t-large-v2", name, m, kd, n, False)
+               for name, m, kd, n in SEAMLESS_LINEAR]
+    for arch, name, m, kd, n, has_bias in linear:
         x = torch.randn(m, kd, generator=gen, device=dev).to(dt)
         w = (torch.randn(kd, n, generator=gen, device=dev) * kd**-0.5).to(dt)
         idx = torch.randint(0, kd, (TRAIN_K, n), generator=gen, device=dev, dtype=torch.int32)
@@ -5632,43 +5712,62 @@ def family_kernels(gen, dev, summary, detail, card: str) -> None:
             add("topk_select", arch, row, nbytes, 0.0)
             del w, got, want
         torch.cuda.empty_cache()
-    # zamba2's shared attention: 32 query and 32 kv heads of 80
-    cfg = get_config("zamba2-2.7b")
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
-    smax = GEN_PROMPT + GEN_NEW
-    q = torch.randn(GEN_BATCH, 1, h, hd, generator=gen, device=dev).to(dt)
-    k = torch.randn(GEN_BATCH, smax, h, hd, generator=gen, device=dev).to(dt)
-    v = torch.randn(GEN_BATCH, smax, h, hd, generator=gen, device=dev).to(dt)
-    vl = torch.tensor([GEN_PROMPT, 300, smax, 1], dtype=torch.int32, device=dev)
-    reset_counters()
-    got = dd_mod.decode_attention(q, k, v, vl)
-    expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, 1, "dense decode hd 80")
-    err = check_close("decode_attention zamba2", got, dd_mod.decode_attention_plain(q, k, v, vl),
-                      dt)
-    mask = (torch.arange(smax, device=dev)[None, :] < vl[:, None])[:, None, None, :]
-    row = {"case": f"q ({GEN_BATCH},1,{h},{hd}), cache ({GEN_BATCH},{smax},{h},{hd}), "
-                   f"frontiers {vl.tolist()}", "max_abs_err": err,
-           "ms": cuda_ms(lambda: dd_mod.decode_attention(q, k, v, vl)),
-           "plain_ms": cuda_ms(lambda: dd_mod.decode_attention_plain(q, k, v, vl), iters=3),
-           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))}
-    cost = dense_decode_cost(q, k, vl)
-    row["bound_ms"], row["bound_by"] = bound(*cost, dt)
-    add("decode_attention", "zamba2-2.7b", row, *cost)
+    # the dense decode: zamba2's shared attention (32 query and 32 kv heads of
+    # 80) over a 512-token prompt's cache, seamless's decoder self-attention
+    # (16 / 16 of 64) over its 16-token prompt's
+    for arch, prompt in (("zamba2-2.7b", GEN_PROMPT), ("seamless-m4t-large-v2", ENCDEC_PROMPT)):
+        cfg = get_config(arch)
+        h, hd = cfg.num_heads, cfg.resolved_head_dim
+        smax = prompt + GEN_NEW
+        q = torch.randn(GEN_BATCH, 1, h, hd, generator=gen, device=dev).to(dt)
+        k = torch.randn(GEN_BATCH, smax, h, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(GEN_BATCH, smax, h, hd, generator=gen, device=dev).to(dt)
+        vl = torch.tensor([prompt, smax // 2, smax, 1], dtype=torch.int32, device=dev)
+        reset_counters()
+        got = dd_mod.decode_attention(q, k, v, vl)
+        expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, 1, f"dense decode hd {hd}")
+        err = check_close(f"decode_attention {arch}", got,
+                          dd_mod.decode_attention_plain(q, k, v, vl), dt)
+        mask = (torch.arange(smax, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+        row = {"case": f"q ({GEN_BATCH},1,{h},{hd}), cache ({GEN_BATCH},{smax},{h},{hd}), "
+                       f"frontiers {vl.tolist()}", "max_abs_err": err,
+               "ms": cuda_ms(lambda: dd_mod.decode_attention(q, k, v, vl)),
+               "plain_ms": cuda_ms(lambda: dd_mod.decode_attention_plain(q, k, v, vl), iters=3),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask))}
+        cost = dense_decode_cost(q, k, vl)
+        row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+        add("decode_attention", arch, row, *cost)
+    # the flash forward: zamba2's causal hd 80 (mma route); seamless's encoder
+    # self-attention and cross-attention, not causal, against 2048 frames
+    zc = get_config("zamba2-2.7b")
+    h, hd = zc.num_heads, zc.resolved_head_dim
     s = FAMILY_TRAIN["zamba2-2.7b"][1]
-    q, k, v = (torch.randn(1, s, h, hd, generator=gen, device=dev).to(dt) for _ in range(3))
-    out, lse = flash_call("flash hd 80", q, k, v, True)
-    assert fa_mod.route(q, k, v) == "mma", fa_mod.route(q, k, v)
-    fr = check_flash("flash_attention_fwd zamba2", q, k, v, True, out, lse)
-    row = {"case": f"(1, {s}, {h}/{h}, {hd}) causal, route mma", **fr,
-           "ms": cuda_ms(lambda: fa_mod.flash_attention_fwd(q, k, v, causal=True)),
-           "plain_ms": cuda_ms(lambda: fa_mod.flash_attention_fwd_plain(q, k, v, causal=True),
-                               iters=3),
-           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))}
-    cost = flash_cost(q, k, True)
-    row["bound_ms"], row["bound_by"] = bound(*cost, dt)
-    add("flash_attention_fwd", "zamba2-2.7b", row, *cost)
+    sc = get_config("seamless-m4t-large-v2")
+    flash_shapes = [("zamba2-2.7b", (1, s, h, hd), (1, s, h, hd), True, "mma")]
+    b_, sq_ = FAMILY_TRAIN["seamless-m4t-large-v2"][:2]
+    kv_shape = (b_, ENC_FRAMES, sc.num_kv_heads, sc.resolved_head_dim)
+    flash_shapes += [("seamless-m4t-large-v2", (b_, n, sc.num_heads, sc.resolved_head_dim),
+                      kv_shape, False, "wgmma") for n in (ENC_FRAMES, sq_)]
+    for arch, q_shape, kv_shape, causal, want_route in flash_shapes:
+        q = torch.randn(q_shape, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(kv_shape, generator=gen, device=dev).to(dt) for _ in range(2))
+        out, lse = flash_call(f"flash {arch} {q_shape}", q, k, v, causal)
+        assert fa_mod.route(q, k, v) == want_route, (fa_mod.route(q, k, v), want_route)
+        fr = check_flash(f"flash_attention_fwd {arch} {q_shape}", q, k, v, causal, out, lse)
+        row = {"case": f"q {q_shape}, k/v {kv_shape}, {'causal' if causal else 'not causal'}, "
+                       f"route {want_route}", **fr,
+               "ms": cuda_ms(lambda: fa_mod.flash_attention_fwd(q, k, v, causal=causal)),
+               "plain_ms": cuda_ms(lambda: fa_mod.flash_attention_fwd_plain(q, k, v,
+                                                                            causal=causal),
+                                   iters=3),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal))}
+        cost = flash_cost(q, k, causal)
+        row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+        add("flash_attention_fwd", arch, row, *cost)
+        del q, k, v, out, lse
+    packed_family_kernels(gen, dev, add)
     for kernel, by_arch in fam.items():
         for arch, acc in by_arch.items():
             acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("flops"), dt)
@@ -5680,6 +5779,68 @@ def family_kernels(gen, dev, summary, detail, card: str) -> None:
                 f"{acc['max_abs_err']:.3e} [{card}]")
         summary.setdefault(kernel, {})["families"] = by_arch
     torch.cuda.empty_cache()
+
+
+def packed_family_kernels(gen, dev, add) -> None:
+    """``fused_linear_q`` (int8 and NF4, block QUANT_BLOCK) at FAMILY_PACKED's
+    shapes against its plain version: at the training rows (k = 1, timed,
+    beside ``torch.mm`` / ``addmm`` on the dense weight), and at the decode
+    rows (M = GEN_BATCH, k = 1: generation with the trained adapter), each
+    launch on the route ``quant_linear.route`` names; then two layers of a
+    packed two-level (g, per, K, N) stack (zamba2's bc_proj) are the bytes
+    of the layer packed alone and run as such."""
+    dt, counter = torch.bfloat16, COUNTERS["fused_linear_q"]
+    for arch, name, m, kd, n, has_bias in FAMILY_PACKED:
+        w = (torch.randn(kd, n, generator=gen, device=dev) * kd**-0.5).to(dt)
+        idx = torch.randint(0, kd, (TRAIN_K, n), generator=gen, device=dev, dtype=torch.int32)
+        val = (torch.randn(TRAIN_K, n, generator=gen, device=dev) * 0.05).to(dt)
+        bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(dt) if has_bias else None
+        for qd in PACKED:
+            qt = quantize(w, qd, QUANT_BLOCK)
+            for rows in (m, GEN_BATCH):
+                x = torch.randn(rows, kd, generator=gen, device=dev).to(dt)
+                args = (x, qt.data, qt.scales, idx, val, bias)
+                case = (f"{arch} {name} {qd} M={rows} K={kd} N={n}"
+                        f"{' +bias' if has_bias else ''}, k={TRAIN_K}")
+                fn = lambda: ql_mod.fused_linear_q(*args, qdtype=qd, block=QUANT_BLOCK)  # noqa: E731
+                plain = lambda: ql_mod.fused_linear_q_plain(*args, qdtype=qd,  # noqa: E731
+                                                            block=QUANT_BLOCK)
+                counter.reset()
+                got = fn()
+                r = ql_mod.route(rows, kd, n, dt, (x.data_ptr(), qt.data.data_ptr(),
+                                                   qt.scales.data_ptr()))
+                expect_route(counter, r, 1, f"fused_linear_q {case}")
+                err = check_close(f"fused_linear_q {case} ({r})", got, plain(), dt)
+                if rows == GEN_BATCH:
+                    continue
+                lib = ((lambda: torch.addmm(bias, x, w)) if has_bias  # noqa: E731
+                       else (lambda: torch.mm(x, w)))
+                row = {"case": case, "route": r, "max_abs_err": err, "ms": cuda_ms(fn),
+                       "plain_ms": cuda_ms(plain, iters=3), "library_ms": cuda_ms(lib)}
+                cost = packed_cost(x, qt, TRAIN_K, val, bias)
+                row["bound_ms"], row["bound_by"] = bound(*cost, dt)
+                add("fused_linear_q", f"{arch} {qd}", row, *cost)
+    cfg = get_config("zamba2-2.7b")
+    g, per = cfg.num_layers // cfg.attn_every, cfg.attn_every
+    kd, n = cfg.resolved_d_inner, 2 * cfg.ssm_state
+    stack = (torch.randn(g, per, kd, n, generator=gen, device=dev) * kd**-0.5).to(dt)
+    x = torch.randn(FAMILY_TRAIN["zamba2-2.7b"][1], kd, generator=gen, device=dev).to(dt)
+    idx = torch.randint(0, kd, (TRAIN_K, n), generator=gen, device=dev, dtype=torch.int32)
+    val = (torch.randn(TRAIN_K, n, generator=gen, device=dev) * 0.05).to(dt)
+    for qd in PACKED:
+        qs = quantize(stack, qd, QUANT_BLOCK)
+        for i, j in ((0, 0), (g - 1, per - 1)):
+            layer, alone = qs[i][j], quantize(stack[i, j], qd, QUANT_BLOCK)
+            assert torch.equal(layer.data, alone.data) and torch.equal(layer.scales,
+                                                                       alone.scales), (qd, i, j)
+            args = (x, layer.data, layer.scales, idx, val, None)
+            check_close(f"fused_linear_q {qd} zamba2 bc_proj stack [{i}][{j}]",
+                        ql_mod.fused_linear_q(*args, qdtype=qd, block=QUANT_BLOCK),
+                        ql_mod.fused_linear_q_plain(*args, qdtype=qd, block=QUANT_BLOCK), dt)
+    log(f"[kernels-families] fused_linear_q ok at {len(FAMILY_PACKED)} packed family shapes x "
+        f"int8 / NF4 at the training and decode rows, and on layers [0][0] and [{g - 1}]"
+        f"[{per - 1}] of a packed ({g}, {per}, {kd}, {n}) stack (bytes of the layer packed "
+        f"alone)")
 
 
 def vlm_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0):
@@ -5701,68 +5862,137 @@ def vlm_batches(cfg, batch: int, seq: int, steps: int, seed: int = 0):
         yield b
 
 
-def family_step_launches(cfg, remat: str, seq: int) -> dict:
+def family_step_launches(cfg, remat: str, seq: int, packed: bool = False) -> dict:
     """Launches a NeuroAda training step makes: every adapted projection
-    once forward (``fused_linear``; once more when ``remat`` recomputes the
-    layer) and once backward (``sparse_delta_dval``); the untied heads of
-    the SSM and hybrid families take no bypass (as in the reference); a
-    flash forward an attention site from the threshold on."""
+    once forward (``fused_linear``, ``fused_linear_q`` on a ``packed`` base,
+    where an untied head's base matmul is one more; once more when
+    ``remat`` recomputes the layer) and once backward
+    (``sparse_delta_dval``); the untied heads of the SSM, hybrid and
+    encoder-decoder families take no bypass (as in the reference); a flash
+    forward an attention site from the threshold on (the encoder-decoder's
+    encoder and cross-attention over ENC_FRAMES frames, its decoder's
+    self-attention at ``seq``)."""
     rec = 2 if remat != "none" else 1
     if cfg.family == "ssm":
         n, sites = 4 * cfg.num_layers, 0
     elif cfg.family == "hybrid":
         sites = cfg.num_layers // cfg.attn_every
         n = 7 * sites + 4 * cfg.num_layers
+    elif cfg.family == "encdec":
+        n = 7 * cfg.encoder_layers + 11 * cfg.num_layers
+        sites = ((cfg.encoder_layers + cfg.num_layers) * (ENC_FRAMES >= cfg.flash_threshold)
+                 + cfg.num_layers * (seq >= cfg.flash_threshold))
     else:
-        n, sites = 7 * cfg.num_layers, cfg.num_layers
-    out = {"fused_linear": rec * n, "sparse_delta_dval": n}
-    if seq >= cfg.flash_threshold and sites:
+        n, sites = 7 * cfg.num_layers, cfg.num_layers * (seq >= cfg.flash_threshold)
+    if cfg.family in ("ssm", "hybrid"):
+        sites *= seq >= cfg.flash_threshold
+    head = 0 if cfg.tie_embeddings else 1
+    linear = {"fused_linear_q": rec * n + head} if packed else {"fused_linear": rec * n}
+    out = {**linear, "sparse_delta_dval": n}
+    if sites:
         out["flash_attention_fwd"] = rec * sites
     return out
 
 
-def phase_family_reduced(card: str, arch: str) -> None:
-    """The reduced twin in fp32 card vs CPU: three training steps (losses
-    1e-5, values, selected indices: ``phase_reduced_train``'s bounds), and
-    greedy tokens from prefill + 8 decode steps with a random adapter,
-    identical on both."""
-    phase_reduced_train(card, "bf16", arch)
-    cfg = reduced(get_config(arch)).replace(dtype="float32")
+def gen_inputs(cfg, rows: int, prompt: int, seed: int = 23) -> tuple:
+    """(prompt tokens (rows, prompt) on the card, the encoder-decoder's
+    (rows, ENC_FRAMES, D) bf16 frames or None)."""
+    rng = np.random.default_rng(seed)
+    toks = torch.tensor(rng.integers(3, cfg.vocab_size, (rows, prompt)), dtype=torch.int32,
+                        device="cuda")
+    if cfg.family != "encdec":
+        return toks, None
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return toks, torch.randn(rows, ENC_FRAMES, cfg.d_model, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+
+
+def family_data(cfg, batch: int, seq: int, steps: int) -> tuple:
+    """(training batches, their closer): the VLM's patch batches, the lm
+    task's (with ``frames`` of (batch, ENC_FRAMES, D) on the card for the
+    encoder-decoder, the same each step)."""
+    if cfg.family == "vlm":
+        return vlm_batches(cfg, batch, seq, steps), lambda: None
+    loader = DataLoader("lm", cfg.vocab_size, batch, seq, seed=0)
+    if cfg.family != "encdec":
+        return loader, loader.close
+    frames = gen_inputs(cfg, batch, 1, seed=0)[1]
+    return (dict(b, frames=frames) for b in loader), loader.close
+
+
+def gen_launches_want(cfg, prompt: int, new: int) -> dict:
+    """Adapted-projection launches and dense decode launches of a prefill
+    over ``prompt`` tokens and ``new`` decode steps: every projection once
+    in the prefill; in a decode step every projection (the encoder-decoder's
+    decoder layers alone, without their cross k/v, which are cached: 9 a
+    layer), and one dense decode an attention site."""
+    n_proj = family_step_launches(cfg, "none", prompt)["sparse_delta_dval"]
+    per_step = 9 * cfg.num_layers if cfg.family == "encdec" else n_proj
+    sites = {"ssm": 0, "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}.get(cfg.family,
+                                                                              cfg.num_layers)
+    return {"proj": n_proj + new * per_step, "decode_attention": sites * new}
+
+
+def phase_family_reduced(card: str, arch: str, base: str = "bf16") -> None:
+    """The reduced twin in fp32 card vs CPU, on a dense base or one packed
+    to ``base``: three training steps (losses 1e-5, values, selected
+    indices: ``phase_reduced_train``'s bounds), and greedy tokens from
+    prefill + 8 decode steps with a random adapter, identical on both. The
+    encoder-decoder runs with the flash threshold lowered (REDUCED_FLASH),
+    so its encoder and cross-attention take the non-causal flash kernel,
+    and generates over 64 frames."""
+    enc = get_config(arch).family == "encdec"
+    phase_reduced_train(card, base, arch, flash=enc)
+    cfg = reduced(get_config(arch)).replace(dtype="float32", **(REDUCED_FLASH if enc else {}))
     model = get_model(cfg)
     params = model.init(seed=0, device="cpu")
+    if base != "bf16":
+        params = quantize_base(params, base, block=QUANT_BLOCK)
     (idx, val), = random_tenants(params, 1, seed=3, dtype=torch.float32, device="cpu")
-    prompt = torch.tensor(np.random.default_rng(1).integers(3, cfg.vocab_size, (2, 24)),
-                          dtype=torch.int32)
+    rng = np.random.default_rng(1)
+    prompt = torch.tensor(rng.integers(3, cfg.vocab_size, (2, 24)), dtype=torch.int32)
+    frames = (torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32))
+              if enc else None)
     outs = []
     for dev in ("cpu", "cuda"):
         move = lambda t: map_leaves(lambda x: None if x is None else x.to(dev), t)  # noqa: E731
         reset_counters()
+        fr = None if frames is None else frames.to(dev)
         outs.append(generate(model, move(params), zip_adapters(move(idx), move(val)),
-                             prompt.to(dev), 8)[0].cpu())
+                             prompt.to(dev), 8, fr)[0].cpu())
         assert dev == "cpu" or all(c.plain == 0 for c in COUNTERS.values())
+        # the prefill's encoder self-attention and cross-attention, a layer each
+        assert not enc or dev == "cpu" or (
+            COUNTERS["flash_attention_fwd"].kernel == cfg.encoder_layers + cfg.num_layers)
     assert torch.equal(outs[0], outs[1]), f"{arch} reduced greedy tokens: cpu {outs[0]} != " \
                                           f"cuda {outs[1]}"
-    log(f"[reduced-{arch}] greedy tokens from prefill + 8 decode steps with an adapter: "
+    log(f"[reduced-{arch}{'' if base == 'bf16' else '-' + base}] greedy tokens from prefill + 8 "
+        f"decode steps with an adapter{' (non-causal flash in the prefill)' if enc else ''}: "
         f"identical on cpu (plain) and cuda (kernels) [{card}]")
+
+
+# the decode caches' leaves with a sequence axis (dense, hybrid, encoder-decoder)
+KV_LEAVES = ("k", "v", "shared_k", "shared_v", "self_k", "self_v")
 
 
 def extend_cache(cache: dict, n: int) -> dict:
     """The cache ``prefill`` returned with ``n`` more rows on the sequence
     axis of every KV leaf (the recurrent states keep their shape)."""
-    return {k: F.pad(v, (0, 0, 0, 0, 0, n)) if k in ("k", "v", "shared_k", "shared_v") else v
-            for k, v in cache.items()}
+    return {k: F.pad(v, (0, 0, 0, 0, 0, n)) if k in KV_LEAVES else v for k, v in cache.items()}
 
 
-def generate(model, params, adapters, prompt, new: int) -> tuple:
-    """Greedy tokens (B, new) from ``prefill`` over ``prompt`` (B, S) and
-    ``new`` decode steps; and the seconds of the prefill and of the decode
-    steps (each ends in a synchronize on the card)."""
+def generate(model, params, adapters, prompt, new: int, frames=None) -> tuple:
+    """Greedy tokens (B, new) from ``prefill`` over ``prompt`` (B, S) (and
+    the encoder-decoder's ``frames``) and ``new`` decode steps; and the
+    seconds of the prefill and of the decode steps (each ends in a
+    synchronize on the card)."""
     sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
     b, s = prompt.shape
+    batch = {"tokens": prompt} if frames is None else {"tokens": prompt, "frames": frames}
     with torch.no_grad():
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, adapters, {"tokens": prompt})
+        logits, cache = model.prefill(params, adapters, batch)
         cache = extend_cache(cache, new)
         sync()
         t1 = time.perf_counter()
@@ -5815,12 +6045,7 @@ def phase_family(card: str, arch: str) -> dict:
         f"({100 * st['fraction']:.4f} % of the parameters), selection {select_s:.3f} s "
         f"({n_select} topk_select launches, one a stack: {json.dumps({k: list(v) for k, v in shapes.items()})}; "
         f"peak {select_peak / 2**20:.1f} MiB above the {held / 2**30:.2f} GiB held) [{card}]")
-    if cfg.family == "vlm":
-        data = vlm_batches(cfg, batch, seq, TRAIN_WARMUP + TRAIN_STEPS + 1)
-        closer = lambda: None  # noqa: E731
-    else:
-        data = DataLoader("lm", cfg.vocab_size, batch, seq, seed=0)
-        closer = data.close
+    data, closer = family_data(cfg, batch, seq, TRAIN_WARMUP + TRAIN_STEPS + 1)
     want = family_step_launches(cfg, remat, seq)
     try:
         for _ in range(TRAIN_WARMUP):
@@ -5853,42 +6078,47 @@ def phase_family(card: str, arch: str) -> dict:
     med = float(np.median(times))
     tok = batch * seq
     log(f"[family-{arch}] losses {[round(x, 4) for x in losses]} (all finite) [{card}]")
-    log(f"[family-{arch}] {TRAIN_STEPS} steps of batch {batch} x seq {seq}"
-        f"{' (a quarter patches, M-RoPE positions)' if cfg.family == 'vlm' else ''}, remat "
+    what = {"vlm": " (a quarter patches, M-RoPE positions)",
+            "encdec": f" over {ENC_FRAMES} frames"}.get(cfg.family, "")
+    log(f"[family-{arch}] {TRAIN_STEPS} steps of batch {batch} x seq {seq}{what}, remat "
         f"{remat}: step time median {med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
         f"{max(times) * 1e3:.2f}); {tok / med:.0f} training tokens/s; peak memory "
         f"{peak / 2**30:.2f} GiB; launches per step {json.dumps(per_step)} (routes "
         f"{json.dumps(routes)}), plain 0; device busy {busy:.1%} of a profiled step [{card}]")
     # greedy generation with the trained adapter
     adapters = zip_adapters(trainer.aux, trainer.state.trainable)
-    prompt = torch.tensor(np.random.default_rng(23).integers(3, cfg.vocab_size,
-                                                             (GEN_BATCH, GEN_PROMPT)),
-                          dtype=torch.int32, device="cuda")
-    generate(model, params, adapters, prompt[:, :32], 2)  # warm-up
+    gen_prompt = ENCDEC_PROMPT if cfg.family == "encdec" else GEN_PROMPT
+    prompt, frames = gen_inputs(cfg, GEN_BATCH, gen_prompt)
+    generate(model, params, adapters, prompt[:, :8], 2, frames)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    toks, pre_s, dec_s = generate(model, params, adapters, prompt, GEN_NEW)
+    toks, pre_s, dec_s = generate(model, params, adapters, prompt, GEN_NEW, frames)
     gen_peak = torch.cuda.max_memory_allocated()
     gen_launches = {n: c.kernel for n, c in COUNTERS.items() if c.kernel}
     assert all(c.plain == 0 for c in COUNTERS.values()), "generation called a plain version"
-    # the prefill and every decode step run each adapted projection once
-    n_proj = want["sparse_delta_dval"]
-    assert gen_launches.get("fused_linear") == n_proj * (GEN_NEW + 1), (gen_launches, n_proj)
-    if cfg.family != "ssm":  # the attention sites' dense decode, one launch a site a step
-        sites = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
-        assert gen_launches.get("decode_attention") == sites * GEN_NEW, gen_launches
-        expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, sites * GEN_NEW,
+    # the prefill and every decode step run each adapted projection once (the
+    # encoder-decoder's decode steps not its cached cross k/v); one dense
+    # decode an attention site a step; the encoder-decoder's prefill one flash
+    # forward a layer of each stack (encoder, cross-attention)
+    gw = gen_launches_want(cfg, gen_prompt, GEN_NEW)
+    assert gen_launches.get("fused_linear") == gw["proj"], (gen_launches, gw)
+    assert gen_launches.get("decode_attention", 0) == gw["decode_attention"], gen_launches
+    if gw["decode_attention"]:
+        expect_route(COUNTERS["decode_attention"], dec_mod.ROUTE, gw["decode_attention"],
                      f"{arch} decode at hd {cfg.resolved_head_dim}")
+    if cfg.family == "encdec":
+        assert gen_launches.get("flash_attention_fwd") == cfg.encoder_layers + cfg.num_layers
     assert toks.shape == (GEN_BATCH, GEN_NEW)
     with torch.no_grad():  # 8 decode steps under the profiler: the decode's busy share
-        logits, cache = model.prefill(params, adapters, {"tokens": prompt})
+        logits, cache = model.prefill(params, adapters, {"tokens": prompt} if frames is None
+                                      else {"tokens": prompt, "frames": frames})
         cache = extend_cache(cache, 8)
 
         def decode_steps():
             tok = logits.argmax(-1).to(torch.int32)
             for i in range(8):
                 tok = model.decode_step(params, adapters, cache, {
-                    "token": tok, "pos": torch.full((GEN_BATCH,), GEN_PROMPT + i,
+                    "token": tok, "pos": torch.full((GEN_BATCH,), gen_prompt + i,
                                                     dtype=torch.int32, device="cuda")}
                 ).argmax(-1).to(torch.int32)
 
@@ -5896,7 +6126,8 @@ def phase_family(card: str, arch: str) -> dict:
                                      f"decode_{arch}_profile.txt")
         del cache
     log(f"[family-{arch}] greedy generation with the trained adapter, B={GEN_BATCH}, a "
-        f"{GEN_PROMPT}-token prompt, {GEN_NEW} new tokens: prefill {pre_s * 1e3:.1f} ms, decode "
+        f"{gen_prompt}-token prompt{f' over {ENC_FRAMES} frames' if frames is not None else ''}, "
+        f"{GEN_NEW} new tokens: prefill {pre_s * 1e3:.1f} ms, decode "
         f"{dec_s * 1e3:.1f} ms = {GEN_BATCH * GEN_NEW / dec_s:.1f} tok/s "
         f"({dec_s / GEN_NEW * 1e3:.2f} ms a step); peak memory {gen_peak / 2**30:.2f} GiB; "
         f"launches {json.dumps(gen_launches)}, plain 0; device busy {dec_busy:.1%} of 8 "
@@ -5907,7 +6138,7 @@ def phase_family(card: str, arch: str) -> dict:
               "losses": losses, "step_s": times, "peak_bytes": peak,
               "launches_per_step": per_step, "routes": routes, "busy_share": busy,
               "profiled_step_device_us_by_bucket": buckets,
-              "generate": {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+              "generate": {"batch": GEN_BATCH, "prompt": gen_prompt, "new": GEN_NEW,
                            "prefill_s": pre_s, "decode_s": dec_s,
                            "tok_s": GEN_BATCH * GEN_NEW / dec_s, "peak_bytes": gen_peak,
                            "decode_busy_share": dec_busy,
@@ -5918,20 +6149,24 @@ def phase_family(card: str, arch: str) -> dict:
            "gen_launches": gen_launches}
     if cfg.family == "vlm":
         out["serve_launches"] = vlm_gate(card, model, params, trainer)
+        out["kv_launches"] = vlm_gate(card, model, params, trainer, kv_dtype="int8")
     del trainer, params
     torch.cuda.empty_cache()
     return out
 
 
-def vlm_gate(card: str, model, params, trainer) -> dict:
+def vlm_gate(card: str, model, params, trainer, kv_dtype: str = "fp32") -> dict:
     """qwen2-vl-2b's multi-tenant paged gate run, qwen2-1.5b's settings:
     the trained adapter and 2 random tenants on its indices (k = 1: a
     store holds one adapter shape) beside the base, the gate
     run's 10 prompts (text; plain RoPE, as the reference's engine), every
-    forward and token draw under the sync guard. Every request ends, only
-    the serving kernels (paged prefill, ring decode, fused bypass) launch,
-    one transfer a step, the pool drains."""
+    forward and token draw under the sync guard, on a bf16 pool or (slice
+    16) an int8 one. Every request ends, only the serving kernels (paged
+    prefill, ring decode, both of ``kv_dtype``'s body, and the fused
+    bypass) launch, one transfer a step, the pool drains."""
     prompts, max_new, kw = gate_prompts(model.cfg.vocab_size), 32, gate_kw()
+    kw["kv_dtype"] = kv_dtype
+    names = ("sparse_delta_batched",) + attention_names(True, kv_dtype)[0]
     tenants = [(trainer.aux, trainer.state.trainable)] + random_tenants(
         params, 2, seed=7, dtype=torch.bfloat16, device="cuda", idx=trainer.aux)
     serve(model, params, tenants, prompts[:2], 2, "cuda", **kw)  # warm-up
@@ -5942,35 +6177,141 @@ def vlm_gate(card: str, model, params, trainer) -> dict:
         eng, reqs = serve(model, params, tenants, prompts, max_new, "cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: COUNTERS[n].kernel for n in SERVING}
-    decode_routes("vlm-gate")
-    apply_by_route = apply_routes("vlm-gate", 7, forwards_of(eng))
+    launches = {n: COUNTERS[n].kernel for n in names}
+    decode_routes(f"vlm-gate-{kv_dtype}")
+    apply_by_route = apply_routes(f"vlm-gate-{kv_dtype}", 7, forwards_of(eng))
     for name, c in COUNTERS.items():
-        assert name not in SERVING or c.kernel > 0, f"vlm gate run never launched {name}"
-        assert name in SERVING or c.kernel == 0, f"vlm gate run launched {name}"
+        assert name not in names or c.kernel > 0, f"vlm gate run never launched {name}"
+        assert name in names or c.kernel == 0, f"vlm gate run launched {name}"
         assert c.plain == 0, f"vlm gate run called the plain version of {name}"
     assert all(r.done and r.reason in ("eos", "max_new") for r in reqs)
     assert {r.adapter_id for r in reqs} == {0, 1, 2, 3}
     assert eng.transfers == eng.steps and eng.kv.drained()
     n_tok = sum(len(r.out) for r in reqs)
-    log(f"[family-qwen2-vl-2b] paged gate run, the trained adapter + 2 random tenants + the "
-        f"base: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s); "
+    log(f"[family-qwen2-vl-2b] paged {kv_dtype} gate run, the trained adapter + 2 random "
+        f"tenants + the base: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s); "
         f"steps {eng.steps}, one transfer each; launches {json.dumps(launches)}, applies "
         f"{json.dumps(apply_by_route)}, plain 0; pool drained [{card}]")
     return launches
 
 
+def phase_family_packed(card: str, arch: str, qd: str) -> dict:
+    """``arch`` at full width on a base packed to ``qd`` (block QUANT_BLOCK)
+    after a bf16 init: selection one matrix at a time, 2 warm-up +
+    PACKED_STEPS NeuroAda steps (FAMILY_TRAIN's shape; peak memory; only
+    ``fused_linear_q``, ``sparse_delta_dval`` and where reckoned the flash
+    forward, as many as reckoned; the packed bytes unchanged), then
+    PACKED_NEW greedy tokens with the trained adapter (B = GEN_BATCH, a
+    PACKED_PROMPT-token prompt, or ENCDEC_PROMPT tokens over ENC_FRAMES
+    frames). Returns the launches."""
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    batch, seq, remat = FAMILY_TRAIN[arch]
+    params = model.init(seed=0, device="cuda")
+    shapes = adapt_mod.adaptable_shapes(params)
+    params = quantize_base(params, qd, block=QUANT_BLOCK)  # the dense base is freed
+    base_bytes = tree_bytes(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counters()
+    t0 = time.perf_counter()
+    trainer = Trainer(model, get_peft(PeftConfig(k=TRAIN_K)),
+                      TrainConfig(steps=TRAIN_WARMUP + PACKED_STEPS, learning_rate=TRAIN_LR,
+                                  remat=remat), params)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    select_peak = torch.cuda.max_memory_allocated() - held
+    n_select = COUNTERS["topk_select"].kernel
+    assert all(c.plain == 0 for c in COUNTERS.values()), "selection called a plain version"
+    assert n_select == sum(math.prod(s[:-2]) for s in shapes.values()), (n_select, shapes)
+    data, closer = family_data(cfg, batch, seq, TRAIN_WARMUP + PACKED_STEPS)
+    want = family_step_launches(cfg, remat, seq, packed=True)
+    try:
+        for _ in range(TRAIN_WARMUP):
+            trainer.step(next(data))
+        fingerprint = packed_fingerprint(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses = [], []
+        for _ in range(PACKED_STEPS):
+            step_batch = next(data)
+            t0 = time.perf_counter()
+            m = trainer.step(step_batch)
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            assert m["skipped"] == 0, m
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        closer()
+    launches = {n: COUNTERS[n].kernel for n in want}
+    for name, c in COUNTERS.items():
+        assert c.plain == 0, f"{arch} {qd} training called the plain version of {name}"
+        assert name in want or c.kernel == 0, f"{arch} {qd} training launched {name}"
+    per_step = {n: v / PACKED_STEPS for n, v in launches.items()}
+    assert per_step == want, (per_step, want)
+    assert all(np.isfinite(losses)), losses
+    assert all(torch.equal(a, b) for a, b in zip(fingerprint, packed_fingerprint(params)))
+    adapters = zip_adapters(trainer.aux, trainer.state.trainable)
+    gen_prompt = ENCDEC_PROMPT if cfg.family == "encdec" else PACKED_PROMPT
+    prompt, frames = gen_inputs(cfg, GEN_BATCH, gen_prompt)
+    reset_counters()
+    toks, pre_s, dec_s = generate(model, params, adapters, prompt, PACKED_NEW, frames)
+    gen_launches = {n: c.kernel for n, c in COUNTERS.items() if c.kernel}
+    assert all(c.plain == 0 for c in COUNTERS.values()), "generation called a plain version"
+    gw = gen_launches_want(cfg, gen_prompt, PACKED_NEW)
+    head = 0 if cfg.tie_embeddings else PACKED_NEW + 1  # the packed head's matmul a forward
+    assert gen_launches.get("fused_linear_q") == gw["proj"] + head, (gen_launches, gw)
+    assert "fused_linear" not in gen_launches, gen_launches
+    assert gen_launches.get("decode_attention", 0) == gw["decode_attention"], gen_launches
+    assert toks.shape == (GEN_BATCH, PACKED_NEW)
+    med = float(np.median(times))
+    log(f"[family-{arch}-{qd}] {qd} base ({base_bytes:,} bytes), selection {select_s:.3f} s "
+        f"({n_select} topk_select launches, one a matrix; peak {select_peak / 2**20:.1f} MiB "
+        f"above the {held / 2**30:.2f} GiB held); {PACKED_STEPS} steps of batch {batch} x seq "
+        f"{seq}, remat {remat}: losses {[round(x, 4) for x in losses]}, step median "
+        f"{med * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), peak "
+        f"{peak / 2**30:.2f} GiB, launches per step {json.dumps(per_step)}, plain 0, base "
+        f"bytes unchanged; {PACKED_NEW} greedy tokens (B={GEN_BATCH}, {gen_prompt}-token "
+        f"prompt): prefill {pre_s * 1e3:.1f} ms, decode {GEN_BATCH * PACKED_NEW / dec_s:.1f} "
+        f"tok/s, launches {json.dumps(gen_launches)} [{card}]")
+    result = {"card": card, "arch": arch, "base": qd, "base_bytes": base_bytes,
+              "select_s": select_s, "select_launches": n_select, "select_peak_bytes": select_peak,
+              "losses": losses, "step_s": times, "peak_bytes": peak,
+              "launches_per_step": per_step,
+              "generate": {"batch": GEN_BATCH, "prompt": gen_prompt, "new": PACKED_NEW,
+                           "prefill_s": pre_s, "decode_s": dec_s, "launches": gen_launches}}
+    with open(os.path.join(OUT_DIR, f"train_{arch}_{qd}.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    del trainer, params, adapters
+    torch.cuda.empty_cache()
+    return {"train_launches": launches, "gen_launches": gen_launches,
+            "select_launches": n_select}
+
+
 def families(card: str, summary: dict, stamp) -> dict:
-    """Slice 15's phases (also alone with ``--families``): the reduced twins
-    card vs CPU, then each family at full width (training, generation; the
-    VLM's gate run). Returns each arch's launches."""
+    """Slice 15's and 16's phases (also alone with ``--families``): the
+    reduced twins card vs CPU (qwen2-vl's int8 KV engines too), then each
+    family at full width (training, generation; the VLM's gate runs on a
+    bf16 and an int8 pool), then each family on an int8 and an NF4 base
+    (its reduced twins card vs CPU, then full width). Returns each arch's
+    launches."""
     out = {}
     for arch in FAMILY_ARCHS:
         phase_family_reduced(card, arch)
+    for paged in (True, False):
+        phase_reduced("fp32", paged, "int8", arch="qwen2-vl-2b")
     stamp("reduced families")
     for arch in FAMILY_ARCHS:
         out[arch] = phase_family(card, arch)
         stamp(arch)
+    for arch in FAMILY_ARCHS:
+        for qd in PACKED:
+            phase_family_reduced(card, arch, qd)
+            out[arch][f"packed_{qd}"] = phase_family_packed(card, arch, qd)
+        stamp(f"{arch} packed")
     return out
 
 
@@ -6199,13 +6540,21 @@ def main() -> int:
             # spec gate runs' launches by drafter
             row["spec"] = dict(s["spec"], launches_by_drafter={
                 d: n[name] for d, n in launches["spec"].items() if n.get(name)})
-        fam_launches = {arch: {phase: f[key][name] for phase, key in (
-            ("train", "train_launches"), ("generate", "gen_launches"),
-            ("serve", "serve_launches")) if f.get(key, {}).get(name)}
-            for arch, f in fams.items()}
+        phases = (("train", "train_launches"), ("generate", "gen_launches"),
+                  ("serve", "serve_launches"), ("serve-int8-kv", "kv_launches"))
+        fam_launches = {arch: {phase: f[key][name] for phase, key in phases
+                               if f.get(key, {}).get(name)} for arch, f in fams.items()}
         for arch, f in fams.items():
             if name == "topk_select":
                 fam_launches[arch]["select"] = f["select_launches"]
+            # slice 16: the packed bases' measured steps, generation and selection
+            for qd in PACKED:
+                p = f[f"packed_{qd}"]
+                for phase in ("train", "gen"):
+                    if p[f"{phase}_launches"].get(name):
+                        fam_launches[arch][f"{phase}-{qd}"] = p[f"{phase}_launches"][name]
+                if name == "topk_select":
+                    fam_launches[arch][f"select-{qd}"] = p["select_launches"]
         fam_launches = {arch: n for arch, n in fam_launches.items() if n}
         if "families" in s or fam_launches:
             # slice 15: the new shapes' times and bounds (kernel phase) and the

@@ -10,7 +10,8 @@ runs :func:`dense_attention`.
 
 Training: :func:`train_attention` takes :func:`dense_attention` (plain
 PyTorch with a float32 softmax) below ``cfg.flash_threshold`` and
-:func:`flash_attention` at or above it, as the reference does. The flash
+:func:`flash_attention` at or above it, as the reference does, causal or
+not (the encoder-decoder's encoder and cross-attention). The flash
 forward is the hand-written kernel (its plain version on the CPU); its
 backward is the reference's FlashAttention-2 scan (``_flash_core_bwd``) in
 plain PyTorch, as the reference leaves it to XLA.
@@ -132,13 +133,16 @@ def flash_attention(q, k, v, *, causal: bool, block: int):
     return _FlashAttention.apply(q, k, v, causal, block)
 
 
-def train_attention(q, k, v, cfg):
-    """Causal self-attention of a training forward: :func:`dense_attention`
-    below ``cfg.flash_threshold``, :func:`flash_attention` with
-    ``cfg.flash_block`` at or above it (the reference's dispatch)."""
-    if k.shape[1] >= cfg.flash_threshold:
-        return flash_attention(q, k, v, causal=True, block=cfg.flash_block)
-    return dense_attention(q, k, v, causal=True)
+def train_attention(q, k, v, cfg, *, causal: bool = True):
+    """Attention of a whole-sequence forward (training, prefill; the
+    reference's dispatch for ``Sq > 1`` without ``kv_valid_len``):
+    :func:`flash_attention` with ``cfg.flash_block`` from
+    ``cfg.flash_threshold`` keys on, :func:`dense_attention` below it or for
+    a single query row. ``causal=False`` is the encoder's self-attention and
+    the cross-attention (Sq may differ from Skv there)."""
+    if q.shape[1] > 1 and k.shape[1] >= cfg.flash_threshold:
+        return flash_attention(q, k, v, causal=causal, block=cfg.flash_block)
+    return dense_attention(q, k, v, causal=causal)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, table, *, q_offset, kv_valid_len,

@@ -2,7 +2,8 @@
 ``repro.models.registry``): the dense, MoE and VLM families through
 :mod:`~repro_torch.models.transformer`, the SSM family (falcon-mamba)
 through :mod:`~repro_torch.models.mamba_lm`, the hybrid (zamba2) through
-:mod:`~repro_torch.models.zamba2`."""
+:mod:`~repro_torch.models.zamba2`, the encoder-decoder (seamless-m4t)
+through :mod:`~repro_torch.models.encdec`."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch.nn as nn
 
 from repro_torch.core.delta import BatchedDelta
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba_lm, transformer, zamba2
+from repro_torch.models import encdec, mamba_lm, transformer, zamba2
 from repro_torch.tree import flatten
 
 _FAMILY = {
@@ -20,7 +21,10 @@ _FAMILY = {
     "vlm": transformer,
     "ssm": mamba_lm,
     "hybrid": zamba2,
+    "encdec": encdec,
 }
+# the stacked layer trees a family's per-layer views are cut from
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
 FAMILIES = tuple(_FAMILY)
 
 
@@ -43,11 +47,10 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family not in _FAMILY:
             raise ValueError(f"the port has the {', '.join(FAMILIES)} families, got "
-                             f"{cfg.family!r} (ROADMAP.md §1 item 6, encdec: \"Remaining "
-                             f"families\")")
+                             f"{cfg.family!r}")
         self.cfg = cfg
         self.mod = _FAMILY[cfg.family]
-        self._views: list = []  # [(blocks, views)], the most recent first
+        self._views: list = []  # [(stacked trees, views)], the most recent first
         self._a_views: tuple = ((), None)
 
     def _kv_lm(self, what: str) -> None:
@@ -66,9 +69,10 @@ class Model(nn.Module):
                                             kv_dtype)
 
     def init_cache(self, slots: int, max_len: int, device, kv_dtype: str = "fp32") -> dict:
-        """The dense slot cache of a transformer family, or the SSM / hybrid
-        decode state (``kv_dtype`` ``fp32`` only there, as in the
-        reference)."""
+        """The dense slot cache of a transformer family, the SSM / hybrid
+        decode state, or the encoder-decoder's self and cross k/v (cross at
+        ``encdec.DECODE_ENC_LEN`` frames); ``kv_dtype`` ``fp32`` only but on
+        the transformer families, as in the reference."""
         if self.mod is transformer:
             return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype)
         if kv_dtype != "fp32":
@@ -81,15 +85,21 @@ class Model(nn.Module):
         s_img = int(seq_len * self.cfg.image_frac)
         return s_img, seq_len - s_img
 
-    def _layers(self, params) -> list[dict]:
-        blocks = params["blocks"]
-        if any(isinstance(x, torch.Tensor) and x.requires_grad for _, x in flatten(blocks)):
+    def _layers(self, params):
+        """The family's per-layer views of ``params`` (``layer_views``),
+        kept per stacked tree: ``blocks``, or the encoder-decoder's
+        ``enc_blocks`` and ``dec_blocks``."""
+        stacks = [params[k] for k in _STACKS if k in params]
+        if any(isinstance(x, torch.Tensor) and x.requires_grad
+               for blocks in stacks for _, x in flatten(blocks)):
             # a training step's live trainable tree (bitfit, masked, full): its
             # views are not kept, or they would hold its tensors past the step
             return self.mod.layer_views(params)
-        hit = next((e for e in self._views if e[0] is blocks), None)
+        hit = next((e for e in self._views
+                    if len(e[0]) == len(stacks) and all(a is b for a, b in zip(e[0], stacks))),
+                   None)
         if hit is None:
-            hit = (blocks, self.mod.layer_views(params))
+            hit = (stacks, self.mod.layer_views(params))
         self._views = [hit] + [e for e in self._views if e is not hit][:1]
         return hit[1]
 

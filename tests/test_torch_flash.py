@@ -8,6 +8,8 @@ on the CPU.
 * the port's ``flash_attention`` and its dq, dk, dv through
   ``torch.autograd`` against ``jax.vjp`` of the reference's
   ``flash_attention`` (fp32, rtol 1e-4), and its refusal of a ragged Skv;
+  non-causal with Sq != Skv under GQA (the cross-attention) through the
+  training dispatch, within 2e-5;
 * reduced qwen2-1.5b and olmoe-1b-7b with ``flash_threshold`` and
   ``flash_block`` lowered so that every layer takes the flash path: loss
   and value gradients against the reference's loss on its jnp backend,
@@ -147,6 +149,37 @@ def test_flash_attention_and_gradients_match_reference_vjp(causal, block, h, hkv
     for name, g, w in zip("qkv", grads, wants):
         w = np.asarray(w)
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("sq,skv,block,h,hkv", [(48, 128, 32, 4, 2), (128, 64, 16, 6, 2),
+                                               (16, 96, 32, 4, 1)])
+def test_noncausal_cross_attention_matches_reference_vjp(sq, skv, block, h, hkv):
+    """The encoder-decoder's cross-attention: ``causal=False`` with Sq !=
+    Skv under GQA, reached through the training dispatch
+    (``train_attention``) at ``flash_threshold`` <= Skv: out, dq, dk and dv
+    against ``jax.vjp`` of the reference's ``flash_attention`` within 2e-5."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.attention import train_attention
+
+    rng = np.random.default_rng(5)
+    b, hd = 2, 16
+    q = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((b, skv, hkv, hd)).astype(np.float32) for _ in range(2))
+    dout = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
+    want, vjp = jax.vjp(lambda *a: j_flash_attention(*a, causal=False, block=block),
+                        *map(jnp.asarray, (q, k, v)))
+    wants = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    reset_counters()
+    got = train_attention(tq, tk, tv, SimpleNamespace(flash_threshold=skv, flash_block=block),
+                          causal=False)
+    assert COUNTERS["flash_attention_fwd"].plain == 1
+    grads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(dout))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    for name, g, w in zip("qkv", grads, wants):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5,
                                    err_msg=f"d{name}")
 
 

@@ -3,9 +3,9 @@ on the CPU: reduced config (2 layers, d 64, d_inner 128, N 8, dt rank 8,
 scan chunk 8, untied head) in float32, the reference's random params
 converted leaf by leaf, inputs from a numpy seed.
 
-* ``get_model`` builds every family but encdec, which it refuses naming
-  its queue item; the chunked prefill and verification, the paged cache
-  and int8 KV raise with the reference's words;
+* ``get_model`` builds every family, seamless-m4t-large-v2's encdec too;
+  the chunked prefill and verification, the paged cache and int8 KV raise
+  with the reference's words;
 * selection: the reference's indices; only the ``…/w`` leaves of
   ``in_proj``, ``x_proj``, ``dt_proj``, ``out_proj`` and the untied head
   are adapted (never ``conv_w``, ``conv_b``, ``A_log``, ``skip_D`` or the
@@ -23,7 +23,9 @@ converted leaf by leaf, inputs from a numpy seed.
   with its adapter export, the serve launcher's refusal (the reference
   engine's ``ValueError``).
 
-The helpers here serve ``test_torch_zamba2.py`` as well. The scans' own
+The helpers here serve ``test_torch_zamba2.py`` and
+``test_torch_encdec.py`` as well: ``extra`` inputs (the encoder-decoder's
+``frames``) join every batch they build. The scans' own
 tolerances are argued in ``test_torch_ssm.py``; the whole model's sums add
 only float32 rounding of the same order.
 """
@@ -148,22 +150,22 @@ def check_loss_and_grads(world, batch, n_adapted):
     return grads
 
 
-def port_steps(world, remat: str, n: int = 3):
+def port_steps(world, remat: str, n: int = 3, extra=None):
     """The port's values and metrics after each of ``n`` AdamW steps (k = 1)
-    on the reasoning task's batches."""
+    on the reasoning task's batches (with ``extra`` inputs)."""
     peft = get_peft(PeftConfig(k=1, delta_dtype="float32"))
     step, opt = make_train_step(world["tm"], peft, TrainConfig(steps=3, remat=remat))
     vals, idx = peft.init(world["tp"])
     state = TrainState(vals, opt.init(vals), torch.zeros((), dtype=torch.int32))
     out = []
     for i in range(n):
-        batch = J_TASKS["reasoning"](world["cfg"].vocab_size, 4, 16, 0, i)
+        batch = dict(J_TASKS["reasoning"](world["cfg"].vocab_size, 4, 16, 0, i), **(extra or {}))
         state, m = step(world["tp"], idx, state, {k: torch.from_numpy(x) for k, x in batch.items()})
         out.append((state.trainable, m))
     return out
 
 
-def check_three_steps(world, n_adapted):
+def check_three_steps(world, n_adapted, extra=None):
     """Three AdamW steps (k = 1) against the reference's jitted step: the
     metrics within rtol 1e-5, the values within rtol 1e-5 and 5e-4 × lr.
     Adam's first update is lr · g / (|g| + ε), so where a gradient is small
@@ -178,9 +180,9 @@ def check_three_steps(world, n_adapted):
     jvals, jidx = jpeft.init(world["jp"], jax.random.PRNGKey(0))
     jstate = JState(jvals, jopt.init(jvals), jnp.zeros((), jnp.int32))
     lr = TrainConfig().learning_rate
-    for i, ((vals, m), (fvals, fm)) in enumerate(zip(port_steps(world, "none"),
-                                                     port_steps(world, "full"))):
-        batch = J_TASKS["reasoning"](cfg.vocab_size, 4, 16, 0, i)
+    for i, ((vals, m), (fvals, fm)) in enumerate(zip(port_steps(world, "none", extra=extra),
+                                                     port_steps(world, "full", extra=extra))):
+        batch = dict(J_TASKS["reasoning"](cfg.vocab_size, 4, 16, 0, i), **(extra or {}))
         jstate, jmet = jstep(world["jp"], jidx, jstate,
                              {k: jnp.asarray(x) for k, x in batch.items()})
         for key in ("loss", "ce", "grad_norm"):
@@ -214,16 +216,17 @@ def pad_seq(x, axis):
     return F.pad(x, pad)
 
 
-def check_prefill_decode(world, pad_cache, s=16):
+def check_prefill_decode(world, pad_cache, s=16, extra=None):
     """prefill over S tokens then one decode step equal the full forward at
     positions S-1 and S (2e-4: a prefill's sums are the forward's; the
     decode's recurrence adds one float32 step), with and without adapters."""
     toks = tokens(world, 2, s + 1)
     tm, tp = world["tm"], world["tp"]
+    ex = {k: torch.from_numpy(x) for k, x in (extra or {}).items()}
     for ad in (None, port_adapters(world)[0]):
         with torch.no_grad():
-            full, _ = tm.forward_train(tp, ad, {"tokens": torch.from_numpy(toks)})
-            lg, cache = tm.prefill(tp, ad, {"tokens": torch.from_numpy(toks[:, :s])})
+            full, _ = tm.forward_train(tp, ad, {"tokens": torch.from_numpy(toks), **ex})
+            lg, cache = tm.prefill(tp, ad, {"tokens": torch.from_numpy(toks[:, :s]), **ex})
             cache = pad_cache(cache)
             nxt = tm.decode_step(tp, ad, cache, {"token": torch.from_numpy(toks[:, s]),
                                                  "pos": torch.full((2,), s, dtype=torch.int32)})
@@ -231,15 +234,18 @@ def check_prefill_decode(world, pad_cache, s=16):
         np.testing.assert_allclose(nxt.numpy(), full[:, s].numpy(), atol=2e-4)
 
 
-def greedy(world, pad_cache, s=12, steps=8):
-    """(port tokens, reference tokens): prefill over S prompt tokens then
-    ``steps`` greedy decode steps with the adapters, in each package."""
+def greedy(world, pad_cache, s=12, steps=8, extra=None):
+    """(port tokens, reference tokens): prefill over S prompt tokens (and
+    ``extra`` inputs) then ``steps`` greedy decode steps with the adapters,
+    in each package."""
     toks = tokens(world, 2, s, seed=4)
     tm, tp, jm, jp = world["tm"], world["tp"], world["jm"], world["jp"]
     ad = port_adapters(world)[0]
+    extra = extra or {}
     out = []
     with torch.no_grad():
-        lg, cache = tm.prefill(tp, ad, {"tokens": torch.from_numpy(toks)})
+        lg, cache = tm.prefill(tp, ad, {"tokens": torch.from_numpy(toks),
+                                        **{k: torch.from_numpy(x) for k, x in extra.items()}})
         for _ in range(steps):
             cache = pad_cache(cache)
         for i in range(steps):
@@ -248,10 +254,11 @@ def greedy(world, pad_cache, s=12, steps=8):
             lg = tm.decode_step(tp, ad, cache, {"token": tok,
                                                 "pos": torch.full((2,), s + i, dtype=torch.int32)})
     jad = j_zip(world["idx"], world["val"])
-    jlg, jcache = jax.jit(lambda t: jm.prefill(jp, jad, {"tokens": t}))(jnp.asarray(toks))
+    jlg, jcache = jax.jit(lambda t, e: jm.prefill(jp, jad, {"tokens": t, **e}))(
+        jnp.asarray(toks), {k: jnp.asarray(x) for k, x in extra.items()})
     pad = ((0, 0), (0, 0), (0, steps), (0, 0), (0, 0))  # room for the new tokens' k/v
-    jcache = {k: jnp.pad(v, pad) if k in ("k", "v", "shared_k", "shared_v") else v
-              for k, v in jcache.items()}
+    jcache = {k: jnp.pad(v, pad) if k in ("k", "v", "shared_k", "shared_v", "self_k", "self_v")
+              else v for k, v in jcache.items()}
     dstep = jax.jit(lambda c, t, p: jm.decode_step(jp, jad, c, {"token": t, "pos": p}))
     ref = []
     for i in range(steps):
@@ -270,10 +277,8 @@ def world():
 
 
 def test_registry_builds_the_families_and_refuses_with_the_reference_words(world):
-    for arch in ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b"):
+    for arch in ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b", "seamless-m4t-large-v2"):
         assert get_model(t_get_config(arch)).cfg.name == arch
-    with pytest.raises(ValueError, match=r"§1 item 6, encdec"):
-        get_model(t_get_config("seamless-m4t-large-v2"))
     for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
         jm, tm = j_get_model(reduced(get_config(arch))), get_model(t_reduced(t_get_config(arch)))
         calls = (("prefill_chunk", lambda m: m.prefill_chunk(None, None, None, None)),
