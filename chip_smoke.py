@@ -12,6 +12,7 @@
     python3 chip_smoke.py --serve-lifecycle
     python3 chip_smoke.py --sparse-dx
     python3 chip_smoke.py --families
+    python3 chip_smoke.py --tp
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -29,7 +30,8 @@ Hopper at their path shapes under the plans their planners pick among
 the value gradient's rows a tile, stages, blocks an SM and column spans).
 ``--sparse-dx`` runs the training backward's sparse-dx check and two
 resumes, then times the 4 x 512 step with the ordered dx and with the
-``index_add_`` it replaced, in turn. ``--families`` runs only phase 11.
+``index_add_`` it replaced, in turn. ``--families`` runs only phase 11,
+``--tp`` only phase 12.
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
@@ -249,11 +251,28 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     int8 and an NF4 base: the reduced twins card vs CPU, and at full width
     selection one matrix at a time, 2 + 3 steps (only ``fused_linear_q``,
     ``sparse_delta_dval`` and the flash forward where reckoned; the packed
-    bytes unchanged), 16 greedy tokens (``train_<arch>_<base>.json``).
+    bytes unchanged), 16 greedy tokens (``train_<arch>_<base>.json``);
+12. tensor-parallel serving (slice 17; also alone with ``--tp``): the four
+    TP wrappers on one rank's slices at the per-shard shapes of tp 2 (the
+    paged decode and prefill and the dense decode at qwen2-1.5b's 6 q heads
+    over 1 kv-head, hd 128, fp and int8 bodies; ``matmul_q_cols_sharded`` on
+    one rank's 75,968 columns of qwen3-32b's packed head, int8 and NF4), each
+    against the plain version of the kernel it launches and timed beside
+    its bound and a PyTorch call on the same local slice; then the path at
+    tp 1 on the card and at tp 2 over 2 spawned ranks sharing the card
+    (a gloo device group): full-width qwen2-1.5b on the paged engine with 2
+    tenants, on the bf16 and on an int8 base (4 requests x 32 new tokens;
+    the first decode step's logits within 2u sqrt(2 L) of tp 1's, how far
+    the greedy tokens agree, pool bytes a rank = total / 2, each rank's base
+    bytes, the step wall of two ranks on one card), and the reduced float32
+    twins of the CPU tests (paged with tenants, dense, and the untied head on
+    an int8 base: tokens at tp 2 = tp 1 on the card = the CPU's); every
+    wrapper launched on the path, no plain call on a rank
+    (``chiprun_out/tp.json``).
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
-the thirteen kernels (``topk_select``'s with its smallest-first and
+the thirteen kernels and the four TP wrappers (``topk_select``'s with its smallest-first and
 float32-score figures); the rows of the four kernels a speculative round
 reaches carry a ``spec`` entry (its shape's times and bound, the spec gate
 runs' launches by drafter); the rows of kernels olmoe also runs carry an
@@ -309,6 +328,7 @@ from repro_torch.kernels import (  # noqa: E402
     SELECTION,
     SERVING,
     SINGLE_TENANT,
+    TENSOR_PARALLEL,
     TRAINING,
     build,
     ops,
@@ -6315,6 +6335,371 @@ def families(card: str, summary: dict, stamp) -> dict:
     return out
 
 
+# --------------------------------------------------- tensor-parallel serving
+
+# slice 17: 2 ranks, both on the one card, with a gloo device group (NCCL
+# refuses two ranks on one device; gloo takes the card's tensors as they
+# are); 4 of the gate prompts x 32 new tokens on the paged engine, the base
+# and 2 tenants cycling
+TP, TP_REQUESTS, TP_NEW, TP_TENANTS = 2, 4, 32, 2
+# tp = 2's first decode logits against tp = 1's, both bf16 on the card: every
+# row-parallel output (wo and wdown of each layer, 2 L sites) rounds twice
+# more than at tp = 1 — each rank's partial product to bf16, then the bf16
+# sum of the two partials — at most 2u of its size, u = 2^-8 (bf16's unit
+# roundoff). The sites' errors are independent and add up as a random walk
+# through the residual stream, so the logits' relative error ||tp2 - tp1|| /
+# ||tp1|| over the compared rows is held to 2u sqrt(2 L): 0.0585 at L = 28
+BF16_U = 2.0 ** -8
+# the reduced float32 twins of the CPU tests (tests/test_torch_tp_serve.py):
+# qwen2 with 4 kv-heads and 8 heads on the paged pool with 2 tenants and on
+# the dense slot cache (the dense decode's wrapper), and the untied head
+# (reduced qwen3-32b) on an int8 base of 32-row blocks with 2 tenants
+# (matmul_q_cols_sharded); 3 prompts x 6 tokens on 2 slots
+TP_TWINS = {"qwen2-paged-tenants": ("qwen2-1.5b", dict(paged=True), True),
+            "qwen2-dense": ("qwen2-1.5b", dict(paged=False), False),
+            "qwen3-untied-int8": ("qwen3-32b", dict(paged=True, base_dtype="int8",
+                                                    quant_block=32), True)}
+TP_TWIN_KW = dict(slots=2, max_len=64, decode_chunk=2, prefill_chunk=8)
+TP_TWIN_PROMPTS = [[1, 17, 25], [1, 40, 41, 42], [3, 5]]
+# qwen2-1.5b's per-shard attention at tp 2: 6 q heads over 1 kv-head, hd 128
+TP_HEADS, TP_LOCAL = (12, 2), (6, 1, 128)
+# qwen3-32b's untied head: 5120 -> 151,936 columns, 75,968 a rank at tp 2
+TP_HEAD_K, TP_HEAD_N = 5120, 151936 // 2
+
+
+def tp_kernels(gen, dev, card: str) -> dict:
+    """The four wrappers of tensor-parallel serving, each on one rank's local
+    slices at the path's per-shard shapes, against the plain version of the
+    kernel it launches (the fp and int8 bodies of the three attention
+    kernels; the packed head in int8 and NF4), timed beside that plain
+    version, its bound and a one-call PyTorch yardstick on the same local
+    slice (SDPA over the gathered cache; ``torch.mm`` on the dense local
+    columns of the head). Returns a summary row a wrapper."""
+    h, hkv, hd = TP_LOCAL
+    num_blocks = SLOTS * (-(-MAX_LEN // PAGE))
+    dec_vl = [1, 17, 300, MAX_LEN - 1, 512, 0, 640, 33]
+    pre_off, pre_len = [700, 0, 256, 0, 512, 40, 0, 300], [1, 256, 188, 0, 256, 1, 40, 0]
+    bf = torch.bfloat16
+    out = {}
+
+    def timed(name, call, plain, library, cost, err, shape, int8=None):
+        ms = cuda_ms(call)
+        b_ms, b_by = bound(*cost, bf)
+        row = dict(ms=ms, plain_ms=cuda_ms(plain, iters=3), library_ms=cuda_ms(library),
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=shape)
+        if int8 is not None:
+            row["int8"] = int8
+        out[name] = row
+        log(f"[tp-kernels] {name} ok: max|err| {err:.3e}, {ms:.4f} ms (plain "
+            f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound {b_ms:.4f} by "
+            f"{b_by}); {shape} [{card}]")
+
+    # paged decode: (8, 1, 6, 128) against one kv-head of every page
+    q, kp, vp, table, _, vl = paged_case(gen, [0] * SLOTS, dec_vl, 1, bf, dev, num_blocks,
+                                         heads=TP_LOCAL)
+    run = lambda: dec_mod.paged_decode_attention_sharded(  # noqa: E731
+        q, kp, vp, table, vl, TP, TP_HEADS)
+    plain = lambda: dec_mod.paged_decode_attention_plain(q, kp, vp, table, vl)  # noqa: E731
+    err = check_close("paged_decode_attention_sharded", run(), plain(), bf)
+    kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
+    vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
+    got = dec_mod.paged_decode_attention_sharded(q, kc, vc, table, vl, TP, TP_HEADS, ks, vs)
+    want = dec_mod.paged_decode_attention_plain(q, kc, vc, table, vl, ks, vs)
+    q_cost = int8_attention_cost(q, hkv, table, vl, float(vl.sum()), int((vl > 0).sum()), 1)
+    int8 = dict(max_abs_err=check_close("paged_decode_attention_sharded int8", got, want, bf),
+                ms=cuda_ms(lambda: dec_mod.paged_decode_attention_sharded(
+                    q, kc, vc, table, vl, TP, TP_HEADS, ks, vs)),
+                bound_ms=bound(*q_cost, bf)[0])
+    s = table.shape[1] * PAGE
+    mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+    timed("paged_decode_attention_sharded", run, plain, sdpa_yardstick(q, kp, vp, table, mask),
+          decode_cost(q, kp, table, vl), err,
+          f"q (8,1,6,128) bf16, pool ({num_blocks},16,1,128) one rank's kv-head, "
+          f"kv_valid_len {dec_vl}", int8)
+
+    # paged prefill: one mixed step's chunk buffer on one rank's heads
+    q, kp, vp, table, qoff, vl = paged_case(gen, pre_off, pre_len, PREFILL_CHUNK, bf, dev,
+                                            num_blocks, heads=TP_LOCAL)
+    run = lambda: pre_mod.paged_prefill_attention_sharded(  # noqa: E731
+        q, kp, vp, table, qoff, vl, TP, TP_HEADS)
+    plain = lambda: pre_mod.paged_prefill_attention_plain(q, kp, vp, table, qoff, vl)  # noqa: E731
+    err = check_close("paged_prefill_attention_sharded", run(), plain(), bf)
+    got = pre_mod.paged_prefill_attention_sharded(q, kc, vc, table, qoff, vl, TP, TP_HEADS, ks, vs)
+    want = pre_mod.paged_prefill_attention_plain(q, kc, vc, table, qoff, vl, ks, vs)
+    mask = prefill_mask(qoff, vl, table, dev)
+    q_cost = int8_attention_cost(q, hkv, table, vl, float(mask[:, 0].sum()),
+                                 int(mask[:, 0].any(-1).sum()), 2)
+    int8 = dict(max_abs_err=check_close("paged_prefill_attention_sharded int8", got, want, bf),
+                ms=cuda_ms(lambda: pre_mod.paged_prefill_attention_sharded(
+                    q, kc, vc, table, qoff, vl, TP, TP_HEADS, ks, vs)),
+                bound_ms=bound(*q_cost, bf)[0])
+    timed("paged_prefill_attention_sharded", run, plain, sdpa_yardstick(q, kp, vp, table, mask),
+          prefill_cost(q, kp, table, qoff, vl, mask), err,
+          f"q (8,256,6,128) bf16, pool ({num_blocks},16,1,128), q_offset {pre_off}, "
+          f"q_len {pre_len}", int8)
+
+    # dense decode: the slot cache's one kv-head, bf16 and int8
+    q = torch.randn(SLOTS, 1, h, hd, generator=gen, device=dev).to(bf)
+    k = torch.randn(SLOTS, MAX_LEN, hkv, hd, generator=gen, device=dev).to(bf)
+    v = torch.randn(SLOTS, MAX_LEN, hkv, hd, generator=gen, device=dev).to(bf)
+    vl = torch.tensor(dec_vl, dtype=torch.int32, device=dev)
+    run = lambda: dd_mod.decode_attention_sharded(q, k, v, vl, TP, TP_HEADS)  # noqa: E731
+    plain = lambda: dd_mod.decode_attention_plain(q, k, v, vl)  # noqa: E731
+    err = check_close("decode_attention_sharded", run(), plain(), bf)
+    kc, ks = quantized(gen, (SLOTS, MAX_LEN // 16, 16, hkv, hd), dev)
+    vc, vs = quantized(gen, (SLOTS, MAX_LEN // 16, 16, hkv, hd), dev)
+    kc, vc = kc.reshape(SLOTS, MAX_LEN, hkv, hd), vc.reshape(SLOTS, MAX_LEN, hkv, hd)
+    got = dd_mod.decode_attention_sharded(q, kc, vc, vl, TP, TP_HEADS, ks, vs)
+    want = dd_mod.decode_attention_plain(q, kc, vc, vl, ks, vs)
+    nbytes, flops = dense_decode_cost(q, kc, vl)
+    int8 = dict(max_abs_err=check_close("decode_attention_sharded int8", got, want, bf),
+                ms=cuda_ms(lambda: dd_mod.decode_attention_sharded(q, kc, vc, vl, TP, TP_HEADS,
+                                                                   ks, vs)),
+                bound_ms=bound(nbytes + 2 * ks.numel() * 4, flops, bf)[0])
+    kx = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    vx = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    dmask = (torch.arange(MAX_LEN, device=dev)[None, :] < vl[:, None])[:, None, None, :]
+    timed("decode_attention_sharded", run, plain,
+          lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=dmask),
+          dense_decode_cost(q, k, vl), err,
+          f"q (8,1,6,128) bf16, cache (8,{MAX_LEN},1,128) one rank's kv-head, "
+          f"kv_valid_len {dec_vl}", int8)
+
+    # the untied head's local columns, int8 and NF4, at the decode rows (M = slots)
+    x = torch.randn(SLOTS, TP_HEAD_K, generator=gen, device=dev).to(bf)
+    rows = {}
+    for qd in PACKED:
+        w = torch.randn(TP_HEAD_K, TP_HEAD_N, generator=gen, device=dev) * TP_HEAD_K ** -0.5
+        qt = quantize(w, qd, QUANT_BLOCK)
+        del w
+        run = lambda: ql_mod.matmul_q_cols_sharded(  # noqa: E731
+            x, qt.data, qt.scales, qdtype=qd, block=QUANT_BLOCK)
+        plain = lambda: ql_mod.fused_linear_q_plain(  # noqa: E731
+            x, qt.data, qt.scales, qdtype=qd, block=QUANT_BLOCK)
+        err = check_close(f"matmul_q_cols_sharded {qd}", run(), plain(), bf)
+        dense = dequantize(qt).to(bf)
+        ms = cuda_ms(run)
+        b_ms, b_by = bound(*packed_cost(x, qt, 0, None, None), bf)
+        rows[qd] = dict(ms=ms, plain_ms=cuda_ms(plain, iters=3),
+                        library_ms=cuda_ms(lambda: torch.mm(x, dense)), bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=err, route=ql_mod.route(
+                            SLOTS, TP_HEAD_K, TP_HEAD_N, bf))
+        del dense, qt
+        r = rows[qd]
+        log(f"[tp-kernels] matmul_q_cols_sharded {qd} ok: max|err| {err:.3e}, {ms:.4f} ms "
+            f"(route {r['route']}; plain {r['plain_ms']:.4f}, torch.mm on the dense slice "
+            f"{r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); x ({SLOTS},{TP_HEAD_K}) bf16 "
+            f"on ({TP_HEAD_K},{TP_HEAD_N}) local columns [{card}]")
+    out["matmul_q_cols_sharded"] = dict(rows["int8"], nf4=rows["nf4"], shape=(
+        f"x ({SLOTS},{TP_HEAD_K}) bf16 on one rank's ({TP_HEAD_K},{TP_HEAD_N}) columns of "
+        f"qwen3-32b's head, int8 (nf4 beside it), block {QUANT_BLOCK}"))
+    return out
+
+
+def tp_run(model, params, tenants, prompts, max_new, kw, group=None, tag=""):
+    """One serving run of the [tp] phase on this process: the leader (or a
+    tp = 1 engine, ``group`` None) submits the prompts, cycling over the base
+    and the tenants, and runs them; a follower follows. Captures the first
+    decode step's logits on the device (no fetch inside a step), with each
+    slot's sequence so far (host state). Returns the run's readings."""
+    store = AdapterStore()
+    for i, (idx, val) in enumerate(tenants):
+        store.register(idx, val, name=f"tenant{i + 1}")
+    eng = ServeEngine(model, params, adapter_store=store, device="cuda", tp_group=group, **kw)
+    first = {}
+    real = model.decode_step
+
+    def decode_step(params_, adapters, cache, batch):
+        logits = real(params_, adapters, cache, batch)
+        if not first and params_ is eng.params:
+            first.update(logits=logits.detach().clone(), history=[
+                None if r is None else r.prompt + r.out for r in eng.scheduler.active])
+        return logits
+
+    model.decode_step = decode_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        if group is None or group.leader:
+            for i, p in enumerate(prompts):
+                eng.submit(p, max_new=max_new, adapter_id=i % (len(tenants) + 1))
+            reqs = eng.run_to_completion()
+            eng.close()
+        else:
+            reqs = None
+            eng.follow()
+        torch.cuda.synchronize()
+    finally:
+        del model.decode_step
+    wall = time.perf_counter() - t0
+    assert eng.transfers == eng.steps, (tag, eng.transfers, eng.steps)
+    assert eng.kv.drained(), f"{tag}: the pool did not drain"
+    return {"tokens": None if reqs is None else [r.out for r in reqs],
+            "logits": first["logits"].float().cpu() if first else None,
+            "history": first.get("history"),
+            "steps": eng.steps, "transfers": eng.transfers, "wall_s": wall,
+            "step_ms": {k: float(np.mean(v)) * 1e3 for k, v in eng.step_times.items() if v},
+            "pool_bytes": eng.kv.pool_bytes(),
+            "pool_bytes_per_shard": eng.kv.pool_bytes_per_shard(),
+            "base_bytes": tree_bytes(eng.params), "tp": eng.tp}
+
+
+def tp_full_inputs():
+    """Full-width qwen2-1.5b (bf16, seed 0), its 2 tenants (seed 7) and the
+    first TP_REQUESTS gate prompts: the same on every process."""
+    cfg = get_config("qwen2-1.5b")
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    tenants = random_tenants(params, TP_TENANTS, seed=7, dtype=torch.bfloat16, device="cuda")
+    return model, params, tenants, gate_prompts(cfg.vocab_size)[:TP_REQUESTS]
+
+
+def tp_twin(arch: str):
+    """A reduced float32 twin: (model, params on the CPU, seed 0, and 2
+    tenants on the CPU, seed 7)."""
+    cfg = reduced(get_config(arch)).replace(dtype="float32", num_kv_heads=4, num_heads=8)
+    model = get_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    return model, params, random_tenants(params, 2, seed=7, dtype=torch.float32, device="cpu")
+
+
+def tp_runs(group=None) -> dict:
+    """Every run of the [tp] phase's path on this process: full-width qwen2
+    on the bf16 base, then on an int8 base, then the reduced twins. On a
+    rank, with the counts of the kernels it launched (the twins' tenants
+    are selected on the CPU first, outside the count)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    twins = {name: tp_twin(arch) for name, (arch, _, _) in TP_TWINS.items()}
+    model, params, tenants, prompts = tp_full_inputs()
+    kw = gate_kw()
+    tp_run(model, params, tenants, prompts[:2], 2, kw, group, "warm-up")
+    reset_counters()
+    out = {"bf16": tp_run(model, params, tenants, prompts, TP_NEW, kw, group, "bf16"),
+           "int8": tp_run(model, params, tenants, prompts, TP_NEW,
+                          dict(kw, base_dtype="int8", quant_block=QUANT_BLOCK), group, "int8")}
+    del params, tenants
+    for name, (_, kw, with_tenants) in TP_TWINS.items():
+        model, params, tenants = twins[name]
+        out[name] = tp_run(model, params, tenants if with_tenants else [], TP_TWIN_PROMPTS, 6,
+                           dict(TP_TWIN_KW, **kw), group, name)
+    out["counters"] = {c.name: (c.kernel, c.plain) for c in COUNTERS.values()}
+    return out
+
+
+def tp_rank(rank: int, tp: int, init_method: str) -> dict:
+    """One rank of the [tp] phase: joins the gloo group on the card, runs
+    :func:`tp_runs`, leaves."""
+    from repro_torch.distributed.collectives import close_tp, init_tp
+
+    group = init_tp(rank, tp, "cuda:0", init_method, timeout=300)
+    try:
+        return dict(tp_runs(group), backend=group.describe())
+    finally:
+        close_tp()
+
+
+def phase_tp(card: str) -> list:
+    """Tensor-parallel serving (slice 17): the four wrappers against their
+    plain versions (:func:`tp_kernels`), then the path (:func:`tp_path`).
+    Returns the four kernel rows, with the wrappers' launches on the path."""
+    dev = torch.device("cuda")
+    rows = tp_kernels(torch.Generator(device=dev).manual_seed(1717), dev, card)
+    torch.cuda.empty_cache()
+    launches, runs = tp_path(card)
+    with open(os.path.join(OUT_DIR, "tp.json"), "w") as f:
+        json.dump({"card": card, "kernels": rows, "launches": launches, "runs": runs}, f,
+                  indent=1)
+    sources = {"decode_attention_sharded": dd_mod, "paged_decode_attention_sharded": dec_mod,
+               "paged_prefill_attention_sharded": pre_mod, "matmul_q_cols_sharded": ql_mod}
+    return [dict(name=name, route="cuda", source=mod.SOURCE, replaces=mod.TP_REPLACES,
+                 launches=launches[name], max_abs_err=rows[name]["max_abs_err"],
+                 ms=rows[name]["ms"], kernel_ms=rows[name]["ms"],
+                 plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
+                 bound_by=rows[name]["bound_by"], library_ms=rows[name]["library_ms"],
+                 shape=rows[name]["shape"],
+                 **{k: rows[name][k] for k in ("int8", "nf4") if k in rows[name]})
+            for name, mod in sources.items()]
+
+
+def tp_path(card: str) -> tuple[dict, dict]:
+    """The path at tp = 1 on the card (and the reduced twins on the CPU),
+    then 2 spawned ranks on the card run the same path at tp = 2. Holds the
+    reduced twins' greedy tokens at tp 2 to tp 1 and the CPU's, full-width
+    qwen2's first decode logits to tp 1's within 2u sqrt(2 L), and the pool
+    bytes' arithmetic; every wrapper must have launched on the ranks, and
+    no plain version run. Returns (each wrapper's launches over both ranks,
+    the leader's readings of each run)."""
+    from repro_torch.distributed.collectives import run_ranks
+
+    one = tp_runs()
+    cpu = {}
+    for name, (arch, kw, with_tenants) in TP_TWINS.items():
+        model, params, tenants = tp_twin(arch)
+        store = AdapterStore()
+        for idx, val in (tenants if with_tenants else []):
+            store.register(idx, val)
+        eng = ServeEngine(model, params, adapter_store=store, device="cpu",
+                          **dict(TP_TWIN_KW, **kw))
+        for i, p in enumerate(TP_TWIN_PROMPTS):
+            eng.submit(p, max_new=6, adapter_id=i % (store.num_adapters + 1))
+        cpu[name] = [r.out for r in eng.run_to_completion()]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP, timeout=900)
+    log(f"[tp] 2 ranks on {card}, {ranks[0]['backend']} / {ranks[1]['backend']}: spawned, "
+        f"ran and joined in {time.perf_counter() - t0:.1f} s")
+    lead = ranks[0]
+    L = get_config("qwen2-1.5b").num_layers
+    tol = 2 * BF16_U * math.sqrt(2 * L)
+    for base in ("bf16", "int8"):
+        a, b = one[base], lead[base]
+        # the slots whose sequences so far are the same in both runs
+        same = torch.tensor([s for s, (x, y) in enumerate(zip(a["history"], b["history"]))
+                             if x is not None and x == y], dtype=torch.long)
+        rel = float((b["logits"][same] - a["logits"][same]).norm()
+                    / a["logits"][same].norm())
+        err = float((b["logits"][same] - a["logits"][same]).abs().max())
+        assert len(same) > 0 and rel <= tol, (base, rel, tol, len(same))
+        agree = [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y), len(p))
+                 for p, q in zip(a["tokens"], b["tokens"])]
+        n_tok = sum(len(p) for p in a["tokens"])
+        log(f"[tp-{base}] qwen2-1.5b full width, tp 2 on one card: first decode logits "
+            f"against tp 1 on the card over the {len(same)} slots whose sequences agree: "
+            f"||tp2 - tp1|| / ||tp1|| {rel:.3e} <= 2u sqrt(2L) = {tol:.3e}, max|err| {err:.3e}; "
+            f"greedy tokens agree on {sum(agree)} of {n_tok} before a request's first "
+            f"parting ({agree} of {[len(p) for p in a['tokens']]}) [{card}]")
+        for r, res in enumerate(ranks):
+            x = res[base]
+            assert x["pool_bytes"] == a["pool_bytes"] == TP * x["pool_bytes_per_shard"], \
+                (base, r, x["pool_bytes"], a["pool_bytes"], x["pool_bytes_per_shard"])
+            assert x["steps"] == b["steps"] and x["transfers"] == x["steps"], (base, r)
+        log(f"[tp-{base}] pool bytes: {a['pool_bytes']:,} at tp 1 and in total at tp 2, "
+            f"{b['pool_bytes_per_shard']:,} a rank (= total / 2); base bytes a rank "
+            f"{[res[base]['base_bytes'] for res in ranks]} against {a['base_bytes']:,} at tp 1 "
+            f"(the embedding stays whole on each rank); steps {b['steps']}, one fetch a step "
+            f"on each rank [{card}]")
+        log(f"[tp-{base}] step wall of two ranks sharing one card (not a TP speed): mean "
+            f"{json.dumps({k: round(v, 3) for k, v in b['step_ms'].items()})} ms against tp 1's "
+            f"{json.dumps({k: round(v, 3) for k, v in a['step_ms'].items()})} ms; the run "
+            f"{b['wall_s']:.3f} s against {a['wall_s']:.3f} s [{card}]")
+    for name in TP_TWINS:
+        got, card1 = lead[name]["tokens"], one[name]["tokens"]
+        assert got == card1 == cpu[name], (name, got, card1, cpu[name])
+        log(f"[tp-reduced] {name}: greedy tokens at tp 2 on the card identical to tp 1 on the "
+            f"card and on the CPU ({sum(len(t) for t in got)} tokens) [{card}]")
+    for r, res in enumerate(ranks):
+        for name, (kernel, plain) in res["counters"].items():
+            assert plain == 0, f"rank {r} called the plain version of {name} {plain} times"
+    launches = {name: sum(res["counters"][name][0] for res in ranks) for name in TENSOR_PARALLEL}
+    for name, n in launches.items():
+        assert n > 0, f"the tensor-parallel path never launched {name}"
+    log(f"[tp] wrapper launches on the tp = 2 path, both ranks: {json.dumps(launches)} [{card}]")
+    return launches, {k: {kk: vv for kk, vv in v.items() if kk not in ("logits", "history")}
+                      for k, v in lead.items() if isinstance(v, dict) and k != "counters"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -6400,6 +6785,21 @@ def main() -> int:
         with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
             f.write("\n".join(LOG) + "\n")
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        t0 = time.perf_counter()
+        rows = phase_tp(card)
+        log(f"[timing] seconds by phase: build {secs:.1f}, tensor-parallel "
+            f"{time.perf_counter() - t0:.1f}")
+        log(f"[card] {card}")
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -6465,6 +6865,9 @@ def main() -> int:
         json.dump({"card": card, "rows": detail}, f, indent=1)
     stamp("family kernels")
     fams = families(card, summary, stamp)
+    torch.cuda.empty_cache()
+    tp_rows = phase_tp(card)
+    stamp("tensor-parallel")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
@@ -6569,6 +6972,7 @@ def main() -> int:
             if name == "fused_linear_q":
                 row["olmoe"]["launches_by_phase"] = olmoe_q
         kernels.append(row)
+    kernels.extend(tp_rows)
     log(f"[card] {card}")
     with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
         f.write("\n".join(LOG) + "\n")

@@ -16,6 +16,10 @@ their launch counters.
 | ``fused_linear_q`` | ``quant_linear.py::fused_linear_q_pallas`` | ``csrc/fused_linear_q.cu`` |
 | ``flash_attention_fwd`` | ``flash_attention.py::flash_attention_fwd_pallas`` (+ ``flash_attention_gqa_pallas``) | ``csrc/flash_attention.cu`` |
 | ``topk_select`` | ``topk_select.py::topk_select_pallas`` | ``csrc/topk_select.cu`` |
+| ``decode_attention_sharded`` | ``decode_attention.py::decode_attention_sharded`` | (``decode_attention``'s) |
+| ``paged_decode_attention_sharded`` | ``decode_attention.py::paged_decode_attention_sharded`` | (``paged_decode_attention``'s) |
+| ``paged_prefill_attention_sharded`` | ``prefill_attention.py::paged_prefill_attention_sharded`` | (``paged_prefill_attention``'s) |
+| ``matmul_q_cols_sharded`` | ``quant_linear.py::matmul_q_cols_sharded`` | (``fused_linear_q``'s) |
 
 ``SERVING`` carries the default paged engine with an fp KV cache; the
 attention bodies of the other cache layouts and dtypes stand in
@@ -27,7 +31,11 @@ the place of ``fused_linear`` in training and of the plain ``x @ W`` base
 matmuls in serving. ``LONG_CONTEXT`` (``flash_attention_fwd``) joins
 training at sequence lengths from ``cfg.flash_threshold`` on, and
 ``SELECTION`` (``topk_select``) runs once per adapted stack when adapters
-are initialised (NeuroAda phase 1). A wrapper launches its kernel for CUDA
+are initialised (NeuroAda phase 1). ``TENSOR_PARALLEL`` holds the four
+wrappers of tensor-parallel serving: each runs the kernel it names on one
+rank's local heads or columns (with a live serving group of tp > 1,
+:mod:`repro_torch.distributed.context`) and counts its calls apart from
+that kernel's own count. A wrapper launches its kernel for CUDA
 tensors and uses the plain version for CPU tensors; there is no backend
 switch.
 """
@@ -58,13 +66,17 @@ SINGLE_TENANT = ("sparse_delta",)
 PACKED_BASE = ("fused_linear_q",)
 LONG_CONTEXT = ("flash_attention_fwd",)
 SELECTION = ("topk_select",)
+TENSOR_PARALLEL = ("decode_attention_sharded", "paged_decode_attention_sharded",
+                   "paged_prefill_attention_sharded", "matmul_q_cols_sharded")
 COUNTERS = {c.name: c for c in (sparse_delta.counter, decode_attention.counter,
                                 decode_attention.q_counter, prefill_attention.counter,
                                 prefill_attention.q_counter, dense_decode_attention.counter,
                                 dense_decode_attention.q_counter, fused_linear.counter,
                                 sparse_delta.dval_counter, sparse_delta.delta_counter,
                                 quant_linear.counter, flash_attention.counter,
-                                topk_select.counter)}
+                                topk_select.counter, dense_decode_attention.tp_counter,
+                                decode_attention.tp_counter, prefill_attention.tp_counter,
+                                quant_linear.tp_counter)}
 
 
 def reset_counters() -> None:
@@ -73,4 +85,4 @@ def reset_counters() -> None:
 
 
 __all__ = ["ATTENTION", "COUNTERS", "LONG_CONTEXT", "PACKED_BASE", "SELECTION", "SERVING",
-           "SINGLE_TENANT", "TRAINING", "reset_counters"]
+           "SINGLE_TENANT", "TENSOR_PARALLEL", "TRAINING", "reset_counters"]

@@ -22,6 +22,15 @@ class LaunchCounter:
         self.kernel += 1
         self.routes[route] = self.routes.get(route, 0) + 1
 
+    def count(self, t) -> None:
+        """A tensor-parallel wrapper's tally of one call on ``t``'s device:
+        a launch of the kernel it wraps for a CUDA tensor, else a call of
+        that kernel's plain version."""
+        if t.is_cuda:
+            self.launched("tp")
+        else:
+            self.plain += 1
+
     def reset(self) -> None:
         self.kernel = 0
         self.plain = 0

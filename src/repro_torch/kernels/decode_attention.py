@@ -15,7 +15,11 @@ float32, ``code * scale``, before the softmax. The int8 body has its own
 counter, ``paged_decode_attention_q``, so a run shows which body served it.
 
 Replaces ``src/repro/kernels/decode_attention.py::paged_decode_attention_pallas``
-(fp body ``_paged_decode_attn_kernel``, int8 body ``_paged_decode_attn_q_kernel``).
+(fp body ``_paged_decode_attn_kernel``, int8 body ``_paged_decode_attn_q_kernel``),
+and, through :func:`paged_decode_attention_sharded`, its tensor-parallel
+dispatch ``paged_decode_attention_sharded``: one rank's q heads against its
+kv-head slice of every page, the same kernel on local shapes (counted
+under ``paged_decode_attention_sharded`` as well).
 Bound by the K/V bytes up to the frontiers, so the design is about bytes in
 flight; the CUDA source (``csrc/decode_attention.cu``, the kernel in
 ``csrc/paged_attention.cuh``) carries the note: grid (slot x kv-head x
@@ -41,8 +45,10 @@ from repro_torch.kernels.counters import LaunchCounter
 
 counter = LaunchCounter("paged_decode_attention")
 q_counter = LaunchCounter("paged_decode_attention_q")
+tp_counter = LaunchCounter("paged_decode_attention_sharded")
 REPLACES = "src/repro/kernels/decode_attention.py:319"
 Q_REPLACES = "src/repro/kernels/decode_attention.py:271"
+TP_REPLACES = "src/repro/kernels/decode_attention.py:455"
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -226,4 +232,35 @@ def launch(q, k_pool, v_pool, table, kv_valid_len, k_scale, v_scale, plan: Decod
         part.data_ptr(), tk.data_ptr(), *tail)
     build.check(rc, "paged_decode_attention_q")
     q_counter.launched(ROUTE)
+    return out
+
+
+def check_tp_heads(q, k, tp: int, heads: tuple[int, int], what: str) -> None:
+    """One rank's local q heads (``q.shape[2]``) and kv-heads
+    (``k.shape[-2]``) must be its ``H / tp`` and ``KV / tp`` of the model's
+    global ``heads = (H, KV)``: then every local q head's kv-head is local
+    and the GQA group is the global ``H / KV``. Heads that do not divide by
+    ``tp`` raise (the reference falls back to a replicated kernel there,
+    but no rank here holds the whole cache)."""
+    h, kv = heads
+    if h % tp or kv % tp:
+        raise ValueError(f"{what}: tp={tp} does not divide num_heads={h} and "
+                         f"num_kv_heads={kv}")
+    if q.shape[2] != h // tp or k.shape[-2] != kv // tp:
+        raise ValueError(f"{what}: local q heads {q.shape[2]} and kv-heads {k.shape[-2]} are "
+                         f"not one rank's {h // tp} and {kv // tp} of H={h}, KV={kv} over "
+                         f"tp={tp}")
+
+
+def paged_decode_attention_sharded(q, k_pool, v_pool, table, kv_valid_len, tp: int,
+                                   heads: tuple[int, int], k_scale=None, v_scale=None):
+    """Tensor-parallel dispatch of the paged decode (port of the reference's
+    ``paged_decode_attention_sharded``): one rank's q heads (B, 1, H / tp,
+    hd) against its kv-head slice of the pools (N, P, KV / tp, hd) and of
+    the scales (N, KV / tp); the table and frontiers are whole. Returns the
+    rank's heads of the output; the row-parallel ``wo`` after it merges
+    them, so nothing is exchanged here."""
+    check_tp_heads(q, k_pool, tp, heads, "paged_decode_attention_sharded")
+    out = paged_decode_attention(q, k_pool, v_pool, table, kv_valid_len, k_scale, v_scale)
+    tp_counter.count(q)
     return out

@@ -13,9 +13,12 @@ of groups. The fp body counts on ``decode_attention``, the int8 body on
 ``decode_attention_q``, each launch under the paged decode's route ``ring``.
 
 Replaces ``src/repro/kernels/decode_attention.py::decode_attention_pallas``
-(fp body ``_decode_attn_kernel``, int8 body ``_decode_attn_q_kernel``). The
-CUDA source (``csrc/dense_decode_attention.cu``) carries the design note:
-the paged decode's kernel (warps with their own cp.async rings, ranges
+(fp body ``_decode_attn_kernel``, int8 body ``_decode_attn_q_kernel``) and,
+through :func:`decode_attention_sharded` (here, beside its kernel, where
+the reference keeps it in ``decode_attention.py``), its tensor-parallel
+dispatch ``decode_attention_sharded``. The CUDA source
+(``csrc/dense_decode_attention.cu``) carries the design note: the paged
+decode's kernel (warps with their own cp.async rings, ranges
 merged in the block that finishes last) with each row tile's block resolved
 by arithmetic instead of a table, tiles of 16 rows (the int8 scale group),
 copied only up to the frontier, so Smax need not divide by the tile. The
@@ -32,6 +35,7 @@ from repro_torch.kernels.decode_attention import (
     DTYPES,
     ROUTE,
     check_kv,
+    check_tp_heads,
     decode_plan,
     scratch,
     sm_count,
@@ -39,8 +43,10 @@ from repro_torch.kernels.decode_attention import (
 
 counter = LaunchCounter("decode_attention")
 q_counter = LaunchCounter("decode_attention_q")
+tp_counter = LaunchCounter("decode_attention_sharded")
 REPLACES = "src/repro/kernels/decode_attention.py:135"
 Q_REPLACES = "src/repro/kernels/decode_attention.py:87"
+TP_REPLACES = "src/repro/kernels/decode_attention.py:412"
 SOURCE = "src/repro_torch/kernels/csrc/dense_decode_attention.cu"
 
 TILE = 16  # cache rows staged per step; the int8 cache's scale group
@@ -108,4 +114,17 @@ def decode_attention(q, k, v, kv_valid_len, k_scale=None, v_scale=None):
                                    part.data_ptr(), tk.data_ptr(), *tail)
     build.check(rc, "decode_attention_q")
     q_counter.launched(ROUTE)
+    return out
+
+
+def decode_attention_sharded(q, k, v, kv_valid_len, tp: int, heads: tuple[int, int],
+                             k_scale=None, v_scale=None):
+    """Tensor-parallel dispatch of the dense decode (port of the reference's
+    ``decode_attention_sharded``): one rank's q heads (B, 1, H / tp, hd)
+    against its kv-head slice of the slot cache (B, Smax, KV / tp, hd) and
+    of the scales (B, Smax // 16, KV / tp). Returns the rank's heads; no
+    collective runs here."""
+    check_tp_heads(q, k, tp, heads, "decode_attention_sharded")
+    out = decode_attention(q, k, v, kv_valid_len, k_scale, v_scale)
+    tp_counter.count(q)
     return out

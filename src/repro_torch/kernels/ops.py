@@ -9,7 +9,13 @@ int32 tensors, as the engine builds them. :func:`delta_apply`,
 :func:`fused_linear` and :func:`fused_linear_q` carry the training
 gradient (the reference's ``custom_vjp``) as ``torch.autograd.Function``
 classes; :func:`matmul_q` is the base matmul of a plain or packed weight;
-:func:`topk_select` is the selection of NeuroAda's phase 1. (Long-context
+:func:`topk_select` is the selection of NeuroAda's phase 1. With a live
+serving group of tp > 1 (:mod:`repro_torch.distributed.context`) the three
+attention entry points and ``matmul_q(..., tp_col_sharded=True)`` go
+through the kernels' tensor-parallel wrappers, as the reference's
+dispatch does; heads that do not divide by tp raise there, where the
+reference falls back to the replicated kernel (no rank here holds the
+whole cache). (Long-context
 training attention, whose backward is plain PyTorch, is an autograd
 function in ``models.attention`` around ``kernels.flash_attention``.)
 :func:`keep_linear_outputs` is the ``context_fn`` of the ``dots``
@@ -24,12 +30,16 @@ import math
 
 import torch
 
+from repro_torch.distributed import context as tp_ctx
 from repro_torch.kernels import fused_linear as _fl
 from repro_torch.kernels import quant_linear as _ql
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention as _decode
+from repro_torch.kernels.decode_attention import paged_decode_attention_sharded as _decode_tp
 from repro_torch.kernels.dense_decode_attention import decode_attention as _dense_decode
+from repro_torch.kernels.dense_decode_attention import decode_attention_sharded as _dense_decode_tp
 from repro_torch.kernels.prefill_attention import paged_prefill_attention as _prefill
+from repro_torch.kernels.prefill_attention import paged_prefill_attention_sharded as _prefill_tp
 from repro_torch.kernels.sparse_delta import sparse_delta, sparse_delta_batched, sparse_delta_dval
 from repro_torch.kernels.topk_select import topk_select as _topk_select
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize
@@ -101,6 +111,10 @@ def decode_attention(q, k, v, kv_valid_len, k_scale=None, v_scale=None):
     """q (B, 1, H, hd) against a dense (B, Smax, Hkv, hd) slot cache;
     ``kv_valid_len`` (B,) int32. With ``k_scale``/``v_scale`` (B, Smax // 16,
     Hkv) the cache is int8."""
+    tp = tp_ctx.serve_tp()
+    if tp > 1:
+        return _dense_decode_tp(q.contiguous(), k, v, kv_valid_len, tp, tp_ctx.serve_heads(),
+                                k_scale, v_scale)
     return _dense_decode(q.contiguous(), k, v, kv_valid_len, k_scale, v_scale)
 
 
@@ -109,6 +123,10 @@ def paged_decode_attention(q, k_pool, v_pool, table, kv_valid_len, k_scale=None,
     """q (B, 1, H, hd) against (N, P, Hkv, hd) pools through a (B, n_pages)
     table; ``kv_valid_len`` (B,) int32. With ``k_scale``/``v_scale`` (N, Hkv)
     the pools are int8."""
+    tp = tp_ctx.serve_tp()
+    if tp > 1:
+        return _decode_tp(q.contiguous(), k_pool, v_pool, table.contiguous(), kv_valid_len, tp,
+                          tp_ctx.serve_heads(), k_scale, v_scale)
     return _decode(q.contiguous(), k_pool, v_pool, table.contiguous(), kv_valid_len,
                    k_scale, v_scale)
 
@@ -118,6 +136,10 @@ def prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_scale=
     """Query chunk q (B, C, H, hd) against the paged pools with the
     two-sided (causal × frontier) mask; offsets and lengths (B,) int32. With
     ``k_scale``/``v_scale`` (N, Hkv) the pools are int8."""
+    tp = tp_ctx.serve_tp()
+    if tp > 1:
+        return _prefill_tp(q.contiguous(), k_pool, v_pool, table.contiguous(), q_offset,
+                           kv_valid_len, tp, tp_ctx.serve_heads(), k_scale, v_scale)
     return _prefill(q.contiguous(), k_pool, v_pool, table.contiguous(), q_offset,
                     kv_valid_len, k_scale, v_scale)
 
@@ -263,13 +285,16 @@ def fused_linear_q(x, qw: QuantizedTensor, idx, val, bias=None):
     return y.reshape(*lead, qw.shape[-1])
 
 
-def matmul_q(x, w):
+def matmul_q(x, w, *, tp_col_sharded: bool = False):
     """x @ W for a plain or packed W, with no bypass: the base matmul of a
     serving step. A packed W runs the fused dequant kernel with ``k = 0``
     (the reference's zero bypass), differentiable in x; a plain W goes to
     ``x @ w``. Where no gradient is wanted (serving), the kernel's wrapper is
     called directly: an autograd Function costs the host more than the
-    decode-row kernel costs the card."""
+    decode-row kernel costs the card. ``tp_col_sharded=True`` says W is one
+    rank's columns of a column-parallel matrix (the vocab-sharded head is
+    the one caller): with a live group of tp > 1 a packed W then runs
+    through ``matmul_q_cols_sharded``."""
     if not isinstance(w, QuantizedTensor):
         return x @ w
     lead = x.shape[:-1]
@@ -277,6 +302,8 @@ def matmul_q(x, w):
     if torch.is_grad_enabled() and x.requires_grad:
         y = _FusedLinearQ.apply(x2d, w.data, w.scales, None, None, None, w.qdtype, w.block,
                                 w.dtype_name)
+    elif tp_col_sharded and tp_ctx.serve_tp() > 1:
+        y = _ql.matmul_q_cols_sharded(x2d, w.data, w.scales, qdtype=w.qdtype, block=w.block)
     else:
         y = _ql.fused_linear_q(x2d, w.data, w.scales, qdtype=w.qdtype, block=w.block)
     return y.reshape(*lead, w.shape[-1])

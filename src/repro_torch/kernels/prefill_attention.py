@@ -14,7 +14,10 @@ With ``k_scale``/``v_scale`` (N, Hkv) float32 the pools are int8 codes
 that body counts on ``paged_prefill_attention_q``.
 
 Replaces ``src/repro/kernels/prefill_attention.py::paged_prefill_attention_pallas``
-(fp body ``_paged_prefill_attn_kernel``, int8 body ``_paged_prefill_attn_q_kernel``).
+(fp body ``_paged_prefill_attn_kernel``, int8 body ``_paged_prefill_attn_q_kernel``),
+and, through :func:`paged_prefill_attention_sharded`, its tensor-parallel
+dispatch ``paged_prefill_attention_sharded`` (the same kernel on one rank's
+heads and kv-head slice of the pools).
 The CUDA source (``csrc/prefill_attention.cu``) carries the design note:
 in bf16 the C·G folded rows of a (slot, kv-head) split into 64-row tiles
 on the tensor cores (mma.sync, an online softmax in registers, 64-column
@@ -30,12 +33,14 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.counters import LaunchCounter
-from repro_torch.kernels.decode_attention import DTYPES, check_kv
+from repro_torch.kernels.decode_attention import DTYPES, check_kv, check_tp_heads
 
 counter = LaunchCounter("paged_prefill_attention")
 q_counter = LaunchCounter("paged_prefill_attention_q")
+tp_counter = LaunchCounter("paged_prefill_attention_sharded")
 REPLACES = "src/repro/kernels/prefill_attention.py:150"
 Q_REPLACES = "src/repro/kernels/prefill_attention.py:101"
+TP_REPLACES = "src/repro/kernels/prefill_attention.py:242"
 SOURCE = "src/repro_torch/kernels/csrc/prefill_attention.cu"
 
 
@@ -106,4 +111,19 @@ def paged_prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_
         out.data_ptr(), *ints)
     build.check(rc, "paged_prefill_attention_q")
     q_counter.kernel += 1
+    return out
+
+
+def paged_prefill_attention_sharded(q, k_pool, v_pool, table, q_offset, kv_valid_len,
+                                    tp: int, heads: tuple[int, int], k_scale=None,
+                                    v_scale=None):
+    """Tensor-parallel dispatch of the paged prefill (port of the
+    reference's ``paged_prefill_attention_sharded``): one rank's query chunk
+    (B, C, H / tp, hd) against its kv-head slice of the pools and scales;
+    table, offsets and frontiers whole. Returns the rank's heads; no
+    collective runs here."""
+    check_tp_heads(q, k_pool, tp, heads, "paged_prefill_attention_sharded")
+    out = paged_prefill_attention(q, k_pool, v_pool, table, q_offset, kv_valid_len, k_scale,
+                                  v_scale)
+    tp_counter.count(q)
     return out

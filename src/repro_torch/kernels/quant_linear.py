@@ -11,8 +11,10 @@ None for no bypass (the serving base matmul). The weight is dequantized in
 float32 and cast to x's dtype; products and sums run in float32 and the
 result is cast once to x's dtype.
 
-Replaces ``src/repro/kernels/quant_linear.py::fused_linear_q_pallas``. The
-CUDA source (``csrc/fused_linear_q.cu``) carries the design note. The dense
+Replaces ``src/repro/kernels/quant_linear.py::fused_linear_q_pallas`` and,
+through :func:`matmul_q_cols_sharded`, its tensor-parallel dispatch
+``matmul_q_cols_sharded`` (the kernel with no bypass on one rank's columns
+of a packed head). The CUDA source (``csrc/fused_linear_q.cu``) carries the design note. The dense
 weight never exists in device memory, over any M, N and K and any even
 scale block (the Pallas kernel needs K to divide by its 512-deep tile,
 which qwen2-1.5b's ``wdown``, K = 8960, does not). :func:`route` picks one
@@ -42,7 +44,9 @@ from repro_torch.kernels.decode_attention import sm_count
 from repro_torch.kernels.fused_linear import linear_plan
 
 counter = LaunchCounter("fused_linear_q")
+tp_counter = LaunchCounter("matmul_q_cols_sharded")
 REPLACES = "src/repro/kernels/quant_linear.py:86"
+TP_REPLACES = "src/repro/kernels/quant_linear.py:145"
 SOURCE = "src/repro_torch/kernels/csrc/fused_linear_q.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -194,4 +198,16 @@ def fused_linear_q(x, data, scales, idx=None, val=None, bias=None, *, qdtype: st
     )
     build.check(rc, "fused_linear_q")
     counter.launched(r)
+    return y
+
+
+def matmul_q_cols_sharded(x, data, scales, *, qdtype: str, block: int):
+    """Column-sharded ``x @ dequant(Wq)`` for the vocab-sharded serving
+    head (port of the reference's ``matmul_q_cols_sharded``): x (M, K)
+    whole, ``data``/``scales`` one rank's columns of the packed head (both
+    carry ``d_out`` last, so they split together); the kernel with no
+    bypass. Returns the rank's (M, N / tp) columns; the sampler's
+    all-gather rebuilds the row."""
+    y = fused_linear_q(x, data, scales, qdtype=qdtype, block=block)
+    tp_counter.count(x)
     return y

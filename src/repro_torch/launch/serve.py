@@ -35,6 +35,19 @@ trace on exit; ``--metrics-every N`` prints a one-line digest every N steps;
 the card, CUDA activities) and writes its Chrome trace into ``d``. None of
 it adds a device operation to a step.
 
+``--tp N`` serves tensor-parallel over N ranks, one process each: this
+process is rank 0, the leader, and spawns the N - 1 followers
+(``torch.multiprocessing``, spawn context) that meet it at a ``file://``
+rendezvous in a temporary directory (no TCP port). Rank r runs on
+``cuda:r`` (N must divide the local GPUs, as the reference's
+``make_serve_mesh`` requires) or, under ``--device cpu``, on the CPU with
+gloo collectives. Each rank builds the same model and tenants and keeps its
+slices (:mod:`repro_torch.distributed.sharding`); the leader's engine
+drives the followers' steps (:class:`~repro_torch.serve.ServeEngine`),
+prints the tokens and ends the followers when it is done (under
+``--serve``, after ``POST /admin/shutdown`` drained it). Greedy tokens
+equal ``--tp 1``'s.
+
 ``--serve [--port P]`` runs the SSE front end instead of a batch
 (:class:`~repro_torch.serve.ServeFrontend`: ``POST /v1/generate``,
 ``/v1/cancel``, ``GET /metrics``, ``/healthz``, ``POST /admin/shutdown``);
@@ -48,10 +61,16 @@ import argparse
 import asyncio
 import contextlib
 import os
+import sys
+import tempfile
+
+import torch
+import torch.multiprocessing as mp
 
 from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS, get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import close_tp, device_backend, init_tp
 from repro_torch.models import get_model
 from repro_torch.obs import Tracer
 from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
@@ -71,6 +90,8 @@ def validate_args(args) -> None:
     """Reject bad flag combinations before any model is built; every
     refusal the reference's launcher makes, with its words, and a few of
     the port's own."""
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
     if args.decode_chunk < 1:
         raise SystemExit(f"--decode-chunk must be >= 1, got {args.decode_chunk}")
     if args.prefill_chunk < 1:
@@ -203,6 +224,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "self-draft, merged = base + mean of the tenants' deltas (needs "
                          "--adapters), ngram = prompt lookup (no drafter forwards); "
                          "one of " + ", ".join(DRAFT_MODES))
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks, one process each: base weights Megatron-split, "
+                         "the KV pool split along kv-heads (per-shard pool bytes = total / tp), "
+                         "greedy outputs identical to --tp 1. Must divide the local GPUs (or "
+                         "run with --device cpu) and the model's head counts")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens a slot a speculative round")
     ap.add_argument("--metrics-out", default="",
@@ -248,10 +274,33 @@ def _metrics_line(engine, step: int) -> str:
     return line
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    validate_args(args)
-    device = resolve_device(args.device)
+#: seconds the leader waits for each follower to exit after its shutdown
+FOLLOWER_JOIN_SECONDS = 60.0
+
+
+def _validate_tp(args, cfg, device) -> None:
+    """``--tp`` against the devices and the model's heads, with the
+    reference launcher's words, before any model is built."""
+    if device.type == "cuda":
+        n = torch.cuda.device_count()
+        if n % args.tp:
+            raise SystemExit(f"--tp {args.tp}: tp={args.tp} does not divide the {n} local "
+                             "devices")
+    for name, heads in (("num_kv_heads", cfg.num_kv_heads), ("num_heads", cfg.num_heads)):
+        if heads % args.tp:
+            raise SystemExit(f"--tp {args.tp} does not divide {name}={heads} for "
+                             f"--arch {args.arch}")
+
+
+def _rank_device(device, rank: int):
+    return device if device.type == "cpu" else torch.device("cuda", rank)
+
+
+def _engine(args, device, tp_group=None, *, quiet: bool = False):
+    """(engine, tracer) of the flags: the model, its weights, the packed
+    base and the tenants, on ``device``; with ``tp_group``, one rank's
+    slices. ``quiet`` (a follower rank) prints nothing."""
+    say = (lambda *a: None) if quiet else print
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -264,13 +313,13 @@ def main(argv=None):
     if args.base_dtype != "fp32":
         before = tree_bytes(params)
         params = quantize_base(params, args.base_dtype, block=args.quant_block)
-        print(f"base quantized to {args.base_dtype}: "
-              f"{before / 2**20:.1f} MB -> {tree_bytes(params) / 2**20:.1f} MB")
+        say(f"base quantized to {args.base_dtype}: "
+            f"{before / 2**20:.1f} MB -> {tree_bytes(params) / 2**20:.1f} MB")
     store = None
     if args.adapters:
         store = AdapterStore(base_params=params)
         for path in args.adapters.split(","):
-            print(f"tenant {store.register(*load_adapter(path), name=path)}: {path}")
+            say(f"tenant {store.register(*load_adapter(path), name=path)}: {path}")
     tracer = Tracer() if args.trace_out else None
     engine = ServeEngine(
         model, params, slots=args.slots, max_len=args.max_len,
@@ -281,7 +330,72 @@ def main(argv=None):
         num_blocks=args.num_blocks, paged=not args.dense, kv_dtype=args.kv_dtype,
         draft=args.draft, spec_k=args.spec_k, tracer=tracer,
         queue_limit=args.queue_limit, fairness=args.fairness, device=device,
+        tp_group=tp_group,
     )
+    return engine, tracer
+
+
+def _follower(argv, rank: int, init_method: str) -> None:
+    """A follower rank's process: join the group, build the same engine and
+    run the leader's steps until its shutdown record."""
+    args = build_parser().parse_args(argv)
+    device = _rank_device(resolve_device(args.device), rank)
+    group = init_tp(rank, args.tp, device, init_method)
+    try:
+        engine, _ = _engine(args, device, group, quiet=True)
+        engine.follow()
+    finally:
+        close_tp()
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    validate_args(args)
+    device = resolve_device(args.device)
+    if args.tp == 1:
+        _lead(args, device)
+        return
+    cfg = get_config(args.arch)
+    _validate_tp(args, reduced(cfg) if args.reduced else cfg, device)
+    device = _rank_device(device, 0)
+    print(f"serving tensor-parallel over {args.tp} shards "
+          f"({device_backend(device, args.tp)} collectives, rank 0 on {device})", flush=True)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_method = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_follower, args=(argv, r, init_method))
+                 for r in range(1, args.tp)]
+        for p in procs:
+            p.start()
+        try:
+            group = init_tp(0, args.tp, device, init_method)
+            try:
+                _lead(args, device, group)
+            finally:
+                close_tp()
+        finally:
+            for p in procs:
+                p.join(FOLLOWER_JOIN_SECONDS)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise SystemExit(f"tensor-parallel follower ranks exited with {codes}")
+
+
+def _lead(args, device, tp_group=None) -> None:
+    """The batch or the server on this process's engine (the leader's
+    under ``--tp``, which ends its followers when it is done; after a
+    failure the group's teardown fails their next collective instead)."""
+    engine, tracer = _engine(args, device, tp_group)
+    _run(engine, tracer, args)
+    engine.close()
+
+
+def _run(engine, tracer, args) -> None:
+    device, store = engine.device, engine.store
     if args.serve:
         _serve_http(engine, args, tracer)
         return
@@ -305,9 +419,11 @@ def main(argv=None):
         tenant = "base" if req.adapter_id == 0 else f"tenant{req.adapter_id}"
         print(f"req{req.rid} [{tenant}]: prompt={req.prompt} -> {req.out}")
     layout = "paged" if engine.paged else "dense"
+    shards = (f" tp={engine.tp} pool_bytes_per_shard={engine.kv.pool_bytes_per_shard()}"
+              if engine.tp > 1 else "")
     print(f"steps={engine.steps} transfers={engine.transfers} "
           f"preemptions={engine.preemptions} kv={layout}/{engine.kv_dtype} "
-          f"pool_bytes={engine.kv.pool_bytes()} device={device}")
+          f"pool_bytes={engine.kv.pool_bytes()}{shards} device={device}")
     if args.draft != "off":
         rate = engine.spec_accepted / max(engine.spec_drafted, 1)
         print(f"spec[{args.draft} k={args.spec_k}]: drafted={engine.spec_drafted} "

@@ -69,7 +69,7 @@ def adapter_leaf(a, name: str):
                     f"{{'A', 'B', 'scale'}} dict: {type(d).__name__}")
 
 
-def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
+def alinear(p: dict, a, name: str, x: torch.Tensor, reduce=None) -> torch.Tensor:
     """y = x @ W (+ bypass | LoRA) (+ b). ``p[name]`` is ``{"w": (d_in,
     d_out), ["b": (d_out,)]}``; ``a`` maps projection names to adapter
     leaves (:func:`adapter_leaf`):
@@ -87,10 +87,24 @@ def alinear(p: dict, a, name: str, x: torch.Tensor) -> torch.Tensor:
     frozen base): the matmul then runs the fused dequant kernel
     (``ops.fused_linear_q`` with a Delta, ``ops.matmul_q`` otherwise — at
     zero bypass, differentiable in x: QLoRA's base product) and the dense
-    weight never exists."""
+    weight never exists.
+
+    ``reduce`` (tensor-parallel serving) marks one rank's rows of a
+    row-parallel W: x @ W plus the rank's tenant bypass is a partial sum,
+    ``reduce(y)`` sums it over the ranks in place, and the bias is added
+    once, after the sum."""
     leaf = p[name]
     w, b = leaf["w"], leaf.get("b")
     d = adapter_leaf(a, name)
+    if reduce is not None:
+        y = ops.matmul_q(x, w)
+        if isinstance(d, BatchedDelta):
+            ops.delta_apply_batched(x, d.idx, d.val, d.aid, y)
+        elif d is not None:
+            raise TypeError(f"a row-parallel {name!r} takes tenant stacks only, got "
+                            f"{type(d).__name__}")
+        reduce(y)
+        return y if b is None else y + b.to(y.dtype)
     if isinstance(d, Delta):
         if isinstance(w, QuantizedTensor):
             return ops.fused_linear_q(x, w, d.idx, d.val, b)
@@ -167,8 +181,11 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
-def silu_mlp(p: dict, a, x: torch.Tensor) -> torch.Tensor:
-    return alinear(p, a, "wdown", F.silu(alinear(p, a, "wgate", x)) * alinear(p, a, "wup", x))
+def silu_mlp(p: dict, a, x: torch.Tensor, reduce=None) -> torch.Tensor:
+    """SwiGLU; ``reduce`` sums a row-parallel ``wdown``'s partial sums (see
+    :func:`alinear`)."""
+    return alinear(p, a, "wdown", F.silu(alinear(p, a, "wgate", x)) * alinear(p, a, "wup", x),
+                   reduce)
 
 
 # ------------------------------------------------------------ cache writes

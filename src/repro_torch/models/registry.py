@@ -63,18 +63,20 @@ class Model(nn.Module):
         return self.mod.init_params(self.cfg, seed=seed, device=resolve_device(device))
 
     def init_paged_cache(self, num_blocks: int, page_size: int, device,
-                         kv_dtype: str = "fp32") -> dict:
+                         kv_dtype: str = "fp32", tp: int = 1) -> dict:
         self._kv_lm("paged KV cache")
         return transformer.init_paged_cache(self.cfg, num_blocks, page_size, device,
-                                            kv_dtype)
+                                            kv_dtype, tp)
 
-    def init_cache(self, slots: int, max_len: int, device, kv_dtype: str = "fp32") -> dict:
-        """The dense slot cache of a transformer family, the SSM / hybrid
-        decode state, or the encoder-decoder's self and cross k/v (cross at
+    def init_cache(self, slots: int, max_len: int, device, kv_dtype: str = "fp32",
+                   tp: int = 1) -> dict:
+        """The dense slot cache of a transformer family (one rank's kv-heads
+        with ``tp`` > 1), the SSM / hybrid decode state, or the
+        encoder-decoder's self and cross k/v (cross at
         ``encdec.DECODE_ENC_LEN`` frames); ``kv_dtype`` ``fp32`` only but on
         the transformer families, as in the reference."""
         if self.mod is transformer:
-            return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype)
+            return transformer.init_cache(self.cfg, slots, max_len, device, kv_dtype, tp)
         if kv_dtype != "fp32":
             self._kv_lm("quantized KV cache")
         return self.mod.init_cache(self.cfg, slots, max_len, device)

@@ -41,14 +41,32 @@ turn the frequency pairs of ``cfg.mrope_sections``; the loss then runs on
 the text positions only. A decode step turns by M-RoPE when given
 ``mrope_pos`` (3, B, 1), by plain RoPE otherwise (the serving engine's
 steps, and the chunked forwards, as in the reference).
+
+Tensor-parallel serving: with a live serving group of tp > 1
+(:mod:`repro_torch.distributed.context`, set by a sharded engine around
+its steps) the serving forwards (:func:`prefill_chunk`,
+:func:`verify_chunk`, :func:`ingest_chunk`, :func:`decode_step`) run on one
+rank's local params and caches: ``H / tp`` q heads and ``KV / tp`` kv-heads,
+column-parallel ``wq``/``wk``/``wv``/``wgate``/``wup``, row-parallel ``wo``
+and ``wdown`` each followed by one all-reduce (a row-parallel bias added
+once, after it), and a head on the rank's vocabulary slice (a tied head
+reads its rows of the whole embedding) followed by one all-gather of the
+logits. The embedding lookup stays replicated. An MLP whose ``d_ff`` or a
+head whose vocabulary does not divide by tp is replicated, as the
+reference's layout leaves it (:mod:`repro_torch.distributed.sharding`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint, noop_context_fn, set_checkpoint_early_stop
 
 from repro_torch.core.delta import BatchedDelta, Delta
+from repro_torch.distributed import context as tp_ctx
+from repro_torch.distributed.collectives import tp_all_gather, tp_all_reduce
+from repro_torch.distributed.sharding import local_range
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (
@@ -151,22 +169,25 @@ def _zeros_kv(cfg, shape: tuple, scale_shape: tuple, device, kv_dtype: str) -> d
 
 
 def init_paged_cache(cfg, num_blocks: int, page_size: int, device,
-                     kv_dtype: str = "fp32") -> dict:
+                     kv_dtype: str = "fp32", tp: int = 1) -> dict:
     """Zeroed ``(L, num_blocks + 1, page, KV, hd)`` k/v pools (int8 with
     ``(L, num_blocks + 1, KV)`` scales for ``kv_dtype="int8"``); block
-    ``num_blocks`` is the trash block for sentinel writes."""
-    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    ``num_blocks`` is the trash block for sentinel writes. With ``tp`` > 1,
+    one rank's ``KV / tp`` kv-heads."""
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads // tp, cfg.resolved_head_dim
     return _zeros_kv(cfg, (L, num_blocks + 1, page_size, KV, hd), (L, num_blocks + 1, KV),
                      device, kv_dtype)
 
 
-def init_cache(cfg, batch: int, max_len: int, device, kv_dtype: str = "fp32") -> dict:
+def init_cache(cfg, batch: int, max_len: int, device, kv_dtype: str = "fp32",
+               tp: int = 1) -> dict:
     """Zeroed dense slot cache ``(L, batch + 1, max_len, KV, hd)``; slot
     ``batch`` is the trash slot. ``kv_dtype="int8"`` rounds the sequence
     axis up to whole groups of :data:`KV_QUANT_GROUP` rows, with ``(L,
     batch + 1, groups, KV)`` scales (attention masks the pad rows as it
-    masks unwritten ones)."""
-    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    masks unwritten ones). With ``tp`` > 1, one rank's ``KV / tp``
+    kv-heads."""
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads // tp, cfg.resolved_head_dim
     g = KV_QUANT_GROUP
     rows = -(-max_len // g) * g if kv_dtype == "int8" else max_len
     return _zeros_kv(cfg, (L, batch + 1, rows, KV, hd), (L, batch + 1, rows // g, KV),
@@ -212,40 +233,65 @@ def _bind_adapters(adapters, views, n_layers: int) -> list[dict | None]:
 
 
 def _qkv(cfg, p, a, x, cos, sin):
+    """q, k, v (B, S, heads, hd) with RoPE: all of the heads, or one rank's
+    under a tensor-parallel group (its columns of wq / wk / wv)."""
     b, s, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = alinear(p, a, "wq", x).view(b, s, H, hd)
-    k = alinear(p, a, "wk", x).view(b, s, KV, hd)
-    v = alinear(p, a, "wv", x).view(b, s, KV, hd)
+    hd = cfg.resolved_head_dim
+    q = alinear(p, a, "wq", x).view(b, s, -1, hd)
+    k = alinear(p, a, "wk", x).view(b, s, -1, hd)
+    v = alinear(p, a, "wv", x).view(b, s, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(cfg, p, a, x, with_aux: bool = False):
+def _mlp(cfg, p, a, x, with_aux: bool = False, reduce=None):
     """The layer's MLP: (y, aux) — the MoE FFN and, for training
     (``with_aux``), its load-balancing loss; None for the SwiGLU MLP and for
-    serving (no loss, and no launch to make one)."""
+    serving (no loss, and no launch to make one). ``reduce`` sums a
+    row-parallel ``wdown`` over the ranks (:func:`_reducers`)."""
     if cfg.num_experts:
         return moe_lib.moe_ffn(cfg, p, a, x, with_aux=with_aux)
-    return silu_mlp(p, a, x), None
+    return silu_mlp(p, a, x, reduce), None
+
+
+def _reducers(cfg):
+    """(wo's, wdown's) all-reduce of one rank's partial sums under a live
+    serving group of tp > 1, else (None, None). ``wdown`` is row-parallel
+    only where ``d_ff`` divides by tp (else the MLP is replicated)."""
+    group = tp_ctx.serve_group()
+    if group is None or group.tp <= 1:
+        return None, None
+    reduce = functools.partial(tp_all_reduce, group=group)
+    return reduce, (reduce if cfg.d_ff % group.tp == 0 else None)
 
 
 def _head_logits(cfg, params, adapters, h):
     """Tied: ``h @ embed.T``; untied: the head linear plus its bypass, when
     the adapters carry one: a tenant stack in the kernel's epilogue, a
     training delta (one adapter for every row) through ``ops.delta_apply``.
-    A LoRA leaf on the head is not applied, as in the reference."""
+    A LoRA leaf on the head is not applied, as in the reference. Under a
+    serving group of tp > 1 whose size divides the vocabulary, each rank
+    computes its vocabulary slice (its rows of the tied embedding, its
+    columns of the untied head and of the head's stacks) and one
+    all-gather rebuilds the whole row, identical on every rank."""
+    group = tp_ctx.serve_group()
+    split = group is not None and group.tp > 1 and cfg.padded_vocab % group.tp == 0
     if cfg.tie_embeddings:
-        return h @ params["embed"]["w"].T
-    logits = ops.matmul_q(h, params["head"]["w"])
-    d = adapter_leaf(adapters, "head")
-    if isinstance(d, BatchedDelta):  # added into the logits in the kernel's epilogue
-        ops.delta_apply_batched(h, d.idx, d.val, d.aid, logits)
-    elif isinstance(d, Delta):
-        logits = logits + ops.delta_apply(h, d.idx, d.val)
-    return logits
+        w = params["embed"]["w"]
+        if split:
+            lo, hi = local_range(w.shape[0], group.rank, group.tp)
+            w = w[lo:hi]
+        logits = h @ w.T
+    else:
+        logits = ops.matmul_q(h, params["head"]["w"], tp_col_sharded=split)
+        d = adapter_leaf(adapters, "head")
+        if isinstance(d, BatchedDelta):  # added into the logits in the kernel's epilogue
+            ops.delta_apply_batched(h, d.idx, d.val, d.aid, logits)
+        elif isinstance(d, Delta):
+            logits = logits + ops.delta_apply(h, d.idx, d.val)
+    return tp_all_gather(logits, group) if split else logits
 
 
 def embed_tokens(cfg, params, tokens):
@@ -382,6 +428,7 @@ def _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views, hidden=
     n = cache["k"].shape[1] - 1  # real blocks (paged) or slots (dense)
     plan = _write_plan(cache, wtable, q_offset, q_len, c)
     bound = _bind_adapters(adapters, a_views, len(layers))
+    red_o, red_mlp = _reducers(cfg)
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
         lc = _layer_cache(cache, i)
@@ -397,8 +444,8 @@ def _chunk_forward(cfg, params, adapters, cache, batch, layers, a_views, hidden=
         else:
             o = paged_prefill_attention(q, ck, cv, table, q_offset=q_offset, kv_valid_len=vl,
                                         k_scale=ks, v_scale=vs)
-        h = h + alinear(p, a, "wo", o.reshape(b, c, -1))
-        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))[0]
+        h = h + alinear(p, a, "wo", o.reshape(b, c, -1), red_o)
+        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps), reduce=red_mlp)[0]
     return h
 
 
@@ -461,6 +508,7 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
     n = cache["k"].shape[1] - 1
     plan = _write_plan(cache, table, pos, torch.ones_like(pos), 1)
     bound = _bind_adapters(adapters, a_views, len(layers))
+    red_o, red_mlp = _reducers(cfg)
     for i, p in enumerate(layers):
         a = bound[i] if bound else None
         lc = _layer_cache(cache, i)
@@ -472,8 +520,8 @@ def decode_step(cfg, params, adapters, cache, batch, layers=None, a_views=None):
             o = attention(q, ck, cv, kv_valid_len=vl, k_scale=ks, v_scale=vs)
         else:
             o = paged_attention(q, ck, cv, table, kv_valid_len=vl, k_scale=ks, v_scale=vs)
-        h = h + alinear(p, a, "wo", o.reshape(h.shape[0], 1, -1))
-        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps))[0]
+        h = h + alinear(p, a, "wo", o.reshape(h.shape[0], 1, -1), red_o)
+        h = h + _mlp(cfg, p, a, rms_norm(h, p["mlp_norm"], cfg.norm_eps), reduce=red_mlp)[0]
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head_logits(cfg, params, adapters, h)[:, 0]
 

@@ -5,8 +5,12 @@ adapter (``peft.load_adapter``, or ``core.adapt.init_adapters``). The store
 stacks them per matrix with row 0 the implicit base model (zero values):
 leaves under ``blocks`` become ``(L, N, k, d_out)`` (layer axis leading,
 as the layer loop slices it), other leaves (an untied ``head``)
-``(N, k, d_out)``. Stacks are cached per device and rebuilt only after
-``register``/``remove``.
+``(N, k, d_out)``. Stacks are cached per device (and tensor-parallel
+rank) and rebuilt only after ``register``/``remove``. A tensor-parallel
+rank's stacks are its slices (:func:`repro_torch.distributed.sharding.
+shard_adapters`, the reference's ``stacked_placed``): a column-parallel
+host's stack cut along ``d_out``, a row-parallel host's masked to the
+rank's ``d_in`` range once, when the stack is built.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import logging
 import torch
 
 from repro_torch.convert import to_tensor
+from repro_torch.distributed.sharding import shard_adapters
 from repro_torch.tree import flatten, map_leaves, path_str, unflatten
 
 log = logging.getLogger("repro_torch.serve.adapters")
@@ -42,7 +47,7 @@ class AdapterStore:
         self._indices: list = []
         self._values: list = []
         self.names: list[str] = []
-        self._stacked: dict = {}  # device -> (idx_tree, val_tree)
+        self._stacked: dict = {}  # (device, rank, tp) -> (idx_tree, val_tree)
         self._base = base_params
         self.removals = 0  # bumped by remove(): ids shift
         # full re-stacks of the tenant trees (the engine's
@@ -124,13 +129,18 @@ class AdapterStore:
         mean into the base (:func:`repro_torch.serve.draft.build_draft_params`)."""
         return list(zip(self._indices, self._values))
 
-    def stacked(self, device):
+    def stacked(self, device, rank: int = 0, tp: int = 1, shapes=None,
+                family: str = "dense"):
         """(idx_tree, val_tree) of stacks on ``device``, N = tenants + 1,
-        row 0 the base; None when no tenant is registered. Cached."""
+        row 0 the base; None when no tenant is registered. With ``tp`` > 1,
+        tensor-parallel ``rank``'s slices over host params of logical
+        ``shapes`` (:func:`repro_torch.distributed.sharding.param_shapes`
+        of the unsharded base). Cached."""
         if not self._indices:
             return None
         device = torch.device(device)
-        if device not in self._stacked:
+        key = (device, rank, tp)
+        if key not in self._stacked:
             self.stack_builds += 1
             base_val = map_leaves(lambda v: None if v is None else torch.zeros_like(v),
                                   self._values[0])
@@ -146,9 +156,8 @@ class AdapterStore:
                         [f[j][1].to(device) for f in flat], dim=dim).contiguous()
                 return out[()] if list(out) == [()] else unflatten(out.items())
 
-            self._stacked[device] = (
+            self._stacked[key] = shard_adapters(
                 {k: stack(k, idx_all) for k in self._indices[0]},
-                {k: stack(k, val_all) for k in base_val},
-            )
-        return self._stacked[device]
+                {k: stack(k, val_all) for k in base_val}, shapes, family, rank, tp)
+        return self._stacked[key]
 

@@ -68,7 +68,26 @@ called at the top of every step. Every request leaves through
 :func:`repro_torch.obs.now`) stamps requests, histograms, deadlines and
 spans alike.
 
-Out of the port so far: tensor parallelism (the reference's engine has it).
+Tensor parallelism (DESIGN §14): ``tp_group`` (a
+:class:`~repro_torch.distributed.collectives.TPGroup` of tp > 1) makes this
+engine one rank of a sharded engine, one process a rank. The head counts
+are checked before any placement, with the reference's words; each rank
+then holds its slice of the base (and of a model drafter's base), of the
+tenants' stacks and of the KV pools, and runs every step inside the
+serving context (:mod:`repro_torch.distributed.context`), restored
+afterwards, as the reference's ``_sharded_call``. Rank 0 is the *leader*:
+it alone takes submits, cancels, rate limits, the chaos schedule and the
+front end. At the top of each :meth:`step`, after the chaos injections, it
+broadcasts one control record over the group's host-side gloo group: the
+submits (with their rids and resolved deadlines) and cancels since the
+last step, the in-flight deadlines, the pool blocks chaos holds and its
+clock reading for the deadline sweep. The other ranks run :meth:`follow`,
+which applies each record to their own scheduler and runs the same step
+until :meth:`close` sends the shutdown record. The logits are all-gathered
+before the sampler, so they are identical on every rank, and every rank's
+generator has the same seed: all ranks sample the same tokens and their
+schedules cannot part. Every rank makes one device-to-host fetch a step.
+Only the dense family is served tensor-parallel.
 """
 
 from __future__ import annotations
@@ -81,6 +100,9 @@ import torch
 import repro_torch.obs.clock as _clock
 from repro_torch.core.delta import BatchedDelta
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as tp_ctx
+from repro_torch.distributed.collectives import broadcast_record
+from repro_torch.distributed.sharding import param_shapes, shard_params
 from repro_torch.obs import MetricsRegistry, NullRegistry, Tracer
 from repro_torch.peft import BASE_DTYPES, quantize_base
 from repro_torch.serve.adapters import AdapterStore
@@ -117,7 +139,9 @@ class ServeEngine:
     reference launcher's and every caller of the port assumes; the
     reference *engine* (``repro.serve.ServeEngine``) defaults to
     ``paged=False``, so a comparison passes ``paged`` to both explicitly.
-    ``page_size`` and ``num_blocks`` apply to the paged pool only."""
+    ``page_size`` and ``num_blocks`` apply to the paged pool only.
+    ``tp_group`` makes it one rank of a tensor-parallel engine (see the
+    module note)."""
 
     def __init__(
         self,
@@ -150,6 +174,7 @@ class ServeEngine:
         chaos=None,
         clock=None,
         device=None,
+        tp_group=None,
     ):
         if model.cfg.family not in ("dense", "moe", "vlm"):
             # the engine drives the KV-cache LMs; the SSM and hybrid families
@@ -173,6 +198,22 @@ class ServeEngine:
             raise ValueError("draft='merged' needs an adapter store with registered tenants")
         if fairness not in POLICIES:
             raise ValueError(f"fairness {fairness!r} not in {POLICIES}")
+        # tensor-parallel serving (DESIGN §14), validated before any placement
+        self.tp_group = tp_group if tp_group is not None and tp_group.tp > 1 else None
+        self.tp = 1 if self.tp_group is None else self.tp_group.tp
+        cfg = model.cfg
+        if self.tp > 1:
+            if cfg.num_kv_heads % self.tp:
+                raise ValueError(
+                    f"tp={self.tp} does not divide num_kv_heads={cfg.num_kv_heads} — the KV "
+                    "pool partitions along the kv-head axis, so heads must split evenly")
+            if cfg.num_heads % self.tp:
+                raise ValueError(f"tp={self.tp} does not divide num_heads={cfg.num_heads}")
+            if cfg.family != "dense":
+                raise ValueError(f"tensor-parallel serving covers the dense family, got "
+                                 f"{cfg.family!r} (tp={self.tp})")
+            if device is None:
+                device = self.tp_group.device
         self.device = resolve_device(device)
         self.model = model
         self.params = map_leaves(lambda t: None if t is None else t.to(self.device), params)
@@ -221,9 +262,9 @@ class ServeEngine:
             if num_blocks is None:
                 num_blocks = slots * -(-max_len // page_size)
             self.kv = PagedKVCache(model, slots, max_len, page_size, num_blocks, self.device,
-                                   kv_dtype=kv_dtype)
+                                   kv_dtype=kv_dtype, tp=self.tp)
         else:
-            self.kv = KVCache(model, slots, max_len, self.device, kv_dtype=kv_dtype)
+            self.kv = KVCache(model, slots, max_len, self.device, kv_dtype=kv_dtype, tp=self.tp)
         self.sampler = Sampler(model.cfg.vocab_size, top_k=top_k, top_p=top_p)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.draft = draft
@@ -232,8 +273,17 @@ class ServeEngine:
         # dense scratch; the ngram drafter needs neither
         self.draft_params = build_draft_params(self.params, draft, store=adapter_store,
                                                quant_block=quant_block)
+        self._shapes = None  # the unsharded base's logical shapes: the tenants' hosts
+        if self.tp > 1:
+            # each rank's slices: the base and a model drafter's base alike
+            rank = self.tp_group.rank
+            self._shapes = param_shapes(self.params)
+            self.params = shard_params(self.params, cfg.family, rank, self.tp)
+            if self.draft_params is not None:
+                self.draft_params = shard_params(self.draft_params, cfg.family, rank, self.tp)
         self.draft_kv = (None if self.draft_params is None
-                         else DraftKVCache(model, slots, max_len, self.device))
+                         else DraftKVCache(model, slots, max_len, self.device, tp=self.tp))
+        self._journal: list = []  # the leader's submits and cancels since its last record
         self.steps = 0
         self.step_times: dict[str, list[float]] = {"mixed": [], "decode": [], "spec": []}
         self.emitted = {kind: 0 for kind in self.step_times}  # tokens by step kind
@@ -307,7 +357,7 @@ class ServeEngine:
             "Full tenant-tree re-stacks (should track register/remove count, not step "
             "count).")
         reg.gauge("serve_tp_size",
-                  "Tensor-parallel shards serving this engine (1 = unsharded).").set(1)
+                  "Tensor-parallel shards serving this engine (1 = unsharded).").set(self.tp)
         reg.gauge("serve_pool_bytes",
                   "Effective packed KV cache/pool bytes (data + scales) across all shards "
                   "(logical total).", labels=("kv_dtype",)
@@ -416,6 +466,8 @@ class ServeEngine:
         :class:`QueueFullError` / :class:`RateLimitedError` on a shed (both
         carry ``retry_after``), RuntimeError once :meth:`drain` closed
         intake."""
+        if self.tp_group is not None and not self.tp_group.leader:
+            raise RuntimeError("submit() on a follower rank: requests go to the leader")
         if not prompt:
             raise ValueError("empty prompt")
         if max_new <= 0:
@@ -459,14 +511,21 @@ class ServeEngine:
         except RateLimitedError:
             self._c_shed["rate_limit"].inc()
             raise
+        if self.tp_group is not None:
+            self._journal.append(("submit", rid, list(prompt), max_new, adapter_id, temp,
+                                  self.scheduler.get(rid).store_rev, deadline))
+        self._accepted(rid, len(prompt), max_new, adapter_id)
+        return rid
+
+    def _accepted(self, rid: int, n_prompt: int, max_new: int, adapter_id: int) -> None:
+        """Count and trace an accepted submit."""
         self._c_submitted.labels(str(adapter_id)).inc()
         self._g_queue.set(self.scheduler.queue_depth)
         if self.tracer is not None:
             ts = self.tracer.now()
-            self.tracer.instant(rid, "submit", ts=ts, prompt_tokens=len(prompt),
+            self.tracer.instant(rid, "submit", ts=ts, prompt_tokens=n_prompt,
                                 max_new=max_new, tenant=adapter_id)
             self._queued_ts[rid] = ts
-        return rid
 
     def set_rate_limit(self, adapter_id: int, rate: float, burst: float | None = None) -> None:
         """Per-tenant token bucket: ``rate`` submits a second sustained,
@@ -484,6 +543,8 @@ class ServeEngine:
         req = self.scheduler.get(rid)
         if req is None or req.done:
             return False
+        if self.tp_group is not None and self.tp_group.leader:
+            self._journal.append(("cancel", rid))
         req.cancelled = True
         slot = self.scheduler.slot_of(rid)
         if slot is None:
@@ -496,11 +557,11 @@ class ServeEngine:
         self._g_queue.set(self.scheduler.queue_depth)
         return True
 
-    def _expire_deadlines(self) -> None:
-        """Boundary sweep before admission: every in-flight request whose
-        deadline has passed, queued or admitted, ends with reason
-        "deadline" (so an expired request never takes a slot)."""
-        now = self.clock()
+    def _expire_deadlines(self, now: float) -> None:
+        """Boundary sweep before admission at clock reading ``now``: every
+        in-flight request whose deadline has passed, queued or admitted,
+        ends with reason "deadline" (so an expired request never takes a
+        slot)."""
         for req in self.scheduler.expired_queued(now):
             self._c_expired["queued"].inc()
             self._terminate(None, req, "deadline")
@@ -574,12 +635,90 @@ class ServeEngine:
     def step(self) -> bool:
         """One mixed chunk step or one decode megastep over all active
         slots; False when nothing is admitted or queued. Chaos injections,
-        the deadline sweep and admission run first, at the boundary."""
+        the deadline sweep and admission run first, at the boundary. On a
+        tensor-parallel leader the control record goes out after the chaos
+        injections (see the module note)."""
         if self.chaos is not None:
             # before the sweep (a stormed deadline expires this step) and
             # before admission (stolen blocks refuse placements this step)
             self.chaos.on_step(self)
-        self._expire_deadlines()
+        now = self.clock()
+        if self.tp_group is None:
+            return self._boundary_and_step(now)
+        if not self.tp_group.leader:
+            raise RuntimeError("step() on a follower rank: followers run follow()")
+        broadcast_record(self._record(now), self.tp_group)
+        return self._sharded(self._boundary_and_step, now)
+
+    # ------------------------------------------ tensor-parallel lockstep
+
+    def _record(self, now: float) -> dict:
+        """The leader's control record of this step: the journal since the
+        last record, every in-flight deadline, the blocks chaos holds, and
+        ``now``, the clock reading of the deadline sweep."""
+        ops, self._journal = self._journal, []
+        return {"ops": ops, "now": now,
+                "deadlines": {r.rid: r.deadline for r in self.scheduler.in_flight()
+                              if r.deadline is not None},
+                "stolen": self.kv.stolen_blocks if self.paged else 0}
+
+    def _sharded(self, fn, *args):
+        """``fn(*args)`` inside the serving context, restored afterwards
+        (the reference's ``_sharded_call``)."""
+        snap = tp_ctx.snapshot()
+        tp_ctx.set_serve_group(self.tp_group, (self.model.cfg.num_heads,
+                                               self.model.cfg.num_kv_heads))
+        try:
+            return fn(*args)
+        finally:
+            tp_ctx.restore(snap)
+
+    def _apply(self, record: dict) -> None:
+        """Replay the leader's record on a follower: submits with the
+        leader's rids, cancels, deadlines and chaos's held blocks."""
+        for op in record["ops"]:
+            if op[0] == "submit":
+                rid, prompt, max_new, aid, temp, rev, deadline = op[1:]
+                got = self.scheduler.submit(prompt, max_new, adapter_id=aid, temperature=temp,
+                                            store_rev=rev, deadline=deadline)
+                if got != rid:
+                    raise RuntimeError(f"follower rank {self.tp_group.rank} gave rid {got} "
+                                       f"to the leader's request {rid}")
+                self._accepted(rid, len(prompt), max_new, aid)
+            else:
+                self.cancel(op[1])
+        for rid, deadline in record["deadlines"].items():
+            req = self.scheduler.get(rid)
+            if req is not None:
+                req.deadline = deadline
+        held = record["stolen"] - (self.kv.stolen_blocks if self.paged else 0)
+        if held > 0:
+            self.kv.steal_blocks(held)
+        elif held < 0:
+            self.kv.restore_blocks(-held)
+
+    def follow(self) -> None:
+        """A follower rank's loop: apply each of the leader's records and run
+        the same step, until the leader's :meth:`close`."""
+        if self.tp_group is None or self.tp_group.leader:
+            raise RuntimeError("follow() is for the follower ranks of a tensor-parallel engine")
+        with torch.no_grad():
+            while True:
+                record = broadcast_record(None, self.tp_group)
+                if record is None:
+                    return
+                self._apply(record)
+                self._sharded(self._boundary_and_step, record["now"])
+
+    def close(self) -> None:
+        """On a tensor-parallel leader: send the shutdown record that ends
+        the followers' :meth:`follow`. A no-op otherwise."""
+        if self.tp_group is not None and self.tp_group.leader:
+            broadcast_record(None, self.tp_group)
+
+    def _boundary_and_step(self, now: float) -> bool:
+        """The deadline sweep at ``now``, admission, then the step itself."""
+        self._expire_deadlines(now)
         self._check_adapter_ids()
         self._admit()
         if not self.scheduler.has_active():
@@ -587,6 +726,8 @@ class ServeEngine:
                 # this step's injections may have ended the last request:
                 # hand stolen blocks back before reporting idle
                 self.chaos.release(self)
+            elif self.tp_group is not None and self.paged and self.kv.stolen_blocks:
+                self.kv.restore_blocks()  # a follower: the leader's chaos released here
             return False
         t0 = self.clock()
         if self.scheduler.has_prefilling():
@@ -632,8 +773,13 @@ class ServeEngine:
 
     def _adapters(self, aid: np.ndarray):
         """The step's ``{"blocks": {name: BatchedDelta}, "head": ...}``
-        over the cached tenant stacks, with one adapter id per slot."""
-        stacked = self.store.stacked(self.device) if self.store is not None else None
+        over the cached tenant stacks (this rank's slices under tensor
+        parallelism), with one adapter id per slot."""
+        stacked = None
+        if self.store is not None:
+            rank = 0 if self.tp_group is None else self.tp_group.rank
+            stacked = self.store.stacked(self.device, rank, self.tp, self._shapes,
+                                         self.model.cfg.family)
         if stacked is None:
             return None
         sidx, sval = stacked

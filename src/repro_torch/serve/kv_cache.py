@@ -22,6 +22,12 @@ per-slot position vector the steps carry.
 scales beside them: one per (block, kv-head) in the pool, one per (slot,
 16-row group, kv-head) in the dense cache. All cache writes happen inside
 the model's forward; these classes only place.
+
+With ``tp`` > 1 (tensor-parallel serving) every cache holds one rank's
+``KV / tp`` kv-heads of each page or row, scales included; the host
+bookkeeping (tables, free list, positions) is the same on every rank.
+:meth:`pool_bytes` stays the logical total over the ``tp`` ranks and
+:meth:`pool_bytes_per_shard` is what this rank holds.
 """
 
 from __future__ import annotations
@@ -48,26 +54,28 @@ def _pool_bytes(data: dict) -> int:
 
 
 class KVCache:
-    def __init__(self, model, slots: int, max_len: int, device, kv_dtype: str = "fp32"):
+    def __init__(self, model, slots: int, max_len: int, device, kv_dtype: str = "fp32",
+                 tp: int = 1):
         _check_kv_dtype(kv_dtype)
         self.slots = slots
         self.max_len = max_len
         self.kv_dtype = kv_dtype
+        self.tp = tp
         self.device = torch.device(device)
-        self.data = model.init_cache(slots, max_len, self.device, kv_dtype=kv_dtype)
+        self.data = model.init_cache(slots, max_len, self.device, kv_dtype=kv_dtype, tp=tp)
         self.pos = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.pos_host = np.zeros((slots,), np.int32)  # admission mirror
 
     def pool_bytes(self) -> int:
         """Cache bytes as the reference counts them: codes plus scales (or
         the fp k/v) of the ``slots`` real slots — the trash slot is not
-        counted."""
-        return _pool_bytes(self.data)
+        counted — over all ``tp`` ranks."""
+        return _pool_bytes(self.data) * self.tp
 
     def pool_bytes_per_shard(self) -> int:
-        """Bytes one tensor-parallel shard holds: the whole cache (the port
-        serves unsharded)."""
-        return self.pool_bytes()
+        """Bytes this tensor-parallel rank holds (its kv-heads): the total
+        / ``tp``."""
+        return _pool_bytes(self.data)
 
     def full(self, slot: int) -> bool:
         return self.pos_host[slot] >= self.max_len - 1
@@ -98,19 +106,22 @@ class DraftKVCache:
     back for free. It needs no sharing, accounting or eviction: every
     (re-)admission's chunk steps rebuild a slot's rows."""
 
-    def __init__(self, model, slots: int, max_len: int, device):
-        self.data = model.init_cache(slots, max_len, torch.device(device))
+    def __init__(self, model, slots: int, max_len: int, device, tp: int = 1):
+        self.tp = tp
+        self.data = model.init_cache(slots, max_len, torch.device(device), tp=tp)
 
     def pool_bytes(self) -> int:
-        """k and v of the ``slots`` real slots (the trash slot not counted)."""
-        return _pool_bytes(self.data)
+        """k and v of the ``slots`` real slots (the trash slot not counted),
+        over all ``tp`` ranks."""
+        return _pool_bytes(self.data) * self.tp
 
 
 class PagedKVCache:
     def __init__(self, model, slots: int, max_len: int, page_size: int,
-                 num_blocks: int, device, kv_dtype: str = "fp32"):
+                 num_blocks: int, device, kv_dtype: str = "fp32", tp: int = 1):
         _check_kv_dtype(kv_dtype)
         self.kv_dtype = kv_dtype
+        self.tp = tp
         self.slots = slots
         self.max_len = max_len
         self.page_size = page_size
@@ -123,7 +134,7 @@ class PagedKVCache:
                 f"request ({self.max_pages} pages of {page_size})"
             )
         self.data = model.init_paged_cache(num_blocks, page_size, self.device,
-                                           kv_dtype=kv_dtype)
+                                           kv_dtype=kv_dtype, tp=tp)
         self.pos = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.pos_host = np.zeros((slots,), np.int32)  # admission mirror
         self.table = np.full((slots, self.max_pages), num_blocks, np.int32)
@@ -166,13 +177,13 @@ class PagedKVCache:
     def pool_bytes(self) -> int:
         """Pool bytes as the reference counts them: codes plus scales (or
         the fp k/v) of the ``num_blocks`` real blocks — the trash block is
-        not counted."""
-        return _pool_bytes(self.data)
+        not counted — over all ``tp`` ranks."""
+        return _pool_bytes(self.data) * self.tp
 
     def pool_bytes_per_shard(self) -> int:
-        """Bytes one tensor-parallel shard holds: the whole pool (the port
-        serves unsharded)."""
-        return self.pool_bytes()
+        """Bytes this tensor-parallel rank holds (its kv-heads): the total
+        / ``tp``."""
+        return _pool_bytes(self.data)
 
     def blocks_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)

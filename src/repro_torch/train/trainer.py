@@ -57,13 +57,16 @@ def _slice_mb(key: str, x, i: int, m: int):
     return x.narrow(axis, i * b, b)
 
 
-def make_train_step(model, peft, tcfg):
+def make_train_step(model, peft, tcfg, *, grad_transform=None):
     """Returns ``(step(params, aux, state, batch) -> (state, metrics),
     optimizer)``: AdamW on ``tcfg``'s schedule. ``metrics`` holds tensors:
     ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``skipped`` (1 when a
     non-finite loss or gradient kept the old state). ``tcfg.remat``
     (``none``, ``full``, ``dots``) recomputes each layer in the backward
-    (see :func:`repro_torch.models.transformer.forward_train`)."""
+    (see :func:`repro_torch.models.transformer.forward_train`).
+    ``grad_transform(grads) -> grads`` runs on the gradients after the
+    method's ``post_grad`` and before clipping, as in the reference (e.g.
+    int8 compression: :func:`repro_torch.distributed.collectives.ef_int8`)."""
     schedule = get_schedule(tcfg.schedule, tcfg.learning_rate, tcfg.steps, tcfg.warmup_ratio)
     optimizer = adamw(schedule, b1=tcfg.beta1, b2=tcfg.beta2, eps=tcfg.eps,
                       weight_decay=tcfg.weight_decay)
@@ -104,6 +107,8 @@ def make_train_step(model, peft, tcfg):
     def train_step(params, aux, state: TrainState, batch):
         loss, metrics, grads = grads_of(params, state.trainable, aux, batch)
         grads = peft.post_grad(grads, aux)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
         if tcfg.grad_clip > 0:
             grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         else:
@@ -132,16 +137,18 @@ class Trainer:
     ``tcfg.checkpoint_dir`` the trainable values and the optimizer state are
     saved every ``checkpoint_every`` steps and at the end of :meth:`run`,
     and :meth:`try_resume` picks up the latest save (either package's). The
-    initial trees live only in ``state``: no dense copy outlives its step."""
+    initial trees live only in ``state``: no dense copy outlives its step.
+    ``grad_transform`` goes to :func:`make_train_step`."""
 
-    def __init__(self, model, peft, tcfg, params, *, rng=None):
+    def __init__(self, model, peft, tcfg, params, *, rng=None, grad_transform=None):
         self.model, self.peft, self.tcfg = model, peft, tcfg
         self.params = params
         self.device = next(x for _, x in flatten(params) if x is not None).device
         if rng is None:
             rng = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         trainable, self.aux = peft.init(params, rng)
-        self._step_fn, self.optimizer = make_train_step(model, peft, tcfg)
+        self._step_fn, self.optimizer = make_train_step(model, peft, tcfg,
+                                                        grad_transform=grad_transform)
         self.state = TrainState(trainable, self.optimizer.init(trainable),
                                 torch.zeros((), dtype=torch.int32, device=self.device))
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None

@@ -40,6 +40,7 @@ from repro_torch.kernels import (
     SELECTION,
     SERVING,
     SINGLE_TENANT,
+    TENSOR_PARALLEL,
     TRAINING,
     build,
     ops,
@@ -425,7 +426,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     assert (COUNTERS["fused_linear"].plain, COUNTERS["sparse_delta_dval"].plain) == (1, 1)
     attention = {name for names in ATTENTION.values() for name in names}
     assert set(COUNTERS) == (set(SERVING) | attention | set(TRAINING) | set(SINGLE_TENANT)
-                             | set(PACKED_BASE) | set(LONG_CONTEXT) | set(SELECTION))
+                             | set(PACKED_BASE) | set(LONG_CONTEXT) | set(SELECTION)
+                             | set(TENSOR_PARALLEL))
     reset_counters()
     assert all(c.plain == c.kernel == 0 for c in COUNTERS.values())
 

@@ -287,7 +287,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.train, repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.data, repro_torch.distributed, repro_torch.quant, "
             "repro_torch.models.moe, repro_torch.obs, repro_torch.obs.metrics, "
-            "repro_torch.obs.trace, repro_torch.serve.chaos, repro_torch.serve.frontend; "
+            "repro_torch.obs.trace, repro_torch.serve.chaos, repro_torch.serve.frontend, "
+            "repro_torch.distributed.collectives, repro_torch.distributed.context, "
+            "repro_torch.distributed.sharding; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
