@@ -252,28 +252,45 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     selection one matrix at a time, 2 + 3 steps (only ``fused_linear_q``,
     ``sparse_delta_dval`` and the flash forward where reckoned; the packed
     bytes unchanged), 16 greedy tokens (``train_<arch>_<base>.json``);
-12. tensor-parallel serving (slice 17; also alone with ``--tp``): the four
-    TP wrappers on one rank's slices at the per-shard shapes of tp 2 (the
-    paged decode and prefill and the dense decode at qwen2-1.5b's 6 q heads
-    over 1 kv-head, hd 128, fp and int8 bodies; ``matmul_q_cols_sharded`` on
-    one rank's 75,968 columns of qwen3-32b's packed head, int8 and NF4), each
-    against the plain version of the kernel it launches and timed beside
-    its bound and a PyTorch call on the same local slice; then the path at
-    tp 1 on the card and at tp 2 over 2 spawned ranks sharing the card
-    (a gloo device group): full-width qwen2-1.5b on the paged engine with 2
-    tenants, on the bf16 and on an int8 base (4 requests x 32 new tokens;
-    the first decode step's logits within 2u sqrt(2 L) of tp 1's, how far
-    the greedy tokens agree, pool bytes a rank = total / 2, each rank's base
-    bytes, the step wall of two ranks on one card), and the reduced float32
-    twins of the CPU tests (paged with tenants, dense, and the untied head on
-    an int8 base: tokens at tp 2 = tp 1 on the card = the CPU's); every
-    wrapper launched on the path, no plain call on a rank
+12. tensor-parallel serving (slices 17-18; also alone with ``--tp``): the
+    four TP wrappers on one rank's slices at the per-shard shapes of tp 2
+    (the paged decode and prefill and the dense decode at qwen2-1.5b's 6 q
+    heads over 1 kv-head and at olmoe-1b-7b's 8 over 8, hd 128, fp and int8
+    bodies; ``matmul_q_cols_sharded`` on one rank's 75,968 columns of
+    qwen3-32b's packed head and 25,152 of olmoe's, int8 and NF4) and the
+    bypass apply on one olmoe rank's (N·32, k, 1024) expert stacks with
+    combined ids, each against the plain version of the kernel it launches
+    and timed beside its bound and a PyTorch call on the same local slice;
+    then the path at tp 1 on the card and at tp 2 over 2 spawned ranks
+    sharing the card (a gloo device group): full-width qwen2-1.5b on the
+    bf16 and on an int8 base, olmoe-1b-7b (32 of its 64 experts a rank) on
+    the bf16 and on an int8 base, and qwen2-vl-2b on bf16, each on the paged
+    engine with 2 tenants (4 requests x 32 new tokens: the first decode
+    step's logits within 2u sqrt(2 L) of tp 1's over the slots whose
+    sequences, and on olmoe every token's top-8 experts, still agree, the
+    flipped routes counted; the first mixed step and the first decode step
+    taught to tp 1 arithmetic on the tp 2 run's own state, olmoe's expert
+    choices forced, within the same bound on every slot the step computed
+    for; how far the greedy tokens agree, pool bytes a rank = total / 2,
+    each rank's base bytes, the apply's combined ids inside a rank's
+    stacks, the step wall of two ranks on one card), and the reduced
+    float32 twins of the CPU tests (qwen2 paged with tenants and dense, the
+    untied head on an int8 base, olmoe paged with tenants and on an int8
+    base, qwen2-vl paged with tenants: tokens at tp 2 = tp 1 on the card =
+    the CPU's). Each run's counts are set to 0 just before it and read
+    just after (warm-ups and the taught steps are not counted): every run
+    launched its kernels on every rank (the full-width runs the paged
+    wrappers and the apply), and no plain version ran
     (``chiprun_out/tp.json``).
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
 the thirteen kernels and the four TP wrappers (``topk_select``'s with its smallest-first and
-float32-score figures); the rows of the four kernels a speculative round
+float32-score figures; each TP wrapper's with an ``olmoe`` entry at olmoe's
+per-shard shapes and the launches of olmoe's and qwen2-vl's runs, and
+``sparse_delta_batched``'s with a ``tp`` entry: one olmoe rank's expert
+stacks at tp 2; ``--tp`` alone prints that entry as a fifth row); the rows
+of the four kernels a speculative round
 reaches carry a ``spec`` entry (its shape's times and bound, the spec gate
 runs' launches by drafter); the rows of kernels olmoe also runs carry an
 ``olmoe`` entry (ms, plain ms and bound at olmoe's shapes, launches in its training
@@ -309,6 +326,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.autograd.profiler_util import _filter_name, _rewrite_name
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -319,6 +337,7 @@ from repro_torch.checkpoint import save_pytree  # noqa: E402
 from repro_torch.configs import PeftConfig, TrainConfig, get_config, reduced  # noqa: E402
 from repro_torch.core import adapt as adapt_mod  # noqa: E402
 from repro_torch.core.adapt import init_adapters, zip_adapters  # noqa: E402
+from repro_torch.core.delta import BatchedDelta  # noqa: E402
 from repro_torch.data import TASKS, DataLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     ATTENTION,
@@ -349,7 +368,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import flash_attention_bwd  # noqa: E402
-from repro_torch.models.layers import quant_kv_page  # noqa: E402
+from repro_torch.models.layers import adapter_leaf, quant_kv_page  # noqa: E402
 from repro_torch.obs import Tracer, percentile  # noqa: E402
 from repro_torch.peft import (  # noqa: E402
     export_adapter,
@@ -429,11 +448,13 @@ SPEC_ROWS = SLOTS * (SPEC_K + 1)
 SPEC_TIE_ULPS = 4
 
 LOG = []  # every line log() printed, written to chiprun_out/chip_smoke.log at the end
+START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print ``msg``; the log file keeps it behind the seconds since start."""
     print(msg, flush=True)
-    LOG.append(msg)
+    LOG.append(f"{time.perf_counter() - START:7.1f} {msg}")
 
 
 def card_line() -> str:
@@ -449,8 +470,43 @@ def self_device_us(event) -> float:
     return event.self_cuda_time_total
 
 
-def device_kernels(prof) -> list:
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+# device_kernels reads the session's raw events; the first session of each
+# kind (a kernel's timing, a profiled serving or training run) is also read
+# through key_averages(), and the two must agree
+_RAW_EVENTS_CHECKED = set()
+
+
+def device_kernels(prof, kind: str) -> list:
+    """The session's device operations summed by name: ``key``, ``count``
+    and ``self_device_time_total`` (µs), as ``key_averages()`` gives them
+    for the device's events. Read from the raw kineto events with the
+    profiler's own filter and names (``_filter_name``, hidden events,
+    ``_rewrite_name``): ``key_averages()`` first turns every event into a
+    Python object and links it to its launch, tens of seconds for a
+    serving run's 10^5 kernels, where this takes a fraction of a second.
+    The first session of each ``kind`` is checked against
+    ``key_averages()``."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or _filter_name(e.name())
+                or getattr(e, "is_hidden_event", bool)()):
+            continue
+        t = totals.setdefault(_rewrite_name(e.name(), with_wildcard=True), [0, 0])
+        t[0] += 1
+        t[1] += e.end_ns() - e.start_ns()
+    rows = [types.SimpleNamespace(key=k, count=n, self_device_time_total=ns / 1e3)
+            for k, (n, ns) in totals.items()]
+    if kind not in _RAW_EVENTS_CHECKED:
+        want = {e.key: (e.count, self_device_us(e)) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        got = {r.key: (r.count, r.self_device_time_total) for r in rows}
+        assert set(got) == set(want) and all(
+            got[k][0] == want[k][0] and abs(got[k][1] - want[k][1]) <= 1e-3 * want[k][1] + 0.01
+            for k in want), ("raw device events disagree with key_averages()", kind, got, want)
+        _RAW_EVENTS_CHECKED.add(kind)
+        log(f"[profile] raw device events = key_averages() on the first {kind} session "
+            f"({len(rows)} names, {sum(r.count for r in rows)} events)")
+    return rows
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
@@ -476,7 +532,7 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in device_kernels(prof) if MARKER_KERNEL not in e.key]
+        kernels = [e for e in device_kernels(prof, "kernel") if MARKER_KERNEL not in e.key]
         total = sum(self_device_us(e) for e in kernels)
         if total > 0 and all(e.count % iters == 0 for e in kernels):
             return total / iters / 1e3
@@ -3241,7 +3297,7 @@ def profile_run(run, card: str, tag: str, fname: str,
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = self_device_us
-    kernels = [e for e in device_kernels(prof) if MARKER_KERNEL not in e.key]
+    kernels = [e for e in device_kernels(prof, "run") if MARKER_KERNEL not in e.key]
     rows = sorted((e for e in kernels if dev(e) > 0), key=dev, reverse=True)
     total = sum(dev(e) for e in rows)
     with open(os.path.join(OUT_DIR, fname), "w") as f:
@@ -6348,38 +6404,62 @@ TP, TP_REQUESTS, TP_NEW, TP_TENANTS = 2, 4, 32, 2
 # sum of the two partials — at most 2u of its size, u = 2^-8 (bf16's unit
 # roundoff). The sites' errors are independent and add up as a random walk
 # through the residual stream, so the logits' relative error ||tp2 - tp1|| /
-# ||tp1|| over the compared rows is held to 2u sqrt(2 L): 0.0585 at L = 28
+# ||tp1|| over the compared rows is held to 2u sqrt(2 L): 0.0585 at L = 28.
+# The MoE layer's partial sums (slice 18) are such a site too: 0.0442 for
+# olmoe's L = 16, held over the rows whose routes agreed at every layer
 BF16_U = 2.0 ** -8
-# the reduced float32 twins of the CPU tests (tests/test_torch_tp_serve.py):
-# qwen2 with 4 kv-heads and 8 heads on the paged pool with 2 tenants and on
-# the dense slot cache (the dense decode's wrapper), and the untied head
-# (reduced qwen3-32b) on an int8 base of 32-row blocks with 2 tenants
-# (matmul_q_cols_sharded); 3 prompts x 6 tokens on 2 slots
+# the reduced float32 twins of the CPU tests (tests/test_torch_tp_serve.py,
+# test_torch_tp_moe_serve*.py, test_torch_tp_vlm.py): qwen2 with 4 kv-heads
+# and 8 heads on the paged pool with 2 tenants and on the dense slot cache
+# (the dense decode's wrapper), the untied head (reduced qwen3-32b) on an
+# int8 base of 32-row blocks with 2 tenants (matmul_q_cols_sharded); olmoe
+# (2 of its 4 experts a rank) paged with 2 tenants and on an int8 base with
+# 2 tenants; qwen2-vl paged with 2 tenants; 3 prompts x 6 tokens on 2 slots
 TP_TWINS = {"qwen2-paged-tenants": ("qwen2-1.5b", dict(paged=True), True),
             "qwen2-dense": ("qwen2-1.5b", dict(paged=False), False),
             "qwen3-untied-int8": ("qwen3-32b", dict(paged=True, base_dtype="int8",
-                                                    quant_block=32), True)}
+                                                    quant_block=32), True),
+            "olmoe-paged-tenants": ("olmoe-1b-7b", dict(paged=True), True),
+            "olmoe-int8-tenants": ("olmoe-1b-7b", dict(paged=True, base_dtype="int8",
+                                                       quant_block=32), True),
+            "qwen2-vl-paged-tenants": ("qwen2-vl-2b", dict(paged=True), True)}
 TP_TWIN_KW = dict(slots=2, max_len=64, decode_chunk=2, prefill_chunk=8)
 TP_TWIN_PROMPTS = [[1, 17, 25], [1, 40, 41, 42], [3, 5]]
-# qwen2-1.5b's per-shard attention at tp 2: 6 q heads over 1 kv-head, hd 128
-TP_HEADS, TP_LOCAL = (12, 2), (6, 1, 128)
-# qwen3-32b's untied head: 5120 -> 151,936 columns, 75,968 a rank at tp 2
-TP_HEAD_K, TP_HEAD_N = 5120, 151936 // 2
+# the full-width runs of the path, in order: (tag, arch, base)
+TP_FULL = (("bf16", "qwen2-1.5b", "bf16"), ("int8", "qwen2-1.5b", "int8"),
+           ("olmoe-bf16", "olmoe-1b-7b", "bf16"), ("olmoe-int8", "olmoe-1b-7b", "int8"),
+           ("vl-bf16", "qwen2-vl-2b", "bf16"))
+# each model's weights seed: qwen2-vl-2b's text backbone has qwen2-1.5b's
+# shapes (its vision tower is a stub), so it draws other weights
+TP_SEED = {"qwen2-1.5b": 0, "olmoe-1b-7b": 0, "qwen2-vl-2b": 1}
+# per-shard shapes at tp 2: (global heads, local (H, KV, hd), the untied
+# packed head's (K, local N) and whose head it is). qwen2-1.5b's attention
+# (qwen2-vl-2b's is the same: 12 / 2 heads of 128) with qwen3-32b's head
+# (5120 -> 151,936 columns), and olmoe-1b-7b's (16 / 16 heads of 128; its
+# own head, 2048 -> 50,304 columns)
+TP_SHAPES = {"qwen2": ((12, 2), (6, 1, 128), (5120, 151936 // 2), "qwen3-32b"),
+             "olmoe": ((16, 16), (8, 8, 128), (2048, 50304 // 2), "olmoe-1b-7b")}
+# a mixed step's expert buffers on one olmoe rank at tp 2: 32 of the 64
+# experts, each G·C = 320 rows (2048 tokens in 32 routing groups of 64,
+# capacity 10), d 2048 -> F 1024, against the rank's (N·32, k, 1024) stacks
+TP_MOE_EXPERTS = 64 // TP
 
 
-def tp_kernels(gen, dev, card: str) -> dict:
+def tp_kernels(gen, dev, card: str, model: str = "qwen2") -> dict:
     """The four wrappers of tensor-parallel serving, each on one rank's local
-    slices at the path's per-shard shapes, against the plain version of the
-    kernel it launches (the fp and int8 bodies of the three attention
-    kernels; the packed head in int8 and NF4), timed beside that plain
-    version, its bound and a one-call PyTorch yardstick on the same local
-    slice (SDPA over the gathered cache; ``torch.mm`` on the dense local
-    columns of the head). Returns a summary row a wrapper."""
-    h, hkv, hd = TP_LOCAL
+    slices at ``model``'s per-shard shapes of tp 2 (:data:`TP_SHAPES`),
+    against the plain version of the kernel it launches (the fp and int8
+    bodies of the three attention kernels; the packed head in int8 and
+    NF4), timed beside that plain version, its bound and a one-call PyTorch
+    yardstick on the same local slice (SDPA over the gathered cache;
+    ``torch.mm`` on the dense local columns of the head). Returns a summary
+    row a wrapper."""
+    heads, (h, hkv, hd), (head_k, head_n), head_of = TP_SHAPES[model]
     num_blocks = SLOTS * (-(-MAX_LEN // PAGE))
     dec_vl = [1, 17, 300, MAX_LEN - 1, 512, 0, 640, 33]
     pre_off, pre_len = [700, 0, 256, 0, 512, 40, 0, 300], [1, 256, 188, 0, 256, 1, 40, 0]
     bf = torch.bfloat16
+    tag = "tp-kernels" if model == "qwen2" else f"tp-kernels-{model}"
     out = {}
 
     def timed(name, call, plain, library, cost, err, shape, int8=None):
@@ -6390,70 +6470,70 @@ def tp_kernels(gen, dev, card: str) -> dict:
         if int8 is not None:
             row["int8"] = int8
         out[name] = row
-        log(f"[tp-kernels] {name} ok: max|err| {err:.3e}, {ms:.4f} ms (plain "
+        log(f"[{tag}] {name} ok: max|err| {err:.3e}, {ms:.4f} ms (plain "
             f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound {b_ms:.4f} by "
             f"{b_by}); {shape} [{card}]")
 
-    # paged decode: (8, 1, 6, 128) against one kv-head of every page
+    # paged decode: (8, 1, h, 128) against the rank's kv-heads of every page
     q, kp, vp, table, _, vl = paged_case(gen, [0] * SLOTS, dec_vl, 1, bf, dev, num_blocks,
-                                         heads=TP_LOCAL)
+                                         heads=(h, hkv, hd))
     run = lambda: dec_mod.paged_decode_attention_sharded(  # noqa: E731
-        q, kp, vp, table, vl, TP, TP_HEADS)
+        q, kp, vp, table, vl, TP, heads)
     plain = lambda: dec_mod.paged_decode_attention_plain(q, kp, vp, table, vl)  # noqa: E731
     err = check_close("paged_decode_attention_sharded", run(), plain(), bf)
     kc, ks = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
     vc, vs = quantized(gen, (num_blocks, PAGE, hkv, hd), dev)
-    got = dec_mod.paged_decode_attention_sharded(q, kc, vc, table, vl, TP, TP_HEADS, ks, vs)
+    got = dec_mod.paged_decode_attention_sharded(q, kc, vc, table, vl, TP, heads, ks, vs)
     want = dec_mod.paged_decode_attention_plain(q, kc, vc, table, vl, ks, vs)
     q_cost = int8_attention_cost(q, hkv, table, vl, float(vl.sum()), int((vl > 0).sum()), 1)
     int8 = dict(max_abs_err=check_close("paged_decode_attention_sharded int8", got, want, bf),
                 ms=cuda_ms(lambda: dec_mod.paged_decode_attention_sharded(
-                    q, kc, vc, table, vl, TP, TP_HEADS, ks, vs)),
+                    q, kc, vc, table, vl, TP, heads, ks, vs)),
                 bound_ms=bound(*q_cost, bf)[0])
     s = table.shape[1] * PAGE
     mask = (torch.arange(s, device=dev)[None, :] < vl[:, None])[:, None, None, :]
     timed("paged_decode_attention_sharded", run, plain, sdpa_yardstick(q, kp, vp, table, mask),
           decode_cost(q, kp, table, vl), err,
-          f"q (8,1,6,128) bf16, pool ({num_blocks},16,1,128) one rank's kv-head, "
+          f"q (8,1,{h},{hd}) bf16, pool ({num_blocks},16,{hkv},{hd}) one rank's kv-heads, "
           f"kv_valid_len {dec_vl}", int8)
 
     # paged prefill: one mixed step's chunk buffer on one rank's heads
     q, kp, vp, table, qoff, vl = paged_case(gen, pre_off, pre_len, PREFILL_CHUNK, bf, dev,
-                                            num_blocks, heads=TP_LOCAL)
+                                            num_blocks, heads=(h, hkv, hd))
     run = lambda: pre_mod.paged_prefill_attention_sharded(  # noqa: E731
-        q, kp, vp, table, qoff, vl, TP, TP_HEADS)
+        q, kp, vp, table, qoff, vl, TP, heads)
     plain = lambda: pre_mod.paged_prefill_attention_plain(q, kp, vp, table, qoff, vl)  # noqa: E731
     err = check_close("paged_prefill_attention_sharded", run(), plain(), bf)
-    got = pre_mod.paged_prefill_attention_sharded(q, kc, vc, table, qoff, vl, TP, TP_HEADS, ks, vs)
+    got = pre_mod.paged_prefill_attention_sharded(q, kc, vc, table, qoff, vl, TP, heads, ks, vs)
     want = pre_mod.paged_prefill_attention_plain(q, kc, vc, table, qoff, vl, ks, vs)
     mask = prefill_mask(qoff, vl, table, dev)
     q_cost = int8_attention_cost(q, hkv, table, vl, float(mask[:, 0].sum()),
                                  int(mask[:, 0].any(-1).sum()), 2)
     int8 = dict(max_abs_err=check_close("paged_prefill_attention_sharded int8", got, want, bf),
                 ms=cuda_ms(lambda: pre_mod.paged_prefill_attention_sharded(
-                    q, kc, vc, table, qoff, vl, TP, TP_HEADS, ks, vs)),
+                    q, kc, vc, table, qoff, vl, TP, heads, ks, vs)),
                 bound_ms=bound(*q_cost, bf)[0])
     timed("paged_prefill_attention_sharded", run, plain, sdpa_yardstick(q, kp, vp, table, mask),
           prefill_cost(q, kp, table, qoff, vl, mask), err,
-          f"q (8,256,6,128) bf16, pool ({num_blocks},16,1,128), q_offset {pre_off}, "
+          f"q (8,256,{h},{hd}) bf16, pool ({num_blocks},16,{hkv},{hd}), q_offset {pre_off}, "
           f"q_len {pre_len}", int8)
 
-    # dense decode: the slot cache's one kv-head, bf16 and int8
+    # dense decode: the slot cache's local kv-heads, bf16 and int8
     q = torch.randn(SLOTS, 1, h, hd, generator=gen, device=dev).to(bf)
     k = torch.randn(SLOTS, MAX_LEN, hkv, hd, generator=gen, device=dev).to(bf)
     v = torch.randn(SLOTS, MAX_LEN, hkv, hd, generator=gen, device=dev).to(bf)
     vl = torch.tensor(dec_vl, dtype=torch.int32, device=dev)
-    run = lambda: dd_mod.decode_attention_sharded(q, k, v, vl, TP, TP_HEADS)  # noqa: E731
+    run = lambda: dd_mod.decode_attention_sharded(q, k, v, vl, TP, heads)  # noqa: E731
     plain = lambda: dd_mod.decode_attention_plain(q, k, v, vl)  # noqa: E731
     err = check_close("decode_attention_sharded", run(), plain(), bf)
     kc, ks = quantized(gen, (SLOTS, MAX_LEN // 16, 16, hkv, hd), dev)
     vc, vs = quantized(gen, (SLOTS, MAX_LEN // 16, 16, hkv, hd), dev)
     kc, vc = kc.reshape(SLOTS, MAX_LEN, hkv, hd), vc.reshape(SLOTS, MAX_LEN, hkv, hd)
-    got = dd_mod.decode_attention_sharded(q, kc, vc, vl, TP, TP_HEADS, ks, vs)
+    got = dd_mod.decode_attention_sharded(q, kc, vc, vl, TP, heads, ks, vs)
     want = dd_mod.decode_attention_plain(q, kc, vc, vl, ks, vs)
     nbytes, flops = dense_decode_cost(q, kc, vl)
     int8 = dict(max_abs_err=check_close("decode_attention_sharded int8", got, want, bf),
-                ms=cuda_ms(lambda: dd_mod.decode_attention_sharded(q, kc, vc, vl, TP, TP_HEADS,
+                ms=cuda_ms(lambda: dd_mod.decode_attention_sharded(q, kc, vc, vl, TP, heads,
                                                                    ks, vs)),
                 bound_ms=bound(nbytes + 2 * ks.numel() * 4, flops, bf)[0])
     kx = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
@@ -6463,14 +6543,15 @@ def tp_kernels(gen, dev, card: str) -> dict:
     timed("decode_attention_sharded", run, plain,
           lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=dmask),
           dense_decode_cost(q, k, vl), err,
-          f"q (8,1,6,128) bf16, cache (8,{MAX_LEN},1,128) one rank's kv-head, "
+          f"q (8,1,{h},{hd}) bf16, cache (8,{MAX_LEN},{hkv},{hd}) one rank's kv-heads, "
           f"kv_valid_len {dec_vl}", int8)
+    del k, v, kx, vx, kc, vc
 
     # the untied head's local columns, int8 and NF4, at the decode rows (M = slots)
-    x = torch.randn(SLOTS, TP_HEAD_K, generator=gen, device=dev).to(bf)
+    x = torch.randn(SLOTS, head_k, generator=gen, device=dev).to(bf)
     rows = {}
     for qd in PACKED:
-        w = torch.randn(TP_HEAD_K, TP_HEAD_N, generator=gen, device=dev) * TP_HEAD_K ** -0.5
+        w = torch.randn(head_k, head_n, generator=gen, device=dev) * head_k ** -0.5
         qt = quantize(w, qd, QUANT_BLOCK)
         del w
         run = lambda: ql_mod.matmul_q_cols_sharded(  # noqa: E731
@@ -6484,41 +6565,136 @@ def tp_kernels(gen, dev, card: str) -> dict:
         rows[qd] = dict(ms=ms, plain_ms=cuda_ms(plain, iters=3),
                         library_ms=cuda_ms(lambda: torch.mm(x, dense)), bound_ms=b_ms,
                         bound_by=b_by, max_abs_err=err, route=ql_mod.route(
-                            SLOTS, TP_HEAD_K, TP_HEAD_N, bf))
+                            SLOTS, head_k, head_n, bf))
         del dense, qt
         r = rows[qd]
-        log(f"[tp-kernels] matmul_q_cols_sharded {qd} ok: max|err| {err:.3e}, {ms:.4f} ms "
+        log(f"[{tag}] matmul_q_cols_sharded {qd} ok: max|err| {err:.3e}, {ms:.4f} ms "
             f"(route {r['route']}; plain {r['plain_ms']:.4f}, torch.mm on the dense slice "
-            f"{r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); x ({SLOTS},{TP_HEAD_K}) bf16 "
-            f"on ({TP_HEAD_K},{TP_HEAD_N}) local columns [{card}]")
+            f"{r['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}); x ({SLOTS},{head_k}) bf16 "
+            f"on ({head_k},{head_n}) local columns [{card}]")
     out["matmul_q_cols_sharded"] = dict(rows["int8"], nf4=rows["nf4"], shape=(
-        f"x ({SLOTS},{TP_HEAD_K}) bf16 on one rank's ({TP_HEAD_K},{TP_HEAD_N}) columns of "
-        f"qwen3-32b's head, int8 (nf4 beside it), block {QUANT_BLOCK}"))
+        f"x ({SLOTS},{head_k}) bf16 on one rank's ({head_k},{head_n}) columns of "
+        f"{head_of}'s head, int8 (nf4 beside it), block {QUANT_BLOCK}"))
     return out
 
 
-def tp_run(model, params, tenants, prompts, max_new, kw, group=None, tag=""):
+def tp_expert_apply(gen, dev, card: str) -> dict:
+    """The bypass apply (``sparse_delta_batched``) on one olmoe rank's
+    expert stacks at tp 2: a mixed step's local expert buffers (32 experts
+    x 320 rows, d 2048) against the rank's ``(N·32, k, 1024)`` stacks of
+    wgate, each buffer row's combined id ``tenant · 32 + (e − lo)`` (the
+    range the kernel reads is held: every id below N·32, the stacks' rows),
+    held against its plain version and timed beside its bound; no single
+    PyTorch call computes it."""
+    cfg = get_config(MOE_ARCH)
+    d, f, e = cfg.d_model, cfg.d_ff, TP_MOE_EXPERTS
+    m_tok = SLOTS * PREFILL_CHUNK
+    g = moe_mod.num_groups(m_tok, cfg.experts_per_token)
+    rows = g * moe_mod.capacity(cfg, m_tok // g)
+    assert rows == 320, rows
+    n_ad = (TP_TENANTS + 1) * e
+    bf = torch.bfloat16
+    xb = torch.randn(e * rows, d, generator=gen, device=dev).to(bf)
+    bidx = torch.randint(0, d, (n_ad, K_DELTA, f), generator=gen, device=dev, dtype=torch.int32)
+    bval = (torch.randn(n_ad, K_DELTA, f, generator=gen, device=dev) * 0.05).to(bf)
+    bval[:e] = 0  # tenant 0 is the base
+    tenant = torch.randint(0, TP_TENANTS + 1, (e, rows), generator=gen, device=dev)
+    aid = (tenant * e + torch.arange(e, device=dev)[:, None]).reshape(-1).to(
+        torch.int32).contiguous()
+    lo_id, hi_id = int(aid.min()), int(aid.max())
+    assert 0 <= lo_id and hi_id < n_ad, (lo_id, hi_id, n_ad)
+    run = lambda: sd_mod.sparse_delta_batched(xb, bidx, bval, aid)  # noqa: E731
+    plain = lambda: sd_mod.sparse_delta_batched_plain(xb, bidx, bval, aid)  # noqa: E731
+    err = check_close("sparse_delta_batched local experts", run(), plain(), bf)
+    ms = cuda_ms(run)
+    b_ms, b_by = bound(*delta_cost(xb, bidx, bval, aid, f), bf)
+    row = dict(ms=ms, plain_ms=cuda_ms(plain, iters=3), library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err, ids=[lo_id, hi_id], stacks=n_ad,
+               shape=f"one olmoe rank's expert buffers ({e * rows}, {d}) -> {f} at tp 2, "
+                     f"(N·{e}, k, {f}) = ({n_ad}, {K_DELTA}, {f}) stacks, combined ids "
+                     f"{lo_id}..{hi_id}")
+    log(f"[tp-kernels-olmoe] sparse_delta_batched on a rank's local expert stacks ok: max|err| "
+        f"{err:.3e}, {ms:.4f} ms (plain {row['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}); "
+        f"{row['shape']} [{card}]")
+    return row
+
+
+def tp_run(model, params, tenants, prompts, max_new, kw, group=None, tag="", teach=False):
     """One serving run of the [tp] phase on this process: the leader (or a
     tp = 1 engine, ``group`` None) submits the prompts, cycling over the base
-    and the tenants, and runs them; a follower follows. Captures the first
-    decode step's logits on the device (no fetch inside a step), with each
-    slot's sequence so far (host state). Returns the run's readings."""
+    and the tenants, and runs them; a follower follows. The kernels' counts
+    are set to 0 just before the run and read just after it, and no plain
+    version may have run. Captures, with no fetch inside a step, the first
+    decode step's logits with each slot's sequence so far (host state)
+    and, on an MoE model, every forward's top-k expert choices up to that
+    step, layer by layer; with tenants on an MoE model, the largest
+    combined tenant id the bypass apply was handed beside the rows of the
+    stacks it indexed. With ``teach`` on a rank, the first mixed step and
+    the first decode step are also taught to tp 1 arithmetic
+    (:func:`tp_teacher_step`): the ranks gather their caches just after
+    that step, and after the run, once the counts are read, the leader runs
+    the step unsharded on that state. Returns the run's readings."""
+    from repro_torch.distributed.collectives import tp_all_gather
+
     store = AdapterStore()
     for i, (idx, val) in enumerate(tenants):
         store.register(idx, val, name=f"tenant{i + 1}")
     eng = ServeEngine(model, params, adapter_store=store, device="cuda", tp_group=group, **kw)
-    first = {}
-    real = model.decode_step
+    first, forwards, states = {}, [], {}
+    ids = {"max": None, "stacks": set()}
+    real_chunk, real_decode = model.prefill_chunk, model.decode_step
+    real_top_k, real_ids = moe_mod.top_k, moe_mod._dispatch_adapter_ids
 
-    def decode_step(params_, adapters, cache, batch):
-        logits = real(params_, adapters, cache, batch)
-        if not first and params_ is eng.params:
-            first.update(logits=logits.detach().clone(), history=[
-                None if r is None else r.prompt + r.out for r in eng.scheduler.active])
-        return logits
+    def hooked(fn, kind):
+        """``fn`` with its MoE layers' choices recorded up to and including
+        the first decode step, and the state after the first step of each
+        kind kept for the teacher."""
+        def call(params_, adapters, cache, batch):
+            if first or params_ is not eng.params:
+                return fn(params_, adapters, cache, batch)
+            rec = {"q_len": None if kind == "decode" else batch["q_len"].clone(), "topk": [],
+                   "open": True}
+            forwards.append(rec)
+            out = fn(params_, adapters, cache, batch)
+            rec["open"] = False
+            if teach and group is not None and kind not in states:
+                # both ranks meet at the gather; the leader keeps the state
+                full = {k: tp_all_gather(v, group, dim=v.ndim - (1 if k.endswith("_scale") else 2))
+                        for k, v in cache.items()}
+                states[kind] = None
+                if group.leader:
+                    aid = None if adapters is None else next(
+                        iter(adapters["blocks"].values())).aid.clone()
+                    states[kind] = dict(fn=fn, cache=full, aid=aid, chosen=rec["topk"],
+                                        batch={k: v.clone() for k, v in batch.items()},
+                                        logits=out.detach().float().clone())
+            if kind == "decode":
+                first.update(logits=out.detach().clone(), history=[
+                    None if r is None else r.prompt + r.out for r in eng.scheduler.active])
+            return out
+        return call
 
-    model.decode_step = decode_step
+    def top_k(probs, k):
+        vals, idx = real_top_k(probs, k)
+        if forwards and forwards[-1]["open"]:
+            forwards[-1]["topk"].append(idx)
+        return vals, idx
+
+    def dispatch_ids(a, route, b, s, e):
+        out = real_ids(a, route, b, s, e)
+        if out is not None:
+            d = next(x for x in (adapter_leaf(a, n) for n in moe_mod.EXPERT_LINEARS)
+                     if isinstance(x, BatchedDelta))
+            ids["stacks"].add(d.idx.shape[0] * d.idx.shape[1])
+            top = out.max()
+            ids["max"] = top if ids["max"] is None else torch.maximum(ids["max"], top)
+        return out
+
+    model.prefill_chunk = hooked(real_chunk, "mixed")
+    model.decode_step = hooked(real_decode, "decode")
+    moe_mod.top_k, moe_mod._dispatch_adapter_ids = top_k, dispatch_ids
     torch.cuda.synchronize()
+    reset_counters()
     t0 = time.perf_counter()
     try:
         if group is None or group.leader:
@@ -6531,13 +6707,25 @@ def tp_run(model, params, tenants, prompts, max_new, kw, group=None, tag=""):
             eng.follow()
         torch.cuda.synchronize()
     finally:
-        del model.decode_step
+        del model.decode_step, model.prefill_chunk
+        moe_mod.top_k, moe_mod._dispatch_adapter_ids = real_top_k, real_ids
     wall = time.perf_counter() - t0
+    launches = {c.name: c.kernel for c in COUNTERS.values() if c.kernel}
+    plain = {c.name: c.plain for c in COUNTERS.values() if c.plain}
+    assert not plain, f"{tag}: a plain version ran on the card: {plain}"
     assert eng.transfers == eng.steps, (tag, eng.transfers, eng.steps)
     assert eng.kv.drained(), f"{tag}: the pool did not drain"
+    teacher = {kind: tp_teacher_step(params, kw, store, st) for kind, st in states.items()
+               if st is not None}
     return {"tokens": None if reqs is None else [r.out for r in reqs],
             "logits": first["logits"].float().cpu() if first else None,
             "history": first.get("history"),
+            "teacher": teacher or None,
+            "routes": [dict(q_len=None if f["q_len"] is None else f["q_len"].cpu(),
+                            topk=sorted_choices(f["topk"]).to(torch.int8))
+                       for f in forwards if f["topk"]] or None,
+            "ids": (None if ids["max"] is None else [int(ids["max"]), sorted(ids["stacks"])]),
+            "launches": launches,
             "steps": eng.steps, "transfers": eng.transfers, "wall_s": wall,
             "step_ms": {k: float(np.mean(v)) * 1e3 for k, v in eng.step_times.items() if v},
             "pool_bytes": eng.kv.pool_bytes(),
@@ -6545,13 +6733,72 @@ def tp_run(model, params, tenants, prompts, max_new, kw, group=None, tag=""):
             "base_bytes": tree_bytes(eng.params), "tp": eng.tp}
 
 
-def tp_full_inputs():
-    """Full-width qwen2-1.5b (bf16, seed 0), its 2 tenants (seed 7) and the
-    first TP_REQUESTS gate prompts: the same on every process."""
-    cfg = get_config("qwen2-1.5b")
+def sorted_choices(choices: list) -> torch.Tensor:
+    """A forward's top-k choices, one (..., K) tensor a layer, as one
+    (layers, tokens, K) tensor on the host, each token's set sorted."""
+    return torch.stack([c.reshape(-1, c.shape[-1]).sort(dim=-1).values for c in choices]).cpu()
+
+
+def tp_teacher_step(params, kw, store, state) -> dict:
+    """One step of a tp 2 run taught to tp 1 arithmetic on the very same
+    state, after the run, with no serving group live: the step's forward
+    (``state``: the step's function, its batch, the ranks' caches as
+    gathered just after it, the tenant ids) on the unsharded base (packed
+    as the engine packs it) and the whole tenant stacks. Each layer writes
+    the step's k/v over what the tp 2 step wrote before it reads them, so
+    the gathered cache is the state tp 1 would have started from. On an
+    MoE model each layer's top-k is forced to the tp 2 step's choice:
+    routing, capacity drops included, is then the same, and what is left
+    between the two steps' logits is the arithmetic the ranks split and
+    all-reduce. Returns both logits and, on an MoE model, the experts tp 1
+    would have chosen itself beside the forced ones."""
+    from repro_torch.distributed import context as tp_ctx
+
+    assert tp_ctx.serve_group() is None, "the teacher ran under a serving group"
+    dev = state["cache"]["k"].device
+    base = map_leaves(lambda t: None if t is None else t.to(dev), params)
+    if kw.get("base_dtype", "fp32") != "fp32":
+        base = quantize_base(base, kw["base_dtype"], block=kw["quant_block"])
+    full_ad, aid = None, state["aid"]
+    if aid is not None:
+        sidx, sval = store.stacked(dev)
+        full_ad = {"blocks": {n: BatchedDelta(leaf["w"], sval["blocks"][n]["w"], aid)
+                              for n, leaf in sidx["blocks"].items()
+                              if isinstance(leaf, dict) and leaf.get("w") is not None},
+                   "head": None}
+        head = sidx.get("head")
+        if isinstance(head, dict) and head.get("w") is not None:
+            full_ad["head"] = BatchedDelta(head["w"], sval["head"]["w"], aid)
+    forced, own, real_top_k = iter(state["chosen"]), [], moe_mod.top_k
+
+    def top_k(probs, k):
+        _, idx = real_top_k(probs, k)
+        own.append(idx)
+        want = next(forced)
+        return torch.gather(probs, -1, want), want
+
+    moe_mod.top_k = top_k
+    try:
+        logits = state["fn"](base, full_ad, state["cache"], state["batch"])
+    finally:
+        moe_mod.top_k = real_top_k
+    out = {"logits": logits.detach().float().cpu(), "tp2": state["logits"].cpu()}
+    if "q_len" in state["batch"]:
+        out["q_len"] = state["batch"]["q_len"].cpu()
+    if own:
+        out["own"], out["forced"] = sorted_choices(own), sorted_choices(state["chosen"])
+    return out
+
+
+def tp_full_inputs(arch: str):
+    """Full-width ``arch`` (bf16, seed :data:`TP_SEED`), its 2 tenants (seed
+    7 more) and the first TP_REQUESTS gate prompts: the same on every
+    process."""
+    cfg = get_config(arch)
     model = get_model(cfg)
-    params = model.init(seed=0, device="cuda")
-    tenants = random_tenants(params, TP_TENANTS, seed=7, dtype=torch.bfloat16, device="cuda")
+    params = model.init(seed=TP_SEED[arch], device="cuda")
+    tenants = random_tenants(params, TP_TENANTS, seed=7 + TP_SEED[arch], dtype=torch.bfloat16,
+                             device="cuda")
     return model, params, tenants, gate_prompts(cfg.vocab_size)[:TP_REQUESTS]
 
 
@@ -6565,26 +6812,32 @@ def tp_twin(arch: str):
 
 
 def tp_runs(group=None) -> dict:
-    """Every run of the [tp] phase's path on this process: full-width qwen2
-    on the bf16 base, then on an int8 base, then the reduced twins. On a
-    rank, with the counts of the kernels it launched (the twins' tenants
-    are selected on the CPU first, outside the count)."""
+    """Every run of the [tp] phase's path on this process: the full-width
+    runs of :data:`TP_FULL` (each model's first after a short warm-up),
+    then the reduced twins, each with the kernels it launched (counted
+    from 0 at its start; the twins' tenants are selected on the CPU first,
+    outside the count)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     twins = {name: tp_twin(arch) for name, (arch, _, _) in TP_TWINS.items()}
-    model, params, tenants, prompts = tp_full_inputs()
-    kw = gate_kw()
-    tp_run(model, params, tenants, prompts[:2], 2, kw, group, "warm-up")
-    reset_counters()
-    out = {"bf16": tp_run(model, params, tenants, prompts, TP_NEW, kw, group, "bf16"),
-           "int8": tp_run(model, params, tenants, prompts, TP_NEW,
-                          dict(kw, base_dtype="int8", quant_block=QUANT_BLOCK), group, "int8")}
+    out, arch_now = {}, None
+    for tag, arch, base in TP_FULL:
+        if arch != arch_now:
+            if arch_now is not None:
+                del params, tenants
+                torch.cuda.empty_cache()
+            model, params, tenants, prompts = tp_full_inputs(arch)
+            arch_now = arch
+            tp_run(model, params, tenants, prompts[:2], 2, gate_kw(), group, f"warm-up {arch}")
+        kw = gate_kw() if base == "bf16" else dict(gate_kw(), base_dtype=base,
+                                                   quant_block=QUANT_BLOCK)
+        out[tag] = tp_run(model, params, tenants, prompts, TP_NEW, kw, group, tag, teach=True)
     del params, tenants
+    torch.cuda.empty_cache()
     for name, (_, kw, with_tenants) in TP_TWINS.items():
         model, params, tenants = twins[name]
         out[name] = tp_run(model, params, tenants if with_tenants else [], TP_TWIN_PROMPTS, 6,
                            dict(TP_TWIN_KW, **kw), group, name)
-    out["counters"] = {c.name: (c.kernel, c.plain) for c in COUNTERS.values()}
     return out
 
 
@@ -6600,16 +6853,27 @@ def tp_rank(rank: int, tp: int, init_method: str) -> dict:
         close_tp()
 
 
-def phase_tp(card: str) -> list:
-    """Tensor-parallel serving (slice 17): the four wrappers against their
-    plain versions (:func:`tp_kernels`), then the path (:func:`tp_path`).
-    Returns the four kernel rows, with the wrappers' launches on the path."""
+def phase_tp(card: str) -> tuple[list, dict]:
+    """Tensor-parallel serving (slices 17-18): the four wrappers against
+    their plain versions at qwen2's and olmoe's per-shard shapes
+    (:func:`tp_kernels`) and the apply on one olmoe rank's expert stacks
+    (:func:`tp_expert_apply`), then the path (:func:`tp_path`). Returns the
+    four kernel rows, with the wrappers' launches on the path (olmoe's
+    shapes and launches in each row's ``olmoe`` entry, qwen2-vl's launches
+    in its ``vl`` entry), and the apply's row."""
     dev = torch.device("cuda")
-    rows = tp_kernels(torch.Generator(device=dev).manual_seed(1717), dev, card)
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    rows = tp_kernels(gen, dev, card)
+    olmoe = tp_kernels(gen, dev, card, "olmoe")
+    apply = tp_expert_apply(gen, dev, card)
     torch.cuda.empty_cache()
-    launches, runs = tp_path(card)
+    launches, by_model, runs = tp_path(card)
+    apply.update(launches=by_model["olmoe"].get("sparse_delta_batched", 0),
+                 launches_by_model={m: n.get("sparse_delta_batched", 0)
+                                    for m, n in by_model.items()})
     with open(os.path.join(OUT_DIR, "tp.json"), "w") as f:
-        json.dump({"card": card, "kernels": rows, "launches": launches, "runs": runs}, f,
+        json.dump({"card": card, "kernels": rows, "olmoe_kernels": olmoe, "expert_apply": apply,
+                   "launches": launches, "launches_by_model": by_model, "runs": runs}, f,
                   indent=1)
     sources = {"decode_attention_sharded": dd_mod, "paged_decode_attention_sharded": dec_mod,
                "paged_prefill_attention_sharded": pre_mod, "matmul_q_cols_sharded": ql_mod}
@@ -6619,18 +6883,103 @@ def phase_tp(card: str) -> list:
                  plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
                  bound_by=rows[name]["bound_by"], library_ms=rows[name]["library_ms"],
                  shape=rows[name]["shape"],
-                 **{k: rows[name][k] for k in ("int8", "nf4") if k in rows[name]})
-            for name, mod in sources.items()]
+                 **{k: rows[name][k] for k in ("int8", "nf4") if k in rows[name]},
+                 olmoe=dict(olmoe[name], launches=by_model["olmoe"].get(name, 0)),
+                 vl={"launches": by_model["vl"].get(name, 0)})
+            for name, mod in sources.items()], apply
 
 
-def tp_path(card: str) -> tuple[dict, dict]:
+def tp_route_flips(a: dict, b: dict, same: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Of the slots ``same`` (whose sequences agree at the first decode
+    step), those whose every token chose the same top-k experts at every
+    layer of every forward up to and including that step in runs ``a`` and
+    ``b`` (a slot's logits read its whole history), and the count of real
+    (token, layer) routes whose top-k sets differ, at the mixed steps and
+    at the decode step, over all slots."""
+    fa, fb = a["routes"], b["routes"]
+    assert [f["topk"].shape for f in fa] == [f["topk"].shape for f in fb], \
+        "the runs' forwards differ"
+    live = torch.tensor([h is not None for h in a["history"]])
+    agree = torch.ones(len(live), dtype=torch.bool)
+    flips = {"mixed": 0, "decode": 0, "routes": 0}
+    for x, y in zip(fa, fb):
+        n_layers, n_tok = x["topk"].shape[:2]
+        bsz = len(live)
+        differ = (x["topk"] != y["topk"]).any(dim=-1).reshape(n_layers, bsz, n_tok // bsz)
+        if x["q_len"] is None:  # the decode step: the slots that hold a request
+            real = live[:, None]
+        else:  # a mixed step: each slot's chunk columns below its q_len
+            real = torch.arange(n_tok // bsz)[None, :] < x["q_len"].long()[:, None]
+        differ &= real[None]
+        flips["mixed" if x["q_len"] is not None else "decode"] += int(differ.sum())
+        flips["routes"] += int(real.sum()) * n_layers
+        agree &= ~differ.any(dim=2).any(dim=0)
+    return same[agree[same]], flips
+
+
+def tp_taught(tag: str, cfg, b: dict, tol: float, card: str) -> None:
+    """Holds the tp 2 run ``b``'s first mixed step and first decode step to
+    the same steps taught to tp 1 arithmetic on its own state (the ranks'
+    caches gathered, the unsharded base; on an MoE model tp 2's top-k
+    choices forced) within ``tol``, over the slots the step computed for:
+    the mixed step's with a chunk (``q_len`` > 0), the decode step's that
+    hold a request. Logs each, with how many of its routes tp 1 left to
+    itself would have chosen otherwise."""
+    live_decode = torch.tensor([s for s, h in enumerate(b["history"]) if h is not None])
+    b["taught"] = {}
+    for kind in ("mixed", "decode"):
+        t = b["teacher"][kind]
+        rows = torch.nonzero(t["q_len"] > 0)[:, 0] if kind == "mixed" else live_decode
+        got, want = t["tp2"][rows], t["logits"][rows]
+        rel = float((got - want).norm() / want.norm())
+        err = float((got - want).abs().max())
+        assert rel <= tol, (tag, kind, "taught", rel, tol)
+        taught = {"rel": rel, "max_abs_err": err, "slots": len(rows)}
+        forced = ""
+        if "own" in t:
+            n_layers = t["own"].shape[0]
+            own = t["own"].reshape(n_layers, len(t["tp2"]), -1, t["own"].shape[-1])
+            want_k = t["forced"].reshape(own.shape)
+            if kind == "mixed":
+                real = torch.arange(own.shape[2])[None, :] < t["q_len"].long()[:, None]
+            else:
+                real = torch.zeros(own.shape[1:3], dtype=torch.bool)
+                real[live_decode] = True
+            taught["flips"] = int(((own != want_k).any(dim=-1) & real[None]).sum())
+            taught["routes"] = int(real.sum()) * n_layers
+            forced = (f" with tp 2's top-{cfg.experts_per_token} choices forced (tp 1 would have "
+                      f"chosen other experts at {taught['flips']} of {taught['routes']} (token, "
+                      f"layer) routes)")
+        b["taught"][kind] = taught
+        log(f"[tp-{tag}] the first {kind} step taught to tp 1 arithmetic on the tp 2 run's own "
+            f"state (the ranks' caches gathered, the unsharded base){forced}: ||tp2 - tp1|| / "
+            f"||tp1|| over its {len(rows)} slots {rel:.3e} <= {tol:.3e}, max|err| {err:.3e} "
+            f"[{card}]")
+
+
+# the kernels each run of the path must launch on every rank: the full-width
+# runs the paged wrappers and the apply (tenants), olmoe's int8 run its
+# untied packed head's columns; the twins their own wrapper
+TP_MUST = {"olmoe-int8": ("matmul_q_cols_sharded",), "qwen2-dense": ("decode_attention_sharded",),
+           "qwen3-untied-int8": ("matmul_q_cols_sharded",)}
+TP_MUST_FULL = ("paged_decode_attention_sharded", "paged_prefill_attention_sharded",
+                "sparse_delta_batched")
+
+
+def tp_path(card: str) -> tuple[dict, dict, dict]:
     """The path at tp = 1 on the card (and the reduced twins on the CPU),
     then 2 spawned ranks on the card run the same path at tp = 2. Holds the
-    reduced twins' greedy tokens at tp 2 to tp 1 and the CPU's, full-width
-    qwen2's first decode logits to tp 1's within 2u sqrt(2 L), and the pool
-    bytes' arithmetic; every wrapper must have launched on the ranks, and
-    no plain version run. Returns (each wrapper's launches over both ranks,
-    the leader's readings of each run)."""
+    reduced twins' greedy tokens at tp 2 to tp 1 and the CPU's, each
+    full-width run's first decode logits to tp 1's within 2u sqrt(2 L) (on
+    an MoE model over the slots whose top-k choices agreed at every layer;
+    the flipped routes are counted), its first mixed and decode steps to
+    the same steps taught to tp 1 on its own state (:func:`tp_taught`), the
+    pool bytes' arithmetic and, on the MoE runs with tenants, the combined
+    ids inside the rank's stacks; each run must have launched its kernels
+    on every rank (:data:`TP_MUST`), and no plain version run. Returns (each
+    wrapper's launches over the path's runs and both ranks, every kernel's
+    launches by model over the full-width runs (qwen2 / olmoe / vl, both
+    ranks), the leader's readings of each run)."""
     from repro_torch.distributed.collectives import run_ranks
 
     one = tp_runs()
@@ -6651,36 +7000,63 @@ def tp_path(card: str) -> tuple[dict, dict]:
     log(f"[tp] 2 ranks on {card}, {ranks[0]['backend']} / {ranks[1]['backend']}: spawned, "
         f"ran and joined in {time.perf_counter() - t0:.1f} s")
     lead = ranks[0]
-    L = get_config("qwen2-1.5b").num_layers
-    tol = 2 * BF16_U * math.sqrt(2 * L)
-    for base in ("bf16", "int8"):
-        a, b = one[base], lead[base]
+    for tag, arch, base in TP_FULL:
+        cfg = get_config(arch)
+        a, b = one[tag], lead[tag]
+        tol = 2 * BF16_U * math.sqrt(2 * cfg.num_layers)
         # the slots whose sequences so far are the same in both runs
         same = torch.tensor([s for s, (x, y) in enumerate(zip(a["history"], b["history"]))
                              if x is not None and x == y], dtype=torch.long)
-        rel = float((b["logits"][same] - a["logits"][same]).norm()
-                    / a["logits"][same].norm())
-        err = float((b["logits"][same] - a["logits"][same]).abs().max())
-        assert len(same) > 0 and rel <= tol, (base, rel, tol, len(same))
+        flips, what = None, "slots whose sequences agree"
+        if cfg.num_experts:
+            assert all(torch.equal(x["topk"], y["topk"]) for x, y in
+                       zip(ranks[1][tag]["routes"], b["routes"])), f"{tag}: the ranks routed apart"
+            n_same = len(same)
+            same, flips = tp_route_flips(a, b, same)
+            what = (f"of the {n_same} slots whose sequences agree, whose every token chose the "
+                    f"same experts at all {cfg.num_layers} layers of every forward so far; "
+                    f"(token, layer) routes flipped: {flips['mixed']} at the mixed steps and "
+                    f"{flips['decode']} at the decode step, of {flips['routes']}")
+        if len(same):
+            rel = float((b["logits"][same] - a["logits"][same]).norm()
+                        / a["logits"][same].norm())
+            err = float((b["logits"][same] - a["logits"][same]).abs().max())
+            assert rel <= tol, (tag, rel, tol, len(same), flips)
+            held = (f"||tp2 - tp1|| / ||tp1|| {rel:.3e} <= 2u sqrt(2L) = {tol:.3e}, max|err| "
+                    f"{err:.3e}")
+        else:  # every slot's routes flipped somewhere: the taught steps below hold it
+            assert cfg.num_experts, (tag, "no slot's sequence agrees")
+            rel = err = None
+            held = f"no slot to hold to 2u sqrt(2L) = {tol:.3e}"
         agree = [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y), len(p))
                  for p, q in zip(a["tokens"], b["tokens"])]
         n_tok = sum(len(p) for p in a["tokens"])
-        log(f"[tp-{base}] qwen2-1.5b full width, tp 2 on one card: first decode logits "
-            f"against tp 1 on the card over the {len(same)} slots whose sequences agree: "
-            f"||tp2 - tp1|| / ||tp1|| {rel:.3e} <= 2u sqrt(2L) = {tol:.3e}, max|err| {err:.3e}; "
-            f"greedy tokens agree on {sum(agree)} of {n_tok} before a request's first "
-            f"parting ({agree} of {[len(p) for p in a['tokens']]}) [{card}]")
+        log(f"[tp-{tag}] {arch} full width, {base} base, tp 2 on one card: first decode logits "
+            f"against tp 1 on the card over the {len(same)} {what}: {held}; greedy tokens agree "
+            f"on {sum(agree)} of {n_tok} before a request's first parting ({agree} of "
+            f"{[len(p) for p in a['tokens']]}) [{card}]")
+        b["route_flips"], b["logits_rel"], b["compared_slots"] = flips, rel, len(same)
+        tp_taught(tag, cfg, b, tol, card)
         for r, res in enumerate(ranks):
-            x = res[base]
+            x = res[tag]
             assert x["pool_bytes"] == a["pool_bytes"] == TP * x["pool_bytes_per_shard"], \
-                (base, r, x["pool_bytes"], a["pool_bytes"], x["pool_bytes_per_shard"])
-            assert x["steps"] == b["steps"] and x["transfers"] == x["steps"], (base, r)
-        log(f"[tp-{base}] pool bytes: {a['pool_bytes']:,} at tp 1 and in total at tp 2, "
+                (tag, r, x["pool_bytes"], a["pool_bytes"], x["pool_bytes_per_shard"])
+            assert x["steps"] == b["steps"] and x["transfers"] == x["steps"], (tag, r)
+            if x["ids"] is not None:  # the combined ids stay inside the rank's stacks
+                top, stacks = x["ids"]
+                assert len(stacks) == 1 and top < stacks[0], (tag, r, top, stacks)
+        ids = ""
+        if b["ids"] is not None:
+            ids = (f"; the apply's combined ids at most {b['ids'][0]} < {b['ids'][1][0]} "
+                   f"stack rows a rank ((tenants + 1) x {cfg.num_experts // TP} local experts)")
+        experts = (f"; {cfg.num_experts // TP} of {cfg.num_experts} experts a rank"
+                   if cfg.num_experts else "")
+        log(f"[tp-{tag}] pool bytes: {a['pool_bytes']:,} at tp 1 and in total at tp 2, "
             f"{b['pool_bytes_per_shard']:,} a rank (= total / 2); base bytes a rank "
-            f"{[res[base]['base_bytes'] for res in ranks]} against {a['base_bytes']:,} at tp 1 "
-            f"(the embedding stays whole on each rank); steps {b['steps']}, one fetch a step "
-            f"on each rank [{card}]")
-        log(f"[tp-{base}] step wall of two ranks sharing one card (not a TP speed): mean "
+            f"{[res[tag]['base_bytes'] for res in ranks]} against {a['base_bytes']:,} at tp 1 "
+            f"(the embedding stays whole on each rank{experts}); steps {b['steps']}, one fetch "
+            f"a step on each rank{ids} [{card}]")
+        log(f"[tp-{tag}] step wall of two ranks sharing one card (not a TP speed): mean "
             f"{json.dumps({k: round(v, 3) for k, v in b['step_ms'].items()})} ms against tp 1's "
             f"{json.dumps({k: round(v, 3) for k, v in a['step_ms'].items()})} ms; the run "
             f"{b['wall_s']:.3f} s against {a['wall_s']:.3f} s [{card}]")
@@ -6689,15 +7065,29 @@ def tp_path(card: str) -> tuple[dict, dict]:
         assert got == card1 == cpu[name], (name, got, card1, cpu[name])
         log(f"[tp-reduced] {name}: greedy tokens at tp 2 on the card identical to tp 1 on the "
             f"card and on the CPU ({sum(len(t) for t in got)} tokens) [{card}]")
+    runs = [tag for tag, _, _ in TP_FULL] + list(TP_TWINS)
     for r, res in enumerate(ranks):
-        for name, (kernel, plain) in res["counters"].items():
-            assert plain == 0, f"rank {r} called the plain version of {name} {plain} times"
-    launches = {name: sum(res["counters"][name][0] for res in ranks) for name in TENSOR_PARALLEL}
+        for tag in runs:
+            must = TP_MUST.get(tag, ()) + (() if tag in TP_TWINS else TP_MUST_FULL)
+            for name in must:
+                assert res[tag]["launches"].get(name, 0) > 0, \
+                    f"rank {r}'s {tag} run at tp 2 never launched {name}"
+    by_model = {}
+    for tag, arch, _ in TP_FULL:
+        m = {"qwen2-1.5b": "qwen2", "olmoe-1b-7b": "olmoe", "qwen2-vl-2b": "vl"}[arch]
+        for res in ranks:
+            for name, n in res[tag]["launches"].items():
+                by_model.setdefault(m, {})[name] = by_model.get(m, {}).get(name, 0) + n
+    launches = {name: sum(res[tag]["launches"].get(name, 0) for res in ranks for tag in runs)
+                for name in TENSOR_PARALLEL}
     for name, n in launches.items():
         assert n > 0, f"the tensor-parallel path never launched {name}"
-    log(f"[tp] wrapper launches on the tp = 2 path, both ranks: {json.dumps(launches)} [{card}]")
-    return launches, {k: {kk: vv for kk, vv in v.items() if kk not in ("logits", "history")}
-                      for k, v in lead.items() if isinstance(v, dict) and k != "counters"}
+    log(f"[tp] wrapper launches on the tp = 2 path's runs, both ranks (each run counted from 0 "
+        f"at its start, warm-ups not counted): {json.dumps(launches)}; the full-width runs' "
+        f"launches by model: {json.dumps(by_model)} [{card}]")
+    keep = ("logits", "history", "routes", "teacher")
+    return launches, by_model, {k: {kk: vv for kk, vv in v.items() if kk not in keep}
+                                for k, v in lead.items() if isinstance(v, dict)}
 
 
 def main() -> int:
@@ -6789,12 +7179,14 @@ def main() -> int:
         secs, build_log = build.timed_build()
         log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
         t0 = time.perf_counter()
-        rows = phase_tp(card)
+        rows, apply = phase_tp(card)
         log(f"[timing] seconds by phase: build {secs:.1f}, tensor-parallel "
             f"{time.perf_counter() - t0:.1f}")
         log(f"[card] {card}")
         with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
             f.write("\n".join(LOG) + "\n")
+        rows.append(dict(apply, name="sparse_delta_batched", route="cuda", source=sd_mod.SOURCE,
+                         replaces=sd_mod.REPLACES, kernel_ms=apply["ms"]))
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6866,7 +7258,7 @@ def main() -> int:
     stamp("family kernels")
     fams = families(card, summary, stamp)
     torch.cuda.empty_cache()
-    tp_rows = phase_tp(card)
+    tp_rows, tp_apply = phase_tp(card)
     stamp("tensor-parallel")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
@@ -6932,6 +7324,9 @@ def main() -> int:
             # slots), tiles at the mixed steps, both with the serving epilogue
             row.update({key: s[key] for key in ("fused", "decode", "decode_fused")},
                        launches_by_route=launches["apply_by_route"])
+            # slice 18: one olmoe rank's local expert stacks at tp 2, and the
+            # launches on the tensor-parallel path by model (both ranks)
+            row["tp"] = tp_apply
         if name == "sparse_delta_dval":
             row.update(m4096=s["m4096"], launch_route=sd_mod.DVAL_ROUTE)
         if name == "topk_select":

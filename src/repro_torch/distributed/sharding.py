@@ -15,6 +15,13 @@ dimension that does not divide by ``tp`` stays replicated (the reference's
 ``_put``). A NeuroAda delta inherits its host matrix's ``d_out`` split
 (:func:`delta_split_dim`).
 
+Expert parallelism in serving: the MoE family's expert stacks ``wgate``,
+``wup`` ``(L, E, D, F)`` and ``wdown`` ``(L, E, F, D)`` and their tenant
+stacks ``(L, N, E, k, F)`` split the expert axis, so a rank holds the
+``E / tp`` experts ``[lo, hi)`` of :func:`local_experts`; the router stays
+replicated. Where ``E`` does not divide by ``tp`` every rank holds every
+expert (:func:`local_experts` is None) and the MoE layer is replicated.
+
 Deliberate differences from the reference, for SPMD serving:
 
 * the embedding *lookup* stays replicated: :func:`shard_params` keeps the
@@ -115,6 +122,15 @@ def local_range(size: int, rank: int, tp: int) -> tuple[int, int]:
     """[lo, hi) of ``rank``'s slice of a dimension of ``size``."""
     n = size // tp
     return rank * n, rank * n + n
+
+
+def local_experts(num_experts: int, rank: int, tp: int) -> tuple[int, int] | None:
+    """[lo, hi) of the experts ``rank`` holds when ``tp`` ranks split the
+    expert axis, or None where ``num_experts`` does not divide by ``tp``:
+    the experts are then replicated (:func:`split_dim`'s ``fit``)."""
+    if num_experts % tp:
+        return None
+    return local_range(num_experts, rank, tp)
 
 
 def _slice(t: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:

@@ -207,8 +207,12 @@ def dval_plan(b: int, m: int, d_in: int, d_out: int, es: int, sms: int, *,
 
 def sparse_delta_batched_plain(x, idx, val, aid, rows_per_id: int = 1, y=None, bias=None):
     """Plain PyTorch version: gather each row's adapter, float32 sums; with
-    ``y``, ``y += delta`` then ``y += bias.to(y.dtype)`` in place."""
+    ``y``, ``y += delta`` then ``y += bias.to(y.dtype)`` in place. An id
+    outside the stacks raises here; the kernel would read past them."""
     counter.plain += 1
+    if aid.numel() and not bool(((aid >= 0) & (aid < idx.shape[0])).all()):
+        raise IndexError(f"adapter ids {int(aid.min())}..{int(aid.max())} outside the "
+                         f"{idx.shape[0]} stacks")
     if rows_per_id != 1:
         aid = aid.repeat_interleave(rows_per_id)
     delta = ref.sparse_delta_batched_ref(x, idx, val, aid)

@@ -46,7 +46,9 @@ slices (:mod:`repro_torch.distributed.sharding`); the leader's engine
 drives the followers' steps (:class:`~repro_torch.serve.ServeEngine`),
 prints the tokens and ends the followers when it is done (under
 ``--serve``, after ``POST /admin/shutdown`` drained it). Greedy tokens
-equal ``--tp 1``'s.
+equal ``--tp 1``'s. Every family the engine serves runs under ``--tp``:
+an MoE model splits its experts over the shards where N divides their
+count (a line says how many each holds) and replicates them otherwise.
 
 ``--serve [--port P]`` runs the SSE front end instead of a batch
 (:class:`~repro_torch.serve.ServeFrontend`: ``POST /v1/generate``,
@@ -71,6 +73,7 @@ from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import ARCH_IDS, PAPER_ARCH_IDS, get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.distributed.collectives import close_tp, device_backend, init_tp
+from repro_torch.distributed.sharding import local_experts
 from repro_torch.models import get_model
 from repro_torch.obs import Tracer
 from repro_torch.peft import BASE_DTYPES, load_adapter, quantize_base
@@ -292,6 +295,15 @@ def _validate_tp(args, cfg, device) -> None:
                              f"--arch {args.arch}")
 
 
+def _experts_line(cfg, tp: int) -> str:
+    """How the MoE layer's experts lie over ``tp`` shards."""
+    e = cfg.num_experts
+    if local_experts(e, 0, tp) is None:
+        return (f"experts replicated: tp={tp} does not divide num_experts={e}, each shard "
+                f"holds all {e}")
+    return f"expert parallel: {e // tp} of {e} experts a shard"
+
+
 def _rank_device(device, rank: int):
     return device if device.type == "cpu" else torch.device("cuda", rank)
 
@@ -357,10 +369,13 @@ def main(argv=None):
         _lead(args, device)
         return
     cfg = get_config(args.arch)
-    _validate_tp(args, reduced(cfg) if args.reduced else cfg, device)
+    cfg = reduced(cfg) if args.reduced else cfg
+    _validate_tp(args, cfg, device)
     device = _rank_device(device, 0)
     print(f"serving tensor-parallel over {args.tp} shards "
           f"({device_backend(device, args.tp)} collectives, rank 0 on {device})", flush=True)
+    if cfg.num_experts:
+        print(_experts_line(cfg, args.tp), flush=True)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init_method = "file://" + os.path.join(tmp, "rendezvous")

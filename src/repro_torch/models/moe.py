@@ -29,6 +29,22 @@ that fills it, and each (token, choice) gathers its expert's output back
 and the K choices are summed per token — no atomics in the forward, so
 repeated runs give the same bits. In float32 and for K = 2 the sum is the
 reference's bit for bit; for larger K it agrees within rounding.
+
+Expert parallelism (tensor-parallel serving). Under a live serving group
+of tp > 1 whose size divides ``E`` (:func:`repro_torch.distributed.
+sharding.local_experts`), a rank holds the experts ``[lo, hi)`` and their
+tenant stacks. It routes every token over all ``E`` experts with the
+replicated router, exactly as above (the same top-K, stable argsort and
+capacity of the whole group, so capacity drops are the reference's), then
+keeps the buffer rows of its own experts, runs only those, and combines
+only the choices whose expert is local: each rank's output is a partial
+sum, and one all-reduce (the caller's ``reduce``) adds them up. No
+all-to-all is needed: the reference's dispatch all-to-all arises where
+routing groups are sharded over a data axis, but in SPMD serving every
+rank holds every token after the attention's all-reduce, so the MoE layer
+costs the same one all-reduce as the dense MLP's row-parallel ``wdown``.
+Replicated experts, and any call outside a serving group (training, a
+tp = 1 engine), take the path above unchanged.
 """
 
 from __future__ import annotations
@@ -39,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.delta import BatchedDelta, Delta
+from repro_torch.distributed import context as tp_ctx
+from repro_torch.distributed.sharding import local_experts
 from repro_torch.kernels import ops
 from repro_torch.models.layers import adapter_leaf
 
@@ -111,6 +129,26 @@ def _route_group(cfg, probs: torch.Tensor, c: int) -> tuple[Route, torch.Tensor]
     return route, exp_idx[..., 0]
 
 
+def expert_span(cfg) -> tuple[int, int] | None:
+    """[lo, hi) of the experts this rank holds under a live serving group of
+    tp > 1 that splits them, else None (every expert here)."""
+    tp = tp_ctx.serve_tp()
+    return None if tp <= 1 else local_experts(cfg.num_experts, tp_ctx.serve_rank(), tp)
+
+
+def local_route(route: Route, span: tuple[int, int]) -> Route:
+    """The part of a global :class:`Route` that the experts ``[lo, hi)``
+    serve: their buffer rows ``(hi - lo, G·C)``, and only the choices whose
+    expert is local kept, with ``dest`` shifted to the local rows."""
+    lo, hi = span
+    gc = route.src.shape[1]
+    expert = route.dest // gc  # dest indexes the (E·G·C) expert-major output
+    mine = (expert >= lo) & (expert < hi)
+    dest = torch.clamp(route.dest - lo * gc, 0, (hi - lo) * gc - 1)
+    return Route(src=route.src[lo:hi], filled=route.filled[lo:hi], dest=dest,
+                 keep=route.keep & mine, gate=route.gate)
+
+
 def _dispatch(xt: torch.Tensor, route: Route) -> torch.Tensor:
     """Expert buffers (E, G·C, D) from the flat tokens xt (T, D)."""
     return torch.where(route.filled[..., None], xt[route.src], 0.0)
@@ -129,7 +167,10 @@ def _dispatch_adapter_ids(a, route: Route, b: int, s: int, e: int):
     int32 combined ids ``tenant · E + e`` into the ``(N·E, k, F)`` stacks,
     or None without tenant stacks. An empty buffer row keeps tenant 0 (its
     activations are zero, so its delta adds zero); the router stays the
-    base model's (DESIGN §7)."""
+    base model's (DESIGN §7). Under expert parallelism ``route`` is the
+    local one and ``e`` the local count ``E / tp``: the id is then
+    ``tenant · (E / tp) + (e − lo)`` into the rank's ``(N·E / tp, k, F)``
+    stack (an id built with the global ``E`` would read past it)."""
     d0 = next((d for d in (adapter_leaf(a, n) for n in EXPERT_LINEARS)
                if isinstance(d, BatchedDelta)), None)
     if d0 is None:
@@ -161,12 +202,18 @@ def _expert_linear_g(p: dict, a, name: str, eh: torch.Tensor, aid_buf=None) -> t
     return y
 
 
-def moe_ffn(cfg, p: dict, a, x: torch.Tensor, *, groups: int = 32, with_aux: bool = True):
+def moe_ffn(cfg, p: dict, a, x: torch.Tensor, *, groups: int = 32, with_aux: bool = True,
+            reduce=None):
     """x (B, S, D) -> (out (B, S, D), aux loss scalar float32, or None
     when ``with_aux`` is False: serving drops the loss and skips its
     launches). Nothing here waits for the device: the top-1 counts are a
     scatter-add, not ``bincount``, which reads its input's range back to
-    the host on the card."""
+    the host on the card. Under expert parallelism (:func:`expert_span`)
+    ``p`` and ``a`` hold this rank's experts and ``out`` is the rank's
+    partial sum, which ``reduce`` (the serving group's all-reduce, when
+    given) sums over the ranks once, after the combine. Where the experts
+    are not split ``reduce`` is not called: every rank computed the whole
+    sum."""
     b, s, dm = x.shape
     e = cfg.num_experts
     t = b * s
@@ -177,12 +224,17 @@ def moe_ffn(cfg, p: dict, a, x: torch.Tensor, *, groups: int = 32, with_aux: boo
     logits = (xt.reshape(g, tg, dm) @ p["router"]["w"]).float()
     probs = torch.softmax(logits, dim=-1)
     route, top1 = _route_group(cfg, probs, c)
+    span = expert_span(cfg)
+    if span is not None:
+        route = local_route(route, span)
     eh = _dispatch(xt, route)
-    aid_buf = _dispatch_adapter_ids(a, route, b, s, e)
+    aid_buf = _dispatch_adapter_ids(a, route, b, s, route.src.shape[0])
     h = F.silu(_expert_linear_g(p, a, "wgate", eh, aid_buf)) * _expert_linear_g(
         p, a, "wup", eh, aid_buf)
     out_e = _expert_linear_g(p, a, "wdown", h, aid_buf)
     yt = _combine_group(out_e, route, x.dtype).reshape(b, s, dm)
+    if span is not None and reduce is not None:
+        yt = reduce(yt)
     if not with_aux:
         return yt, None
     top1 = top1.reshape(-1)

@@ -54,6 +54,14 @@ reads its rows of the whole embedding) followed by one all-gather of the
 logits. The embedding lookup stays replicated. An MLP whose ``d_ff`` or a
 head whose vocabulary does not divide by tp is replicated, as the
 reference's layout leaves it (:mod:`repro_torch.distributed.sharding`).
+The MoE family keeps the attention's layout (``qk_norm`` is per head,
+``(L, hd)``, so it stays rank-local) and splits its experts instead of
+``d_ff``: each rank routes every token with the replicated router, runs
+its ``E / tp`` experts and their tenant stacks, and one all-reduce a layer
+adds the ranks' partial sums (:func:`repro_torch.models.moe.moe_ffn`; no
+all-to-all). Experts whose count does not divide by tp are replicated and
+need no collective. The VLM serves text prompts with plain RoPE, so at tp
+> 1 it is the dense path on its own shapes.
 """
 
 from __future__ import annotations
@@ -250,21 +258,25 @@ def _mlp(cfg, p, a, x, with_aux: bool = False, reduce=None):
     """The layer's MLP: (y, aux) — the MoE FFN and, for training
     (``with_aux``), its load-balancing loss; None for the SwiGLU MLP and for
     serving (no loss, and no launch to make one). ``reduce`` sums a
-    row-parallel ``wdown`` over the ranks (:func:`_reducers`)."""
+    row-parallel ``wdown``, or the MoE layer's expert-parallel partial
+    sums, over the ranks (:func:`_reducers`)."""
     if cfg.num_experts:
-        return moe_lib.moe_ffn(cfg, p, a, x, with_aux=with_aux)
+        return moe_lib.moe_ffn(cfg, p, a, x, with_aux=with_aux, reduce=reduce)
     return silu_mlp(p, a, x, reduce), None
 
 
 def _reducers(cfg):
-    """(wo's, wdown's) all-reduce of one rank's partial sums under a live
-    serving group of tp > 1, else (None, None). ``wdown`` is row-parallel
-    only where ``d_ff`` divides by tp (else the MLP is replicated)."""
+    """(wo's, the MLP's) all-reduce of one rank's partial sums under a live
+    serving group of tp > 1, else (None, None). The dense ``wdown`` is
+    row-parallel only where ``d_ff`` divides by tp (else the MLP is
+    replicated: None); the MoE layer always gets the all-reduce and calls
+    it only where it split its experts (:func:`repro_torch.models.moe.
+    expert_span`)."""
     group = tp_ctx.serve_group()
     if group is None or group.tp <= 1:
         return None, None
     reduce = functools.partial(tp_all_reduce, group=group)
-    return reduce, (reduce if cfg.d_ff % group.tp == 0 else None)
+    return reduce, (reduce if cfg.num_experts or cfg.d_ff % group.tp == 0 else None)
 
 
 def _head_logits(cfg, params, adapters, h):

@@ -87,7 +87,10 @@ until :meth:`close` sends the shutdown record. The logits are all-gathered
 before the sampler, so they are identical on every rank, and every rank's
 generator has the same seed: all ranks sample the same tokens and their
 schedules cannot part. Every rank makes one device-to-host fetch a step.
-Only the dense family is served tensor-parallel.
+Every family the engine serves is served tensor-parallel, as the
+reference's: the dense family and the VLM on the Megatron layout, the MoE
+family with its experts split over the ranks (expert parallelism, one
+all-reduce a MoE layer; replicated where tp does not divide the experts).
 """
 
 from __future__ import annotations
@@ -209,9 +212,6 @@ class ServeEngine:
                     "pool partitions along the kv-head axis, so heads must split evenly")
             if cfg.num_heads % self.tp:
                 raise ValueError(f"tp={self.tp} does not divide num_heads={cfg.num_heads}")
-            if cfg.family != "dense":
-                raise ValueError(f"tensor-parallel serving covers the dense family, got "
-                                 f"{cfg.family!r} (tp={self.tp})")
             if device is None:
                 device = self.tp_group.device
         self.device = resolve_device(device)

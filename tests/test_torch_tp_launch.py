@@ -7,8 +7,10 @@ local GPUs (the port's launcher on a stand-in one-GPU machine against the
 reference's on its one CPU device, both ``SystemExit``); heads that do not
 divide (the reference's launcher reaching its check through a stand-in
 mesh); and, in the engines, ``num_kv_heads`` that does not divide (a
-stand-in group against the reference's stand-in mesh). Families other than
-the dense one are refused at tp > 1. ``--device cpu --tp 2 --reduced``
+stand-in group against the reference's stand-in mesh). An MoE engine is
+built at tp 2 with its experts split, and the SSM and encoder-decoder
+families are refused at tp > 1 in the reference engine's words. ``--device
+cpu --tp 2 --reduced``
 answers its prompts with ``--tp 1``'s tokens, and ``--serve --tp 2``
 answers a request, drains on ``/admin/shutdown`` and ends with every
 process (the followers report to the leader, which exits 0).
@@ -90,10 +92,19 @@ def test_engine_refuses_heads_and_families_before_placement():
     got = refusal(ServeEngine, tm, None, device="cpu", tp_group=StandInGroup(3),
                   exc=ValueError)  # no params: the check comes before any placement
     assert got == want and "num_kv_heads=2" in got
-    moe = get_model(t_reduced(t_get_config("olmoe-1b-7b")))
-    got = refusal(ServeEngine, moe, None, device="cpu", tp_group=StandInGroup(2),
-                  exc=ValueError)
-    assert "covers the dense family" in got and "'moe'" in got
+    # every family the reference's engine serves is served at tp > 1: an MoE
+    # engine is built at tp 2, with its experts split (2 of 4 on rank 0)
+    moe = get_model(t_reduced(t_get_config("olmoe-1b-7b")).replace(dtype="float32"))
+    eng = ServeEngine(moe, moe.init(seed=0, device="cpu"), device="cpu",
+                      tp_group=StandInGroup(2))
+    assert eng.tp == 2 and eng.params["blocks"]["wgate"]["w"].shape[1] == 2
+    # the families it does not serve are refused in its words, before placement
+    for arch in ("falcon-mamba-7b", "seamless-m4t-large-v2"):
+        jm = j_get_model(reduced(get_config(arch)))
+        want = refusal(JEngine, jm, None, mesh=StandInMesh(2), exc=ValueError)
+        got = refusal(ServeEngine, get_model(t_reduced(t_get_config(arch))), None,
+                      device="cpu", tp_group=StandInGroup(2), exc=ValueError)
+        assert got == want and "ServeEngine supports KV LMs" in got, (arch, got, want)
 
 
 def token_lines(text: str) -> list[str]:

@@ -20,10 +20,13 @@ tp = 1 engine is the oracle.
 The ranks are spawned processes on the CPU (gloo, a ``file://``
 rendezvous), every case of one file and one tp in one spawn; the leader
 returns the tokens, every rank its transfers and steps (equal, one fetch a
-step) and whether its pool drained. This file holds the plain, tenant and
+step), whether its pool drained and its pool bytes (the reference's tp = 1
+pool bytes / tp). This file holds the plain, tenant and
 int8 cases; ``test_torch_tp_serve_more.py`` the drafters, the dense int8
 base with tenants and the untied head, with these helpers.
 """
+
+import functools
 
 import jax
 import numpy as np
@@ -63,6 +66,7 @@ def np_tree(tree):
     return jax.tree.map(lambda x: None if x is None else np.asarray(x), tree, is_leaf=NONE)
 
 
+@functools.lru_cache(maxsize=None)
 def j_world(arch: str):
     """(cfg, model, params, tenants) of the reference: the prelude's reduced
     config, params from PRNGKey(0), two tenants of magnitude indices and
@@ -92,8 +96,9 @@ def submit_all(eng, n_tenants: int) -> None:
         eng.submit(p, max_new=6, adapter_id=1 + i % n_tenants if n_tenants else 0)
 
 
-def reference_tokens(name: str) -> list:
-    arch, with_store, kw = engine_kw(CASES[name])
+def reference_tokens(case: dict) -> tuple[list, int]:
+    """The reference's tp = 1 tokens of a case, and its pool bytes."""
+    arch, with_store, kw = engine_kw(case)
     _, model, params, tenants = j_world(arch)
     store = None
     if with_store:
@@ -102,7 +107,8 @@ def reference_tokens(name: str) -> list:
             store.register(idx, val)
     eng = JEngine(model, params, adapter_store=store, **kw)
     submit_all(eng, len(tenants) if with_store else 0)
-    return [r.out for r in sorted(eng.run_to_completion(), key=lambda r: r.rid)]
+    return ([r.out for r in sorted(eng.run_to_completion(), key=lambda r: r.rid)],
+            eng.kv.pool_bytes())
 
 
 def port_engine(arch, with_store, kw, group, world=None):
@@ -122,7 +128,7 @@ def port_engine(arch, with_store, kw, group, world=None):
 
 def serve_case(eng, n_tenants: int):
     """Leader: submit, run, close; follower: follow. Returns (tokens or
-    None, transfers, steps, drained)."""
+    None, transfers, steps, drained, pool bytes of this rank)."""
     outs = None
     if eng.tp_group is None or eng.tp_group.leader:
         submit_all(eng, n_tenants)
@@ -131,19 +137,18 @@ def serve_case(eng, n_tenants: int):
         outs = [r.out for r in sorted(reqs, key=lambda r: r.rid)]
     else:
         eng.follow()
-    return outs, eng.transfers, eng.steps, eng.kv.drained()
+    return outs, eng.transfers, eng.steps, eng.kv.drained(), eng.kv.pool_bytes_per_shard()
 
 
-def grid_rank(rank, tp, init_method, names):
+def grid_rank(rank, tp, init_method, cases, worlds):
+    """One rank's results of every case, on the parent's worlds (numpy
+    params and tenants by arch: no rank runs the reference)."""
     torch.set_num_threads(1)
     group = init_tp(rank, tp, "cpu", init_method, timeout=120)
-    worlds = {}
     try:
         out = {}
-        for name in names:
-            arch, with_store, kw = engine_kw(CASES[name])
-            if arch not in worlds:
-                worlds[arch] = j_world(arch)
+        for name, case in cases.items():
+            arch, with_store, kw = engine_kw(case)
             eng, n = port_engine(arch, with_store, kw, group, worlds[arch])
             out[name] = serve_case(eng, n)
         return out
@@ -155,24 +160,31 @@ FILE_CASES = ("paged_plain", "dense_plain", "paged_mt", "paged_int8", "paged_int
 
 
 class Grid:
-    """The reference's tokens and the ranks' results of a file's cases,
-    computed once for the module: one spawn a tp."""
+    """The reference's tokens and the ranks' results of a file's cases
+    (names of ``cases``, this file's :data:`CASES` unless given), computed
+    once for the module: one spawn a tp. Every rank holds the reference
+    tp = 1 pool's bytes / tp."""
 
-    def __init__(self, names):
-        self.names = list(names)
-        self.want = {name: reference_tokens(name) for name in self.names}
+    def __init__(self, names, cases=None):
+        cases = CASES if cases is None else cases
+        self.cases = {name: cases[name] for name in names}
+        self.want = {name: reference_tokens(case) for name, case in self.cases.items()}
+        archs = {engine_kw(case)[0] for case in self.cases.values()}
+        self.worlds = {arch: (None, None, np_tree(j_world(arch)[2]), j_world(arch)[3])
+                       for arch in archs}
         self.ranks = {}
 
     def check(self, name: str, tp: int) -> None:
         if tp not in self.ranks:
-            self.ranks[tp] = run_ranks(grid_rank, tp, self.names, timeout=600)
+            self.ranks[tp] = run_ranks(grid_rank, tp, self.cases, self.worlds, timeout=600)
         ranks = self.ranks[tp]
-        outs, transfers, steps, drained = ranks[0][name]
-        assert outs == self.want[name], {"reference tp=1": self.want[name],
-                                         f"port tp={tp}": outs}
+        want, pool = self.want[name]
+        outs, transfers, steps, drained, _ = ranks[0][name]
+        assert outs == want, {"reference tp=1": want, f"port tp={tp}": outs}
         for r, res in enumerate(ranks):
-            _, t_r, s_r, d_r = res[name]
+            _, t_r, s_r, d_r, shard = res[name]
             assert t_r == s_r == steps and d_r, (name, r, t_r, s_r, steps, d_r)
+            assert shard * tp == pool, (name, r, shard, pool)
 
 
 @pytest.fixture(scope="module")
