@@ -13,6 +13,7 @@
     python3 chip_smoke.py --sparse-dx
     python3 chip_smoke.py --families
     python3 chip_smoke.py --tp
+    python3 chip_smoke.py --examples
 
 The second form only prints how far reduced training moves card vs CPU at
 a few batch shapes (the readings behind the reduced runs' bounds); the
@@ -30,8 +31,9 @@ Hopper at their path shapes under the plans their planners pick among
 the value gradient's rows a tile, stages, blocks an SM and column spans).
 ``--sparse-dx`` runs the training backward's sparse-dx check and two
 resumes, then times the 4 x 512 step with the ordered dx and with the
-``index_add_`` it replaced, in turn. ``--families`` runs only phase 11,
-``--tp`` only phase 12.
+``index_add_`` it replaced, in turn (and olmoe-1b-7b's resume).
+``--families`` runs only phase 11, ``--tp`` only phase 12, ``--examples``
+only phase 13.
 
 Phases, in order, with no fallback anywhere (any failure exits non-zero):
 
@@ -213,7 +215,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
    launches a step, the peak below the same call's none run); checkpoint
    and resume through ``Trainer`` and ``CheckpointManager`` (a save at step
    2 timed as host copy and file write; a fresh Trainer resumes: values and
-   moments bit-equal, its step-3 and step-4 losses bit-equal);
+   moments bit-equal, its step-3 and step-4 losses bit-equal; on qwen2-1.5b
+   and, since slice 19, on olmoe-1b-7b, through the MoE's gathers);
    ``launch/train.py --export`` of full-width qwen2 served by
    ``launch/serve.py --params`` (its ``main``, on the card) for the gate
    run against the unmerged tenant on the same base (partings only at
@@ -230,7 +233,8 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     the flash forward's mma route at hd 80); the reduced twins card vs
     CPU (three training steps; greedy tokens from prefill + decode with an
     adapter); then qwen2-vl-2b, falcon-mamba-7b and zamba2-2.7b at full
-    published width and depth in bf16: selection (k = 1), 2 + 5 NeuroAda
+    published width in bf16 (qwen2-vl at full depth; the others at a
+    quarter of it since slice 19, ``FAMILY_DEPTH``): selection (k = 1), 2 + 5 NeuroAda
     steps (FAMILY_TRAIN: the VLM's batches a quarter patches with M-RoPE
     positions; only ``fused_linear``, ``sparse_delta_dval`` and, on
     zamba2's 1 x 2048, ``flash_attention_fwd``, as many as reckoned), one
@@ -249,7 +253,7 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     packed families' new shapes; qwen2-vl's gate run on an int8 pool and
     its reduced int8 KV engines card vs CPU; then all four families on an
     int8 and an NF4 base: the reduced twins card vs CPU, and at full width
-    selection one matrix at a time, 2 + 3 steps (only ``fused_linear_q``,
+    (the same depths) selection one matrix at a time, 2 + 3 steps (only ``fused_linear_q``,
     ``sparse_delta_dval`` and the flash forward where reckoned; the packed
     bytes unchanged), 16 greedy tokens (``train_<arch>_<base>.json``);
 12. tensor-parallel serving (slices 17-18; also alone with ``--tp``): the
@@ -262,8 +266,9 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     combined ids, each against the plain version of the kernel it launches
     and timed beside its bound and a PyTorch call on the same local slice;
     then the path at tp 1 on the card and at tp 2 over 2 spawned ranks
-    sharing the card (a gloo device group): full-width qwen2-1.5b on the
-    bf16 and on an int8 base, olmoe-1b-7b (32 of its 64 experts a rank) on
+    sharing the card (a gloo device group), each model at a quarter of
+    its depth (``TP_LAYERS``; full depth until slice 19): full-width
+    qwen2-1.5b on the bf16 and on an int8 base, olmoe-1b-7b (32 of its 64 experts a rank) on
     the bf16 and on an int8 base, and qwen2-vl-2b on bf16, each on the paged
     engine with 2 tenants (4 requests x 32 new tokens: the first decode
     step's logits within 2u sqrt(2 L) of tp 1's over the slots whose
@@ -282,6 +287,19 @@ Phases, in order, with no fallback anywhere (any failure exits non-zero):
     launched its kernels on every rank (the full-width runs the paged
     wrappers and the apply), and no plain version ran
     (``chiprun_out/tp.json``).
+13. the example twins (slice 19; also alone with ``--examples``): each
+    twin in ``repro_torch.examples`` run through its ``main`` at its default
+    sizes (quickstart on the fp32, int8 and NF4 bases, peft_comparison's six
+    methods at 150 steps, serve_batched, finetune_e2e for 120 steps), each
+    run's counts set to 0 just before it and read just after: its path's
+    kernels launched and no other, no plain version, one transfer a step of
+    every engine; finetune_e2e also run as a subprocess sent SIGKILL once its
+    step-100 checkpoint is on disk and resumed with ``--resume``, its steps
+    101-120 bit-equal to the uninterrupted run's; then quickstart (20 steps)
+    and serve_batched on the float32 model card against CPU (losses within
+    1e-5, identical greedy and drafted tokens, the same spec counts;
+    ``chiprun_out/examples.json``, each twin's printout in
+    ``chiprun_out/examples_<twin>.txt``).
 
 The second-to-last line of output is the kernels JSON line, the last line
 ``{"ok": true, "device": {...}}``; the kernels line has a row for each of
@@ -294,16 +312,20 @@ of the four kernels a speculative round
 reaches carry a ``spec`` entry (its shape's times and bound, the spec gate
 runs' launches by drafter); the rows of kernels olmoe also runs carry an
 ``olmoe`` entry (ms, plain ms and bound at olmoe's shapes, launches in its training
-steps or serving gate run). Detailed per-shape kernel results go to
+steps or serving gate run); the rows of kernels an example twin launches
+carry its launches under ``launches_by_phase["examples-<twin>"]``
+(``--examples`` alone prints only those, by twin, before the last line).
+Detailed per-shape kernel results go to
 ``chiprun_out/chip_smoke_kernels.json``, the windows' runs to
 ``chiprun_out/window*.json`` (the speculative one to ``window_spec.json``),
 every line printed to
 ``chiprun_out/chip_smoke.log``. Exits non-zero without CUDA, and
 outside a checkout of the repository (the package is not importable).
 The training phases write ``train*.json`` and ``train*_profile.txt`` to
-the same directory (``train_remat.json``, ``train_resume.json`` for phase
-9, ``train_methods.json`` and ``selection_strategies.json`` for phase 10),
-the MoE serving ``full_profile_olmoe.txt`` and ``window_olmoe.json``.
+the same directory (``train_remat.json``, ``train_sparse_dx.json`` and
+``train_resume_<arch>.json`` for phase 9, ``train_methods.json`` and
+``selection_strategies.json`` for phase 10), the MoE serving
+``full_profile_olmoe.txt`` and ``window_olmoe.json``.
 """
 
 from __future__ import annotations
@@ -339,6 +361,10 @@ from repro_torch.core import adapt as adapt_mod  # noqa: E402
 from repro_torch.core.adapt import init_adapters, zip_adapters  # noqa: E402
 from repro_torch.core.delta import BatchedDelta  # noqa: E402
 from repro_torch.data import TASKS, DataLoader  # noqa: E402
+from repro_torch.examples import finetune_e2e as ex_finetune  # noqa: E402
+from repro_torch.examples import peft_comparison as ex_peft  # noqa: E402
+from repro_torch.examples import quickstart as ex_quick  # noqa: E402
+from repro_torch.examples import serve_batched as ex_serve  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     ATTENTION,
     COUNTERS,
@@ -4478,12 +4504,15 @@ def index_add_dx(idx, val, dy, d_in: int):
 
 
 def sparse_dx_variants(card: str) -> None:
-    """``--sparse-dx``: the sparse dx check and two resumes (steps 3 and 4
-    bit-equal each time), then the qwen2 4 x 512 training step with the
-    ordered dx and with ``index_add_dx`` in turn (ordered, index_add_,
-    index_add_, ordered), all in one call."""
+    """``--sparse-dx``: the sparse dx check and two resumes of qwen2-1.5b
+    and one of olmoe-1b-7b (steps 3 and 4 bit-equal each time), then the
+    qwen2 4 x 512 training step with the ordered dx and with
+    ``index_add_dx`` in turn (ordered, index_add_, index_add_, ordered),
+    all in one call."""
+    check_sparse_dx(card)
     for _ in range(2):
         phase_resume(card)
+    phase_resume(card, MOE_ARCH)
     ordered, steps = ref.sparse_delta_dx_ref, {}
     try:
         for name in ("ordered", "index_add_", "index_add_", "ordered"):
@@ -4502,7 +4531,7 @@ def check_sparse_dx(card: str) -> dict:
     column summed in one fixed order), also with every term on 7 columns;
     then its device time a step (7 projections x 28 layers) beside the
     ``index_add_`` scatter it replaced, whose float atomics add in no fixed
-    order."""
+    order. The figures go to ``chiprun_out/train_sparse_dx.json``."""
     cfg = get_config("qwen2-1.5b")
     gen = torch.Generator(device="cuda").manual_seed(7)
     m = TRAIN_BATCH * TRAIN_SEQ
@@ -4523,20 +4552,26 @@ def check_sparse_dx(card: str) -> dict:
         f"on the card twice bit-equal and equal to the CPU's (also with every term on 7 "
         f"columns); {new_ms * layers:.2f} ms a step by the ordered segment sum against "
         f"{old_ms * layers:.2f} ms by index_add_'s atomics ({layers} layers) [{card}]")
-    return {"dx_ms_step": new_ms * layers, "index_add_ms_step": old_ms * layers}
+    out = {"card": card, "dx_ms_step": new_ms * layers, "index_add_ms_step": old_ms * layers}
+    with open(os.path.join(OUT_DIR, "train_sparse_dx.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
 
 
-def phase_resume(card: str) -> dict:
-    """Checkpoint and resume through ``Trainer`` at full width (qwen2-1.5b
-    bf16, 4 x 512), the checkpoints in a scratch directory. Run A: 4 steps,
-    a save at step 2 (its copy to the host and its file write timed). Run
-    B: a fresh Trainer resumes from A's step-2 file and runs to 4. B's
-    restored values and moments equal A's state at 2 bit for bit, and B's
-    step-3 and step-4 losses equal A's bit for bit: the backward has no
-    float atomics (the sparse dx sums each column in a fixed order), so a
-    resumed run repeats the uninterrupted one exactly."""
-    dx = check_sparse_dx(card)
-    cfg = get_config("qwen2-1.5b")
+def phase_resume(card: str, arch: str = "qwen2-1.5b") -> dict:
+    """Checkpoint and resume through ``Trainer`` at full width (``arch``,
+    qwen2-1.5b or olmoe-1b-7b, bf16, 4 x 512), the checkpoints in a scratch
+    directory. Run A: 4 steps, a save at step 2 (its copy to the host and
+    its file write timed). Run B: a fresh Trainer resumes from A's step-2
+    file and runs to 4. B's restored values and moments equal A's state at
+    2 bit for bit, and B's step-3 and step-4 losses equal A's bit for bit:
+    the backward has no float atomics (the sparse dx sums each column in a
+    fixed order; on olmoe the dispatch and combine gathers' backward is
+    CUDA's sort-based ``index_put_`` with accumulate, which adds the
+    duplicates of an index in a fixed order), so a resumed run repeats the
+    uninterrupted one exactly. The figures go to
+    ``chiprun_out/train_resume_<arch>.json``."""
+    cfg = get_config(arch)
     model = get_model(cfg)
     params = model.init(seed=0, device="cuda")
     dir_a, dir_b = os.path.join(SCRATCH, "ckpt_a"), os.path.join(SCRATCH, "ckpt_b")
@@ -4579,14 +4614,15 @@ def phase_resume(card: str) -> dict:
     got_loss = [h["loss"] for h in b.history]
     assert got_loss == want[2:], (got_loss, want)
     assert b.ckpt.steps() == [2, 4]
-    log(f"[resume] qwen2-1.5b bf16 {TRAIN_BATCH} x {TRAIN_SEQ}: A's losses {want}; B resumed "
+    log(f"[resume] {arch} bf16 {TRAIN_BATCH} x {TRAIN_SEQ}: A's losses {want}; B resumed "
         f"at step {start} in {resume_s * 1e3:.1f} ms (values and moments bit-equal to A's at "
         f"2), its losses {got_loss} (steps 3 and 4 bit-equal); a save: host copy "
         f"{copy_s * 1e3:.1f} ms on the training thread, file write {write_s * 1e3:.1f} ms "
         f"behind it ({nbytes:,} bytes) [{card}]")
-    out = {"card": card, "losses_a": want, "losses_b": got_loss, "resume_s": resume_s,
-           "save_copy_s": copy_s, "save_write_s": write_s, "bytes": nbytes, **dx}
-    with open(os.path.join(OUT_DIR, "train_resume.json"), "w") as f:
+    out = {"card": card, "arch": arch, "losses_a": want, "losses_b": got_loss,
+           "resume_s": resume_s, "save_copy_s": copy_s, "save_write_s": write_s,
+           "bytes": nbytes}
+    with open(os.path.join(OUT_DIR, f"train_resume_{arch}.json"), "w") as f:
         json.dump(out, f, indent=1)
     shutil.rmtree(SCRATCH, ignore_errors=True)
     del params, a, b
@@ -5583,7 +5619,9 @@ def lifecycle(card: str, train: dict, stamp) -> None:
     torch.cuda.empty_cache()
     phase_remat(card, train["long"]["peak"])
     stamp("remat")
+    check_sparse_dx(card)
     phase_resume(card)
+    phase_resume(card, MOE_ARCH)
     phase_reduced_export(card)
     phase_export(card)
     stamp("checkpoint, resume, export")
@@ -5614,6 +5652,12 @@ FAMILY_ARCHS = ("qwen2-vl-2b", "falcon-mamba-7b", "zamba2-2.7b", "seamless-m4t-l
 #   gradient 2 x 1.05 GB: a peak near 15 GB. The encoder's self-attention
 #   and the cross-attention (Skv = 2048 frames) reach the flash threshold,
 #   not causal; the decoder's self-attention (512) stays dense.
+# slice 19: the full-width family runs take about a quarter of the published
+# depth (falcon-mamba 16 of 64 layers, zamba2 2 of 9 groups, seamless 6 + 6
+# of 24 + 24), to keep the whole script inside its time limit on a slow host;
+# their kernels, the reduced twins and qwen2-vl keep their full shapes
+FAMILY_DEPTH = {"falcon-mamba-7b": dict(num_layers=16), "zamba2-2.7b": dict(num_layers=12),
+                "seamless-m4t-large-v2": dict(num_layers=6, encoder_layers=6)}
 FAMILY_TRAIN = {"qwen2-vl-2b": (4, 512, "none"), "falcon-mamba-7b": (2, 512, "none"),
                 "zamba2-2.7b": (1, 2048, "full"), "seamless-m4t-large-v2": (2, 512, "none")}
 # greedy generation through prefill + decode_step with the trained adapter;
@@ -6085,15 +6129,21 @@ def generate(model, params, adapters, prompt, new: int, frames=None) -> tuple:
     return torch.stack(toks, 1), t1 - t0, t2 - t1
 
 
+def family_config(arch: str):
+    """``arch`` at full width and :data:`FAMILY_DEPTH`'s depth."""
+    return get_config(arch).replace(**FAMILY_DEPTH.get(arch, {}))
+
+
 def phase_family(card: str, arch: str) -> dict:
-    """Full published width and depth in bf16, random weights from a seed:
+    """Full published width in bf16 at :func:`family_config`'s depth,
+    random weights from a seed:
     selection (k = 1, timed, ``topk_select`` launches), NeuroAda training
     (FAMILY_TRAIN; 2 warm-up + TRAIN_STEPS timed steps; only the path's
     kernels, no plain version; peak memory; one profiled step), then greedy
     generation with the trained adapter through prefill + decode_step
     (GEN_BATCH x GEN_PROMPT, GEN_NEW new tokens; decode tok/s)."""
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
+    cfg = family_config(arch)
     model = get_model(cfg)
     batch, seq, remat = FAMILY_TRAIN[arch]
     t0 = time.perf_counter()
@@ -6116,7 +6166,8 @@ def phase_family(card: str, arch: str) -> dict:
     assert n_select == len(shapes), (n_select, shapes)
     st = stats(params, trainer.state.trainable)
     assert st["trainable"] == sum(TRAIN_K * math.prod(s[:-2]) * s[-1] for s in shapes.values())
-    log(f"[family-{arch}] {arch} bf16 at full width and depth ({st['total']:,} parameters, "
+    depth = f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+    log(f"[family-{arch}] {arch} bf16 at full width, {depth} ({st['total']:,} parameters, "
         f"init {init_s:.2f} s), NeuroAda k={TRAIN_K} magnitude: trainable {st['trainable']:,} "
         f"({100 * st['fraction']:.4f} % of the parameters), selection {select_s:.3f} s "
         f"({n_select} topk_select launches, one a stack: {json.dumps({k: list(v) for k, v in shapes.items()})}; "
@@ -6272,7 +6323,8 @@ def vlm_gate(card: str, model, params, trainer, kv_dtype: str = "fp32") -> dict:
 
 
 def phase_family_packed(card: str, arch: str, qd: str) -> dict:
-    """``arch`` at full width on a base packed to ``qd`` (block QUANT_BLOCK)
+    """``arch`` at full width and :func:`family_config`'s depth on a base
+    packed to ``qd`` (block QUANT_BLOCK)
     after a bf16 init: selection one matrix at a time, 2 warm-up +
     PACKED_STEPS NeuroAda steps (FAMILY_TRAIN's shape; peak memory; only
     ``fused_linear_q``, ``sparse_delta_dval`` and where reckoned the flash
@@ -6281,7 +6333,7 @@ def phase_family_packed(card: str, arch: str, qd: str) -> dict:
     PACKED_PROMPT-token prompt, or ENCDEC_PROMPT tokens over ENC_FRAMES
     frames). Returns the launches."""
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
+    cfg = family_config(arch)
     model = get_model(cfg)
     batch, seq, remat = FAMILY_TRAIN[arch]
     params = model.init(seed=0, device="cuda")
@@ -6432,6 +6484,11 @@ TP_FULL = (("bf16", "qwen2-1.5b", "bf16"), ("int8", "qwen2-1.5b", "int8"),
 # each model's weights seed: qwen2-vl-2b's text backbone has qwen2-1.5b's
 # shapes (its vision tower is a stub), so it draws other weights
 TP_SEED = {"qwen2-1.5b": 0, "olmoe-1b-7b": 0, "qwen2-vl-2b": 1}
+# the full-width runs' depth: a quarter of each model's layers. Every sharded
+# operation, collective and the lockstep run at any depth, and the runs'
+# time grows with it (two ranks on one card all-reduce through host memory
+# twice a layer); the quarter keeps the whole script inside its time limit
+TP_LAYERS = {"qwen2-1.5b": 7, "olmoe-1b-7b": 4, "qwen2-vl-2b": 7}
 # per-shard shapes at tp 2: (global heads, local (H, KV, hd), the untied
 # packed head's (K, local N) and whose head it is). qwen2-1.5b's attention
 # (qwen2-vl-2b's is the same: 12 / 2 heads of 128) with qwen3-32b's head
@@ -6790,11 +6847,16 @@ def tp_teacher_step(params, kw, store, state) -> dict:
     return out
 
 
+def tp_config(arch: str):
+    """``arch`` at full width and :data:`TP_LAYERS` depth."""
+    return get_config(arch).replace(num_layers=TP_LAYERS[arch])
+
+
 def tp_full_inputs(arch: str):
-    """Full-width ``arch`` (bf16, seed :data:`TP_SEED`), its 2 tenants (seed
-    7 more) and the first TP_REQUESTS gate prompts: the same on every
-    process."""
-    cfg = get_config(arch)
+    """Full-width ``arch`` (bf16, :data:`TP_LAYERS` deep, seed
+    :data:`TP_SEED`), its 2 tenants (seed 7 more) and the first TP_REQUESTS
+    gate prompts: the same on every process."""
+    cfg = tp_config(arch)
     model = get_model(cfg)
     params = model.init(seed=TP_SEED[arch], device="cuda")
     tenants = random_tenants(params, TP_TENANTS, seed=7 + TP_SEED[arch], dtype=torch.bfloat16,
@@ -7001,7 +7063,7 @@ def tp_path(card: str) -> tuple[dict, dict, dict]:
         f"ran and joined in {time.perf_counter() - t0:.1f} s")
     lead = ranks[0]
     for tag, arch, base in TP_FULL:
-        cfg = get_config(arch)
+        cfg = tp_config(arch)
         a, b = one[tag], lead[tag]
         tol = 2 * BF16_U * math.sqrt(2 * cfg.num_layers)
         # the slots whose sequences so far are the same in both runs
@@ -7031,7 +7093,8 @@ def tp_path(card: str) -> tuple[dict, dict, dict]:
         agree = [next((i for i, (x, y) in enumerate(zip(p, q)) if x != y), len(p))
                  for p, q in zip(a["tokens"], b["tokens"])]
         n_tok = sum(len(p) for p in a["tokens"])
-        log(f"[tp-{tag}] {arch} full width, {base} base, tp 2 on one card: first decode logits "
+        log(f"[tp-{tag}] {arch} full width, {cfg.num_layers} layers, {base} base, tp 2 on one "
+            f"card: first decode logits "
             f"against tp 1 on the card over the {len(same)} {what}: {held}; greedy tokens agree "
             f"on {sum(agree)} of {n_tok} before a request's first parting ({agree} of "
             f"{[len(p) for p in a['tokens']]}) [{card}]")
@@ -7088,6 +7151,372 @@ def tp_path(card: str) -> tuple[dict, dict, dict]:
     keep = ("logits", "history", "routes", "teacher")
     return launches, by_model, {k: {kk: vv for kk, vv in v.items() if kk not in keep}
                                 for k, v in lead.items() if isinstance(v, dict)}
+
+# ------------------------------------------------ slice 19: the example twins
+
+# the kernels each twin's run at its default sizes launches, and no other:
+# quickstart trains (selection, the bypass forward and value gradient; the
+# packed forward on a packed base), evaluates, serves the merged model on
+# the paged pool and self-drafts it in int8 (the drafter's packed linears
+# and its dense decode); peft_comparison's NeuroAda rows train, its masked
+# row selects, LoRA / BitFit / full run in plain torch; serve_batched
+# selects its two tenants on the int8 base and serves them on the int8 pool
+# (the merged drafter's dense decode); finetune_e2e trains dense.
+_QUICK_PACKED = ("topk_select", "fused_linear_q", "sparse_delta_dval",
+                 "paged_prefill_attention", "paged_decode_attention", "decode_attention")
+EXAMPLE_PATHS = {
+    "quickstart-fp32": _QUICK_PACKED + ("fused_linear",),
+    "quickstart-int8": _QUICK_PACKED,
+    "quickstart-nf4": _QUICK_PACKED,
+    "peft_comparison": ("topk_select", "fused_linear", "sparse_delta_dval"),
+    "serve_batched": ("topk_select", "fused_linear_q", "sparse_delta_batched",
+                      "paged_prefill_attention_q", "paged_decode_attention_q", "decode_attention"),
+    "finetune_e2e": ("topk_select", "fused_linear", "sparse_delta_dval"),
+}
+# card against CPU: quickstart's training steps, and the kill-and-resume run
+EXAMPLE_CMP_STEPS, E2E_STEPS, E2E_KILL_AT = 20, 120, 100
+# finetune_e2e: its default k, the rows of one of its microbatches (batch 32
+# in 2 microbatches of seq 64), and its steps card against CPU
+E2E_K, E2E_ROWS, E2E_CMP_STEPS = 1, 32 // 2 * 64, 4
+EXAMPLES_DIR = os.path.join(ROOT, "_chip", "examples")
+
+
+def twin_main(tag: str, main, argv, name: str = "") -> tuple:
+    """One twin's ``main(argv)`` on the card, its printout kept in
+    ``chiprun_out/examples_<name or tag>.txt``: (its result, the launches of
+    its run, its wall seconds). Its path's kernels, and only they, launched;
+    no plain version ran."""
+    reset_counters()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"examples_{name or tag}.txt"), "w") as f:
+        f.write(buf.getvalue())
+    launched = {n: c.kernel for n, c in COUNTERS.items() if c.kernel}
+    assert set(launched) == set(EXAMPLE_PATHS[tag]), (tag, sorted(launched))
+    assert all(c.plain == 0 for c in COUNTERS.values()), \
+        (tag, {n: c.plain for n, c in COUNTERS.items() if c.plain})
+    return res, launched, secs
+
+
+def quiet(fn, *args, **kw):
+    """``fn`` with its printout dropped (the card-vs-CPU twins)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def agreement(a: dict, b: dict) -> float:
+    """Share of equal tokens at equal positions of two runs' outputs by rid."""
+    pairs = [(x, y) for rid in a for x, y in zip(a[rid], b[rid])]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def examples_card_vs_cpu(card: str) -> None:
+    """quickstart's ``run`` at EXAMPLE_CMP_STEPS steps and serve_batched's
+    ``run`` (its plain and speculative engines) on the float32 model, card
+    against CPU: losses within 1e-5, identical greedy tokens, the drafted
+    and accepted counts equal; quickstart's drafted tokens are its plain
+    engine's."""
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+    params = get_model(cfg).init(seed=0, device="cpu")
+    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
+    want = quiet(ex_quick.run, cfg, params, steps=EXAMPLE_CMP_STEPS, device="cpu")
+    got = quiet(ex_quick.run, cfg, to_cuda(params), steps=EXAMPLE_CMP_STEPS, device="cuda")
+    diff = max(abs(a - b) for a, b in zip(want["losses"], got["losses"]))
+    assert diff <= 1e-5, ("quickstart losses card vs cpu", want["losses"], got["losses"])
+    for key in ("outs", "spec_outs", "spec_accepted", "spec_drafted", "spec_emitted",
+                "accuracy", "transfers"):
+        assert got[key] == want[key], (f"quickstart {key} card vs cpu", got[key], want[key])
+    # in float32 the self-drafted tokens are the plain engine's (the example's
+    # claim); in bf16 the verify's chunked attention rounds otherwise than the
+    # decode step, and a near-tie can part them
+    assert got["spec_outs"] == got["outs"], (got["spec_outs"], got["outs"])
+    scfg = ex_serve.config().replace(dtype="float32")
+    sparams = get_model(scfg).init(seed=0, device="cpu")
+    tenants = ex_serve.random_tenants(quantize_base(sparams, "int8"), "cpu")
+    swant = quiet(ex_serve.run, scfg, sparams, tenants, device="cpu")
+    sgot = quiet(ex_serve.run, scfg, to_cuda(sparams),
+                 [(to_cuda(i), to_cuda(v)) for i, v in tenants], device="cuda")
+    for key in ("outs", "spec_outs", "spec_accepted", "spec_drafted", "split", "prefix_hit",
+                "used_blocks", "shared_pages"):
+        assert sgot[key] == swant[key], (f"serve_batched {key} card vs cpu", sgot[key],
+                                         swant[key])
+    log(f"[examples] card vs cpu, float32 model: quickstart {EXAMPLE_CMP_STEPS} steps, losses "
+        f"max |diff| {diff:.2e}, accuracy {got['accuracy']:.4f}, served and drafted tokens "
+        f"identical ({sum(map(len, got['outs'].values()))} each, and to each other), spec "
+        f"{got['spec_accepted']}/{got['spec_drafted']} on both; serve_batched: plain and "
+        f"speculative tokens identical (6 requests x 16), spec {sgot['spec_accepted']}/"
+        f"{sgot['spec_drafted']}, split {sgot['split']} on both [{card}]")
+
+
+@contextlib.contextmanager
+def made_engines(module):
+    """Keep every ``ServeEngine`` an example module builds while inside."""
+    made, real = [], module.ServeEngine
+
+    def make(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    module.ServeEngine = make
+    try:
+        yield made
+    finally:
+        module.ServeEngine = real
+
+
+def partings(tag: str, spec_eng, outs: dict, spec_outs: dict, prompts, ids) -> list:
+    """:func:`divergence_gaps` of a twin's speculative engine against its
+    plain engine's tokens: each request's first parting, teacher-forced on
+    the served model (``prompts`` and adapter ``ids`` in submission order,
+    rids ascending). Logs each one."""
+    rids = sorted(outs)
+    reqs = [types.SimpleNamespace(rid=rid, out=spec_outs[rid], adapter_id=aid)
+            for rid, aid in zip(rids, ids)]
+    gaps = divergence_gaps(spec_eng.model, spec_eng, reqs, [outs[r] for r in rids],
+                           dict(zip(rids, prompts)))
+    for rid, i, gap, ulps, near in gaps:
+        log(f"[examples] {tag}: rid {rid} parts from the plain engine at token {i}: "
+            f"teacher-forced top-2 gap {gap:.5f} = {ulps:.2f} bf16 ulps of the top logit; both "
+            f"tokens within {SPEC_TIE_ULPS} ulps: {near}")
+    return gaps
+
+
+def e2e_kernels(card: str) -> dict:
+    """finetune_e2e's three kernels at the shapes its path gives them on
+    the card (``build_100m`` in bf16, k = E2E_K, E2E_ROWS rows a
+    microbatch), each against its plain version: ``fused_linear`` (its
+    route pinned) and ``sparse_delta_dval`` at a layer's 7 projections,
+    ``topk_select`` over the 7 weight stacks (indices and order exactly).
+    Timed beside the plain version, the bound and a one-call yardstick
+    where there is one; returns, by kernel, the sums over the shapes."""
+    cfg = ex_finetune.build_100m("qwen2-1.5b")
+    dt, dev = torch.bfloat16, torch.device("cuda")
+    assert cfg.dtype == "bfloat16", cfg.dtype
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    out = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+               "max_abs_err": 0.0, "cases": []}
+           for n in ("fused_linear", "sparse_delta_dval", "topk_select")}
+
+    def add(name, case, err, ms, plain_ms, library_ms, cost):
+        acc = out[name]
+        acc["cases"].append(case)
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["ms"] += ms
+        acc["plain_ms"] += plain_ms
+        acc["library_ms"] = None if library_ms is None else acc["library_ms"] + library_ms
+        acc["bytes"] += cost[0]
+        acc["flops"] += cost[1]
+
+    m = E2E_ROWS
+    for kd, n in sparse_dx_shapes(cfg):
+        x = torch.randn(m, kd, generator=gen, device=dev).to(dt)
+        w = (torch.randn(kd, n, generator=gen, device=dev) * kd**-0.5).to(dt)
+        idx = torch.randint(0, kd, (E2E_K, n), generator=gen, device=dev, dtype=torch.int32)
+        val = (torch.randn(E2E_K, n, generator=gen, device=dev) * 0.05).to(dt)
+        dy = (torch.randn(m, n, generator=gen, device=dev) * m**-0.5).to(dt)
+        case = f"M={m} K={kd} N={n}, k={E2E_K}"
+        reset_counters()
+        got = fl_mod.fused_linear(x, w, idx, val, None)
+        r = fl_mod.route(m, kd, n, dt, (x.data_ptr(), w.data_ptr()))
+        expect_route(COUNTERS["fused_linear"], r, 1, f"fused_linear finetune_e2e {case}")
+        err = check_close(f"fused_linear finetune_e2e {case} ({r})", got,
+                          fl_mod.fused_linear_plain(x, w, idx, val, None), dt)
+        add("fused_linear", f"{case} ({r})", err,
+            cuda_ms(lambda: fl_mod.fused_linear(x, w, idx, val, None)),
+            cuda_ms(lambda: fl_mod.fused_linear_plain(x, w, idx, val, None), iters=3),
+            cuda_ms(lambda: torch.mm(x, w)), linear_cost(x, w, idx, val, None))
+        got = sd_mod.sparse_delta_dval(x, idx, dy)
+        err = check_close(f"sparse_delta_dval finetune_e2e {case}", got,
+                          sd_mod.sparse_delta_dval_plain(x, idx, dy), dt)
+        assert torch.equal(got, sd_mod.sparse_delta_dval(x, idx, dy)), case
+        add("sparse_delta_dval", case, err, cuda_ms(lambda: sd_mod.sparse_delta_dval(x, idx, dy)),
+            cuda_ms(lambda: sd_mod.sparse_delta_dval_plain(x, idx, dy), iters=3), None,
+            dval_cost(x, idx, dy))
+    for name, shape in weight_stacks(cfg):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+        got = ops.topk_select(w, E2E_K)
+        assert torch.equal(got, ts_mod.topk_select_plain(w, E2E_K)), f"topk_select {name} {shape}"
+        add("topk_select", f"{name} {list(shape)}", 0.0, cuda_ms(lambda: ops.topk_select(w, E2E_K)),
+            cuda_ms(lambda: ts_mod.topk_select_plain(w, E2E_K), iters=1, warmup=1),
+            cuda_ms(lambda: torch.topk(w.abs(), E2E_K, dim=-2)),
+            (w.numel() * w.element_size() + got.numel() * 4, 0.0))
+    for name, acc in out.items():
+        acc["bound_ms"], acc["bound_by"] = bound(acc.pop("bytes"), acc.pop("flops"), dt)
+        lib = "none" if acc["library_ms"] is None else f"{acc['library_ms']:.4f}"
+        log(f"[examples] finetune_e2e's {name} at its {len(acc['cases'])} bf16 shapes, held "
+            f"against plain: {acc['ms']:.4f} ms (plain {acc['plain_ms']:.4f}, bound "
+            f"{acc['bound_ms']:.4f} by {acc['bound_by']}, one-call yardstick {lib}); max|err| "
+            f"{acc['max_abs_err']:.3e} [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def e2e_card_vs_cpu(card: str) -> None:
+    """finetune_e2e's ``run`` (its batches, 2 microbatches, checkpoint) on
+    reduced qwen2-1.5b in float32, E2E_CMP_STEPS steps on the card and on
+    the CPU from the same params: losses within 1e-5 (phase 4's bound), all
+    finite, no NaN-guard skip. (``build_100m``'s width is held by
+    :func:`e2e_kernels`: two of its float32 steps take the host ≈ 38 s.)"""
+    cfg = reduced(get_config("qwen2-1.5b")).replace(dtype="float32")
+    params = get_model(cfg).init(seed=0, device="cpu")
+    to_cuda = lambda t: map_leaves(lambda x: None if x is None else x.cuda(), t)  # noqa: E731
+    res = {dev: quiet(ex_finetune.run, cfg, ps, steps=E2E_CMP_STEPS,
+                      ckpt=os.path.join(EXAMPLES_DIR, dev), device=dev)
+           for dev, ps in (("cpu", params), ("cuda", to_cuda(params)))}
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    want, got = res["cpu"]["losses"], res["cuda"]["losses"]
+    assert sorted(want) == sorted(got) == list(range(E2E_CMP_STEPS)), (want, got)
+    assert all(math.isfinite(x) for x in [*want.values(), *got.values()]), (want, got)
+    assert res["cpu"]["skipped"] == res["cuda"]["skipped"] == 0
+    diff = max(abs(want[i] - got[i]) for i in want)
+    assert diff <= 1e-5, ("finetune_e2e losses card vs cpu", want, got)
+    log(f"[examples] card vs cpu, finetune_e2e's run on reduced qwen2-1.5b in float32, "
+        f"{E2E_CMP_STEPS} steps: "
+        f"losses cpu {[want[i] for i in sorted(want)]} cuda {[got[i] for i in sorted(got)]} "
+        f"(max |diff| {diff:.2e}), no NaN-guard skip [{card}]")
+
+
+def e2e_kill_and_resume(card: str) -> tuple:
+    """finetune_e2e at E2E_STEPS steps three ways: uninterrupted in this
+    process (its launches counted); as a real subprocess, sent SIGKILL once
+    its step-E2E_KILL_AT checkpoint is complete on disk (the meta file is
+    written last); resumed from that checkpoint with ``--resume`` in this
+    process. The resumed losses at steps E2E_KILL_AT + 1 .. E2E_STEPS equal
+    the uninterrupted run's bit for bit. Returns (the uninterrupted run's
+    result, its launches, its wall seconds, the resume's figures)."""
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    full_dir, kill_dir = os.path.join(EXAMPLES_DIR, "full"), os.path.join(EXAMPLES_DIR, "kill")
+    full, launched, secs = twin_main("finetune_e2e", ex_finetune.main,
+                                     ["--steps", str(E2E_STEPS), "--ckpt", full_dir])
+    done = os.path.join(kill_dir, f"ckpt_{E2E_KILL_AT:08d}.npz.meta.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    with open(os.path.join(OUT_DIR, "examples_finetune_e2e_killed.txt"), "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.examples.finetune_e2e",
+                                 "--steps", str(E2E_STEPS), "--ckpt", kill_dir],
+                                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        try:
+            while not os.path.exists(done):
+                assert proc.poll() is None, f"finetune_e2e ended ({proc.returncode}) before " \
+                                            f"its step-{E2E_KILL_AT} checkpoint"
+                assert time.perf_counter() - t0 < 300, f"no step-{E2E_KILL_AT} checkpoint in 300 s"
+                time.sleep(0.002)
+            proc.kill()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            rc = proc.wait()
+    killed_s = time.perf_counter() - t0
+    left = sorted(os.listdir(kill_dir))
+    assert rc == -9, f"finetune_e2e exited with {rc}, not by SIGKILL"
+    assert not any(f.startswith(f"ckpt_{E2E_STEPS:08d}") for f in left), left
+    res, _, resume_s = twin_main("finetune_e2e", ex_finetune.main,
+                                 ["--steps", str(E2E_STEPS), "--ckpt", kill_dir, "--resume"],
+                                 "finetune_e2e_resumed")
+    assert res["start"] == E2E_KILL_AT, res["start"]
+    want = {i: full["losses"][i] for i in range(E2E_KILL_AT, E2E_STEPS)}
+    assert res["losses"] == want, ("resumed losses differ from the uninterrupted run's",
+                                   {i: (res["losses"].get(i), want[i]) for i in want
+                                    if res["losses"].get(i) != want[i]})
+    assert res["checkpoints"] == [E2E_KILL_AT, E2E_STEPS], res["checkpoints"]
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    return full, launched, secs, {"killed_s": killed_s, "left": left, "resume_s": resume_s,
+                                  "skipped": res["skipped"]}
+
+
+def phase_examples(card: str) -> tuple[dict, dict]:
+    """Phase 13: every example twin on the card at its default sizes,
+    through its ``main``: quickstart on the fp32, int8 and NF4 bases,
+    peft_comparison (150 steps a method), serve_batched, finetune_e2e killed
+    and resumed (:func:`e2e_kill_and_resume`; its losses finite, no NaN-guard
+    skip); each run's launches counted (its path's kernels, no other, no
+    plain version) and its engines' one transfer a step; each quickstart
+    request's first parting of the drafted tokens from the plain ones held
+    to a bf16 near-tie of the teacher-forced logits, serve_batched's (on
+    int8 KV) too; finetune_e2e's kernels at its bf16 shapes against
+    plain (:func:`e2e_kernels`); then the card against the CPU
+    (:func:`examples_card_vs_cpu`, :func:`e2e_card_vs_cpu`). Returns the
+    launches by twin and :func:`e2e_kernels`' figures; the figures go to
+    ``chiprun_out/examples.json``."""
+    t_phase = time.perf_counter()
+    launches, figures, ties = {}, {}, {}
+    for base in ("fp32",) + PACKED:
+        tag = f"quickstart-{base}"
+        with made_engines(ex_quick) as engines:
+            res, launches[tag], secs = twin_main(tag, ex_quick.main, ["--base-dtype", base])
+        assert res["transfers"] == res["steps"] and res["spec_transfers"] == res["spec_steps"]
+        assert res["finished"] == len(ex_quick.PROMPTS)
+        assert all(math.isfinite(x) for x in res["losses"]) and len(res["losses"]) == 200
+        agree = agreement(res["outs"], res["spec_outs"])
+        ties[tag] = partings(tag, engines[1], res["outs"], res["spec_outs"], ex_quick.PROMPTS,
+                             [0] * len(ex_quick.PROMPTS))
+        del engines
+        figures[tag] = dict({k: v for k, v in res.items() if k != "losses"}, wall_s=secs,
+                            loss_first=res["losses"][0], loss_last=res["losses"][-1],
+                            spec_agreement=agree, partings=ties[tag])
+        log(f"[examples] {tag}: {secs:.1f} s; trainable {res['trainable']:,} / "
+            f"{res['total']:,} ({res['fraction']:.3%}); loss {res['losses'][0]:.3f} -> "
+            f"{res['losses'][-1]:.3f}; answer accuracy {res['accuracy']:.1%}; merged engine "
+            f"{res['finished']} requests in {res['transfers']} steps (one transfer each), ttft "
+            f"p50 {res['ttft_p50_ms']:.1f} ms; int8 self-draft {res['spec_accepted']}/"
+            f"{res['spec_drafted']} accepted, {res['spec_emitted']} emitted, tokens "
+            f"{agree:.0%} the plain engine's; launches {launches[tag]} [{card}]")
+    rows, launches["peft_comparison"], secs = twin_main("peft_comparison", ex_peft.main, [])
+    figures["peft_comparison"] = {"wall_s": secs, "rows": rows}
+    log(f"[examples] peft_comparison: {secs:.1f} s, 150 steps a method at 16 x 32; " + "; ".join(
+        f"{r['tag']} {r['fraction']:.4%} acc {r['acc']:.1%} loss {r['final_loss']:.3f} opt "
+        f"{r['opt_state_bytes'] / 2**20:.2f} MB {r['samples_per_s']:.1f} samp/s" for r in rows)
+        + f"; launches {launches['peft_comparison']} [{card}]")
+    with made_engines(ex_serve) as engines:
+        res, launches["serve_batched"], secs = twin_main("serve_batched", ex_serve.main, [])
+    assert res["transfers"] == res["steps"] and res["spec_transfers"] == res["spec_steps"]
+    assert res["free_blocks"] == res["num_blocks"] and res["requests"] == 6
+    # on int8 KV too: the verify writes a page's rows in other chunks than
+    # the plain decode, and each parting must still sit on a bf16 near-tie
+    ties["serve_batched"] = serve_gaps = partings(
+        "serve_batched", engines[1], res["outs"], res["spec_outs"], ex_serve.PROMPTS, ex_serve.IDS)
+    del engines
+    figures["serve_batched"] = dict(res, wall_s=secs, partings=serve_gaps)
+    log(f"[examples] serve_batched: {secs:.1f} s; after {res['admit_steps']} mixed steps "
+        f"{res['used_blocks']}/{res['num_blocks']} blocks, {res['shared_pages']} shared; "
+        f"{res['tokens']} tokens in {res['seconds']:.3f} s ({res['tok_per_s']:.1f} tok/s), "
+        f"pool drained; split {res['split']}, prefix hit {res['prefix_hit']} fresh "
+        f"{res['prefix_fresh']}, ttft p50 {res['ttft_p50_ms']:.1f} ms, {res['trace_events']} "
+        f"trace events; merged drafter {res['spec_accepted']}/{res['spec_drafted']} accepted "
+        f"({res['spec_rate']:.0%}), agreement {res['agreement']:.0%}, {res['spec_tokens']} tokens "
+        f"in {res['spec_seconds']:.3f} s; launches {launches['serve_batched']} [{card}]")
+    full, launches["finetune_e2e"], secs, kill = e2e_kill_and_resume(card)
+    assert sorted(full["losses"]) == list(range(E2E_STEPS)), sorted(full["losses"])
+    assert all(math.isfinite(x) for x in full["losses"].values()), full["losses"]
+    assert full["skipped"] == 0 and kill["skipped"] == 0, (full["skipped"], kill["skipped"])
+    last = full["losses"][E2E_STEPS - 1]
+    figures["finetune_e2e"] = dict({k: v for k, v in full.items() if k != "losses"},
+                                   wall_s=secs, final_loss=last, **kill)
+    log(f"[examples] finetune_e2e --steps {E2E_STEPS}: {secs:.1f} s, ≈{full['total'] / 1e6:.0f}M "
+        f"params, trainable {full['fraction']:.4%}, step ≈ {full['step_ms_ewma']:.2f} ms (the "
+        f"straggler monitor's moving mean), final loss {last:.4f}, stragglers "
+        f"{full['stragglers']}, NaN-guard skips {full['skipped']}, checkpoints "
+        f"{full['checkpoints']}; a subprocess killed (SIGKILL) {kill['killed_s']:.1f} s in, "
+        f"once its step-{E2E_KILL_AT} checkpoint was on disk (left {kill['left']}), resumed "
+        f"with --resume in {kill['resume_s']:.1f} s: steps {E2E_KILL_AT + 1}-{E2E_STEPS} "
+        f"bit-equal to the uninterrupted run; launches {launches['finetune_e2e']} [{card}]")
+    shapes = e2e_kernels(card)
+    examples_card_vs_cpu(card)
+    e2e_card_vs_cpu(card)
+    secs = time.perf_counter() - t_phase
+    log(f"[examples] the phase took {secs:.1f} s [{card}]")
+    with open(os.path.join(OUT_DIR, "examples.json"), "w") as f:
+        json.dump({"card": card, "seconds": secs, "launches": launches, "figures": figures,
+                   "finetune_e2e_shapes": shapes}, f, indent=1, default=str)
+    for tag, gaps in ties.items():
+        assert all(near for *_, near in gaps), f"{tag}: a parting off a near-tie: {gaps}"
+    return launches, shapes
+
 
 
 def main() -> int:
@@ -7192,6 +7621,22 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--examples"]:
+        secs, build_log = build.timed_build()
+        log(f"[build] {len(build.SIGNATURES)} C entry points built in {secs:.1f} s")
+        t0 = time.perf_counter()
+        ex_launches, ex_shapes = phase_examples(card)
+        log(f"[timing] seconds by phase: build {secs:.1f}, examples "
+            f"{time.perf_counter() - t0:.1f}")
+        log(f"[card] {card}")
+        with open(os.path.join(OUT_DIR, "chip_smoke.log"), "w") as f:
+            f.write("\n".join(LOG) + "\n")
+        print(json.dumps({"examples": {"launches_by_twin": ex_launches,
+                                       "finetune_e2e_shapes": ex_shapes}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -7260,6 +7705,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_rows, tp_apply = phase_tp(card)
     stamp("tensor-parallel")
+    torch.cuda.empty_cache()
+    ex_launches, ex_shapes = phase_examples(card)
+    stamp("examples")
     log("[timing] seconds by phase: " + ", ".join(
         f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in zip(stamps, stamps[1:])))
     launches.update(train["bf16"]["launches"])
@@ -7366,6 +7814,13 @@ def main() -> int:
             row.update(olmoe=dict(s["olmoe"], launches=olmoe_launches.get(name, 0)))
             if name == "fused_linear_q":
                 row["olmoe"]["launches_by_phase"] = olmoe_q
+        # slice 19: the example twins' runs at their default sizes
+        ex = {f"examples-{t}": n[name] for t, n in ex_launches.items() if n.get(name)}
+        if ex:
+            row["launches_by_phase"] = {**row.get("launches_by_phase", {}), **ex}
+        if name in ex_shapes:
+            # finetune_e2e's bf16 shapes, held against plain in the phase
+            row["examples"] = {"finetune_e2e_shapes": ex_shapes[name]}
         kernels.append(row)
     kernels.extend(tp_rows)
     log(f"[card] {card}")

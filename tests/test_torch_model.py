@@ -289,8 +289,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.models.moe, repro_torch.obs, repro_torch.obs.metrics, "
             "repro_torch.obs.trace, repro_torch.serve.chaos, repro_torch.serve.frontend, "
             "repro_torch.distributed.collectives, repro_torch.distributed.context, "
-            "repro_torch.distributed.sharding; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
+            "repro_torch.distributed.sharding, repro_torch.examples.common, "
+            "repro_torch.examples.quickstart, repro_torch.examples.finetune_e2e, "
+            "repro_torch.examples.peft_comparison, repro_torch.examples.serve_batched; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'benchmarks', 'examples')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -299,7 +302,8 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_port_sources_name_no_jax_or_reference_import():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|benchmarks|examples)(\.|\s|$)",
+                     re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]
@@ -319,3 +323,27 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(setup, monkeypatch):
         launch.main(["--reduced", "--max-new", "1"])
     eng = ServeEngine(model, tparams, device="cpu", slots=1, max_len=16)
     assert eng.device.type == "cpu" and eng.kv.data["k"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["quickstart", "finetune_e2e", "peft_comparison",
+                                  "serve_batched"])
+def test_examples_need_cuda_unless_asked_for_cpu(name, monkeypatch, tmp_path):
+    """Each example twin's ``main`` raises without CUDA before it builds or
+    deletes anything; ``--device cpu`` is the only way onto the CPU (the
+    twins' CPU runs are in ``tests/test_torch_examples_*.py``)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = tmp_path / "ck"
+    ckpt.mkdir()
+    argv = ["--ckpt", str(ckpt)] if name == "finetune_e2e" else []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv + ["--device", "cuda"])
+    assert ckpt.exists()
+    if name == "finetune_e2e":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.run(None, None, ckpt=str(ckpt))
+    assert ckpt.exists()
