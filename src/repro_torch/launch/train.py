@@ -45,6 +45,10 @@ included, and a checkpoint of either package resumes in the other.
 ``--export merged.npz`` writes the base with every delta folded in (dense,
 also from a packed base), which ``launch/serve.py --params`` serves; the
 ``--export-adapter`` file serves as a tenant in either package's engine.
+``--trace-out t.json`` writes every step's regions (``train.step`` and
+its upload, forward, backward, optimizer and read; the MoE dispatch and
+combine), host and device intervals, as Chrome trace JSON (Perfetto), or
+one region a line for a ``.jsonl`` path.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the CPU
 (for tests); the default is the GPU, and without one the launcher exits.
 """
@@ -66,6 +70,7 @@ from repro_torch.configs import (
 from repro_torch.data import DataLoader
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
+from repro_torch.obs import Tracer
 from repro_torch.peft import BASE_DTYPES, export_adapter, get_peft, quantize_base, stats
 from repro_torch.quant import tree_bytes
 from repro_torch.train import Trainer
@@ -101,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--export", default="", help="save the merged params here")
     ap.add_argument("--export-adapter", default="",
                     help="save the unmerged (indices, values) adapter here")
+    ap.add_argument("--trace-out", default="",
+                    help="write the steps' regions here on exit: .jsonl = one region a line, "
+                         "any other extension = Chrome trace-event JSON (Perfetto)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain versions)")
     return ap
@@ -152,7 +160,8 @@ def main(argv=None):
     tcfg = TrainConfig(learning_rate=args.lr, steps=args.steps, seed=args.seed,
                        microbatches=args.microbatches, remat=args.remat,
                        checkpoint_dir=args.ckpt, checkpoint_every=100 if args.ckpt else 0)
-    trainer = Trainer(model, peft, tcfg, params)
+    tracer = Tracer(device=device) if args.trace_out else None
+    trainer = Trainer(model, peft, tcfg, params, tracer=tracer)
     st = stats(params, trainer.state.trainable)
     log.info("arch=%s peft=%s trainable=%s/%s (%.4f%%) device=%s", cfg.name, args.peft,
              f"{st['trainable']:,}", f"{st['total']:,}", 100 * st["fraction"], device)
@@ -163,6 +172,10 @@ def main(argv=None):
         hist = trainer.run(data, steps=args.steps)
     finally:
         data.close()
+    if tracer is not None:
+        tracer.resolve()
+        tracer.write(args.trace_out)
+        log.info("trace written to %s (%d regions)", args.trace_out, len(tracer.regions))
     if hist:
         log.info("done: trainable=%s (%.4f%%) loss %.4f -> %.4f; stragglers=%d skipped=%d",
                  f"{st['trainable']:,}", 100 * st["fraction"], hist[0]["loss"],

@@ -59,6 +59,7 @@ from repro_torch.distributed import context as tp_ctx
 from repro_torch.distributed.sharding import local_experts
 from repro_torch.kernels import ops
 from repro_torch.models.layers import adapter_leaf
+from repro_torch.obs import trace as obs_trace
 
 EXPERT_LINEARS = ("wgate", "wup", "wdown")
 
@@ -213,7 +214,11 @@ def moe_ffn(cfg, p: dict, a, x: torch.Tensor, *, groups: int = 32, with_aux: boo
     partial sum, which ``reduce`` (the serving group's all-reduce, when
     given) sums over the ranks once, after the combine. Where the experts
     are not split ``reduce`` is not called: every rank computed the whole
-    sum."""
+    sum. While a tracer's region is open (:func:`repro_torch.obs.trace.
+    current`: the trainer's, during a traced step) the routing and dispatch
+    run in the region ``moe.dispatch`` and the combine in ``moe.combine``.
+    They time the forward only (and, under ``remat``, its recomputation
+    inside ``train.backward``): the layer's backward runs in autograd."""
     b, s, dm = x.shape
     e = cfg.num_experts
     t = b * s
@@ -221,18 +226,21 @@ def moe_ffn(cfg, p: dict, a, x: torch.Tensor, *, groups: int = 32, with_aux: boo
     tg = t // g
     c = capacity(cfg, tg)
     xt = x.reshape(t, dm)
-    logits = (xt.reshape(g, tg, dm) @ p["router"]["w"]).float()
-    probs = torch.softmax(logits, dim=-1)
-    route, top1 = _route_group(cfg, probs, c)
-    span = expert_span(cfg)
-    if span is not None:
-        route = local_route(route, span)
-    eh = _dispatch(xt, route)
-    aid_buf = _dispatch_adapter_ids(a, route, b, s, route.src.shape[0])
+    tracer = obs_trace.current()
+    with obs_trace.region(tracer, "moe.dispatch"):
+        logits = (xt.reshape(g, tg, dm) @ p["router"]["w"]).float()
+        probs = torch.softmax(logits, dim=-1)
+        route, top1 = _route_group(cfg, probs, c)
+        span = expert_span(cfg)
+        if span is not None:
+            route = local_route(route, span)
+        eh = _dispatch(xt, route)
+        aid_buf = _dispatch_adapter_ids(a, route, b, s, route.src.shape[0])
     h = F.silu(_expert_linear_g(p, a, "wgate", eh, aid_buf)) * _expert_linear_g(
         p, a, "wup", eh, aid_buf)
     out_e = _expert_linear_g(p, a, "wdown", h, aid_buf)
-    yt = _combine_group(out_e, route, x.dtype).reshape(b, s, dm)
+    with obs_trace.region(tracer, "moe.combine"):
+        yt = _combine_group(out_e, route, x.dtype).reshape(b, s, dm)
     if span is not None and reduce is not None:
         yt = reduce(yt)
     if not with_aux:

@@ -1,4 +1,6 @@
-"""Serving observability (port of ``repro.obs``, DESIGN §13).
+"""Observability of the port (port of ``repro.obs``, DESIGN §13): the
+serving engine's metrics and request lifecycle, and the trainer's step
+regions.
 
 metrics — dependency-free registry of counters / gauges / fixed-bucket
           histograms with labels, Prometheus text exposition, a JSON
@@ -6,13 +8,19 @@ metrics — dependency-free registry of counters / gauges / fixed-bucket
 trace   — request-lifecycle tracer (submit → queued → admitted →
           prefill_chunk(s) → first_token → decode/spec rounds →
           preempt/re-prefill → finish) exporting Chrome trace-event
-          JSON (Perfetto-loadable) and JSONL;
+          JSON (Perfetto-loadable) and JSONL; the same tracer's nesting
+          regions time the trainer's step (``train.step`` > upload,
+          forward, backward, optimizer, read; ``moe.dispatch`` /
+          ``moe.combine``) on the host and, on a CUDA device, through
+          timing events put on the host clock by one anchor after the run;
 clock   — the one monotonic source every lifecycle timestamp routes
           through (``obs.now``): request stamps, TTFT/ITL observation,
           deadline arithmetic, rate-limit refills and trace timestamps.
 
-All of it is host-side Python over state the engine already fetched: it
-adds no device-to-host transfer and no device operation.
+The serving side is host-side Python over state the engine already
+fetched: it adds no device-to-host transfer and no device operation. A
+traced train step adds two timing events a region and nothing else; the
+events are read only by ``Tracer.resolve``.
 """
 
 from repro_torch.obs.clock import now

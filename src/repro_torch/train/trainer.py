@@ -11,6 +11,15 @@ state — unless the method's trainable tree is itself dense (``masked``,
 next one no longer needs it, and the NaN guard's select writes into the
 new tensors, so a step holds one new copy of the trainables and moments
 beside the old, never two.
+
+Given a :class:`repro_torch.obs.Tracer` (or, with none, while a torch
+profiler records: :func:`repro_torch.obs.trace.profiled`), each step runs
+in the regions ``train.step`` > ``train.upload``, ``train.forward`` and
+``train.backward`` (once per microbatch), ``train.optimizer``,
+``train.read``, with the MoE layers' ``moe.dispatch`` / ``moe.combine``
+under ``train.forward``. The children cover the step but, with
+microbatches, the float32 accumulation between them. Without a tracer the
+step pays one ``is None`` test a site: no event, no device operation.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager, restore_into
 from repro_torch.distributed.fault import NanGuard, StragglerMonitor
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm, get_schedule, global_norm
 from repro_torch.tree import flatten, map_leaves
 
@@ -66,26 +76,30 @@ def make_train_step(model, peft, tcfg, *, grad_transform=None):
     (see :func:`repro_torch.models.transformer.forward_train`).
     ``grad_transform(grads) -> grads`` runs on the gradients after the
     method's ``post_grad`` and before clipping, as in the reference (e.g.
-    int8 compression: :func:`repro_torch.distributed.collectives.ef_int8`)."""
+    int8 compression: :func:`repro_torch.distributed.collectives.ef_int8`).
+    ``step(..., tracer=)`` records the step's forward, backward and
+    optimizer regions (see the module's docstring)."""
     schedule = get_schedule(tcfg.schedule, tcfg.learning_rate, tcfg.steps, tcfg.warmup_ratio)
     optimizer = adamw(schedule, b1=tcfg.beta1, b2=tcfg.beta2, eps=tcfg.eps,
                       weight_decay=tcfg.weight_decay)
 
-    def value_and_grad(params, trainable, aux, batch):
-        live = map_leaves(lambda v: None if v is None else v.detach().requires_grad_(),
-                          trainable)
-        leaves = [v for _, v in flatten(live) if v is not None]
-        eff, adapters = peft.model_inputs(params, live, aux)
-        loss, metrics = model.loss(eff, adapters, batch, remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(torch.zeros_like(v) if g is None else g for v, g in zip(leaves, grads))
-        grads = map_leaves(lambda v: None if v is None else next(it), live)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    def value_and_grad(params, trainable, aux, batch, tracer):
+        with obs_trace.region(tracer, "train.forward"):
+            live = map_leaves(lambda v: None if v is None else v.detach().requires_grad_(),
+                              trainable)
+            leaves = [v for _, v in flatten(live) if v is not None]
+            eff, adapters = peft.model_inputs(params, live, aux)
+            loss, metrics = model.loss(eff, adapters, batch, remat=tcfg.remat)
+        with obs_trace.region(tracer, "train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            it = iter(torch.zeros_like(v) if g is None else g for v, g in zip(leaves, grads))
+            grads = map_leaves(lambda v: None if v is None else next(it), live)
+            return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def grads_of(params, trainable, aux, batch):
+    def grads_of(params, trainable, aux, batch, tracer):
         m = tcfg.microbatches
         if m <= 1:
-            return value_and_grad(params, trainable, aux, batch)
+            return value_and_grad(params, trainable, aux, batch, tracer)
         # gradient accumulation over microbatch slices, in float32
         dev = batch["tokens"].device
         zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)  # noqa: E731
@@ -95,7 +109,7 @@ def make_train_step(model, peft, tcfg, *, grad_transform=None):
                                                          device=t.device), trainable)
         for i in range(m):
             mb = {k: _slice_mb(k, x, i, m) for k, x in batch.items()}
-            loss, metrics, grads = value_and_grad(params, trainable, aux, mb)
+            loss, metrics, grads = value_and_grad(params, trainable, aux, mb, tracer)
             acc_grads = map_leaves(lambda a, g: None if a is None else a + g.float() / m,
                                    acc_grads, grads)
             acc_metrics = {k: acc_metrics[k] + metrics[k] / m for k in acc_metrics}
@@ -104,26 +118,27 @@ def make_train_step(model, peft, tcfg, *, grad_transform=None):
                            trainable, acc_grads)
         return acc_loss, acc_metrics, grads
 
-    def train_step(params, aux, state: TrainState, batch):
-        loss, metrics, grads = grads_of(params, state.trainable, aux, batch)
-        grads = peft.post_grad(grads, aux)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        if tcfg.grad_clip > 0:
-            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        else:
-            gnorm = global_norm(grads)
-        good = torch.isfinite(loss) & torch.isfinite(gnorm)
-        updates, new_opt = optimizer.update(grads, state.opt_state, state.trainable)
-        del grads
-        new_trainable = apply_updates(state.trainable, updates)
-        del updates
-        # NaN guard: keep the old state on a bad step (the step still advances)
-        new_trainable = _select(good, new_trainable, state.trainable)
-        new_opt = _select(good, new_opt, state.opt_state)
-        out = dict(metrics)
-        out.update(loss=loss, grad_norm=gnorm, skipped=(~good).to(torch.int32))
-        return TrainState(new_trainable, new_opt, state.step + 1), out
+    def train_step(params, aux, state: TrainState, batch, tracer=None):
+        loss, metrics, grads = grads_of(params, state.trainable, aux, batch, tracer)
+        with obs_trace.region(tracer, "train.optimizer"):
+            grads = peft.post_grad(grads, aux)
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            if tcfg.grad_clip > 0:
+                grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            else:
+                gnorm = global_norm(grads)
+            good = torch.isfinite(loss) & torch.isfinite(gnorm)
+            updates, new_opt = optimizer.update(grads, state.opt_state, state.trainable)
+            del grads
+            new_trainable = apply_updates(state.trainable, updates)
+            del updates
+            # NaN guard: keep the old state on a bad step (the step still advances)
+            new_trainable = _select(good, new_trainable, state.trainable)
+            new_opt = _select(good, new_opt, state.opt_state)
+            out = dict(metrics)
+            out.update(loss=loss, grad_norm=gnorm, skipped=(~good).to(torch.int32))
+            return TrainState(new_trainable, new_opt, state.step + 1), out
 
     return train_step, optimizer
 
@@ -138,10 +153,13 @@ class Trainer:
     saved every ``checkpoint_every`` steps and at the end of :meth:`run`,
     and :meth:`try_resume` picks up the latest save (either package's). The
     initial trees live only in ``state``: no dense copy outlives its step.
-    ``grad_transform`` goes to :func:`make_train_step`."""
+    ``grad_transform`` goes to :func:`make_train_step`; ``tracer`` (a
+    :class:`repro_torch.obs.Tracer`) records every step's regions."""
 
-    def __init__(self, model, peft, tcfg, params, *, rng=None, grad_transform=None):
+    def __init__(self, model, peft, tcfg, params, *, rng=None, grad_transform=None,
+                 tracer=None):
         self.model, self.peft, self.tcfg = model, peft, tcfg
+        self.tracer = tracer
         self.params = params
         self.device = next(x for _, x in flatten(params) if x is not None).device
         if rng is None:
@@ -181,9 +199,14 @@ class Trainer:
     def step(self, batch: dict) -> dict:
         """One train step on a numpy batch; returns its metrics as floats
         (which waits for the device)."""
-        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
-        self.state, metrics = self._step_fn(self.params, self.aux, self.state, batch)
-        return {k: float(v) for k, v in metrics.items()}
+        tr = self.tracer if self.tracer is not None else obs_trace.profiled(self.device)
+        with obs_trace.region(tr, "train.step"):
+            with obs_trace.region(tr, "train.upload"):
+                batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+            self.state, metrics = self._step_fn(self.params, self.aux, self.state, batch,
+                                                tracer=tr)
+            with obs_trace.region(tr, "train.read"):
+                return {k: float(v) for k, v in metrics.items()}
 
     def run(self, data_iter, steps: int | None = None) -> list[dict]:
         steps = steps if steps is not None else self.tcfg.steps

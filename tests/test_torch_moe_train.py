@@ -13,7 +13,8 @@ head), the reference's random params converted leaf by leaf:
   (its Pallas kernels in interpret mode: ``test_torch_moe_train_interpret.py``);
 * three AdamW steps against the reference's ``make_train_step``;
 * adapter files with expert stacks across packages, the trainable and
-  total counts, the launcher.
+  total counts, the launcher;
+* the layer's ``moe.dispatch`` / ``moe.combine`` regions in a traced step.
 """
 
 import logging
@@ -45,8 +46,10 @@ from repro_torch.core.adapt import init_adapters, zip_adapters
 from repro_torch.kernels import COUNTERS, SINGLE_TENANT, TRAINING, reset_counters
 from repro_torch.launch import train as launch
 from repro_torch.models import get_model
+from repro_torch.obs import Tracer
+from repro_torch.obs import trace as obs_trace
 from repro_torch.peft import export_adapter, get_peft, load_adapter, stats
-from repro_torch.train import TrainState, make_train_step
+from repro_torch.train import Trainer, TrainState, make_train_step
 from repro_torch.tree import flatten, map_leaves
 
 torch.set_num_threads(2)
@@ -167,6 +170,29 @@ def test_three_train_steps_match_reference(world):
                                        atol=1e-4 * tc.learning_rate, err_msg=f"step {i} {path}")
             n += 1
         assert n == ADAPTED
+
+
+def test_a_traced_moe_step_records_dispatch_and_combine_under_the_forward(world):
+    """Each MoE layer's forward opens ``moe.dispatch`` and ``moe.combine``
+    under ``train.forward``: layers x microbatches of each a step; the
+    same step with no tracer records none and runs the same arithmetic."""
+    cfg, m = world["tm"].cfg, 2
+    tracer = Tracer()
+    batch = j_peek("lm", cfg.vocab_size, 4, 16, seed=1)
+    metrics = []
+    for t in (tracer, None):
+        trainer = Trainer(world["tm"], get_peft(PeftConfig(k=1)),
+                          TrainConfig(steps=1, microbatches=m), world["tp"], tracer=t)
+        metrics.append(trainer.step(batch))
+        assert obs_trace.current() is None and obs_trace.last_profiled() is None
+    assert metrics[0] == metrics[1]
+    regions = tracer.regions
+    for name in ("moe.dispatch", "moe.combine"):
+        got = [r for r in regions if r.name == name]
+        assert len(got) == cfg.num_layers * m
+        assert all(regions[r.parent].name == "train.forward" and r.rid == 0 for r in got)
+    forwards = [i for i, r in enumerate(regions) if r.name == "train.forward"]
+    assert [sum(r.parent == i for r in regions) for i in forwards] == [2 * cfg.num_layers] * m
 
 
 def test_counts_and_adapter_files_cross_packages(world, tmp_path):

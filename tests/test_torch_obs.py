@@ -7,6 +7,8 @@ histograms, labelled and not, default and custom buckets) into a
 ``repro.obs.MetricsRegistry`` and a ``repro_torch.obs.MetricsRegistry``;
 ``expose()``, ``snapshot()`` and ``dump_json()`` must be equal strings and
 dicts. The tracers run on one fake clock each, fed the same readings.
+The port's step regions (the trainer's) have no reference counterpart:
+their nesting, self time, clock and exports are checked on their own.
 """
 
 import json
@@ -14,10 +16,12 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import repro.obs as jobs
 import repro_torch.obs as tobs
 from repro_torch.obs import metrics as tmetrics
+from repro_torch.obs import trace as ttrace
 
 FAMILIES = (
     ("counter", "req_total", "Requests.", ()),
@@ -162,3 +166,95 @@ def test_default_clock_is_the_shared_monotonic_source():
     assert t.clock is tobs.now
     a = tobs.now()
     assert tobs.now() >= a and t.now() >= 0.0
+
+
+def _regions(tracer):
+    """train.step > (upload, forward > dispatch, backward), then a second root."""
+    with tracer.region("train.step", rid=7):
+        with tracer.region("train.upload"):
+            pass
+        with tracer.region("train.forward"):
+            assert ttrace.current() is tracer
+            with tracer.region("moe.dispatch"):
+                pass
+        with tracer.region("train.backward"):
+            pass
+    with tracer.region("train.step"):
+        pass
+
+
+def test_regions_nest_and_carry_their_parent():
+    tracer = tobs.Tracer(clock=Ticks())
+    assert ttrace.current() is None
+    _regions(tracer)
+    assert ttrace.current() is None
+    got = [(r.name, r.rid, r.parent) for r in tracer.regions]
+    assert got == [("train.step", 7, None), ("train.upload", 7, 0), ("train.forward", 7, 0),
+                   ("moe.dispatch", 7, 2), ("train.backward", 7, 0), ("train.step", 1, None)]
+    for r in tracer.regions:
+        assert r.t1 > r.t0 and r.d0 is None and r.events is None
+        if r.parent is not None:
+            p = tracer.regions[r.parent]
+            assert p.t0 < r.t0 and r.t1 < p.t1
+    tracer.resolve()  # no device: nothing to put on the clock
+    assert all(r.d0 is None for r in tracer.regions)
+    assert len(tracer) == 0 and tracer.to_jsonl().count("\n") == len(tracer.regions) - 1
+
+
+def test_self_time_is_the_span_less_its_childrens_coverage():
+    tracer = tobs.Tracer(clock=Ticks(dt=1.0))
+    _regions(tracer)
+    r = tracer.regions
+    kids = [i for i, x in enumerate(r) if x.parent == 0]
+    want = (r[0].t1 - r[0].t0) - sum(r[i].t1 - r[i].t0 for i in kids)
+    assert tracer.self_seconds(0) == want == 4.0
+    assert tracer.self_seconds(2) == (r[2].t1 - r[2].t0) - (r[3].t1 - r[3].t0)
+    assert tracer.self_seconds(3) == r[3].t1 - r[3].t0
+    # device intervals: children that overlap each other count once
+    for x, (a, b) in zip(r, [(0, 10), (1, 4), (3, 6), (5, 6), (12, 13), (20, 21)]):
+        x.d0, x.d1 = a, b
+    assert tracer.self_seconds(0, device=True) == 10 - 5
+    assert tracer.self_seconds(2, device=True) == 3 - 1
+
+
+def test_regions_run_on_the_shared_clock():
+    tracer = tobs.Tracer()
+    assert tracer.clock is tobs.now
+    a = tobs.now()
+    with tracer.region("train.step"):
+        pass
+    b = tobs.now()
+    assert a <= tracer.regions[0].t0 <= tracer.regions[0].t1 <= b
+
+
+def test_chrome_export_holds_the_training_regions(tmp_path):
+    tracer = tobs.Tracer(clock=Ticks())
+    tracer.instant(3, "submit")
+    _regions(tracer)
+    tracer.regions[0].d0, tracer.regions[0].d1 = 100.5, 100.75  # as resolved
+    tracer.write(tmp_path / "t.json")
+    ev = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    host = [e for e in ev if e["ph"] == "X" and e["pid"] == 1 and e["tid"] == 0]
+    dev = [e for e in ev if e["ph"] == "X" and e["pid"] == 1 and e["tid"] == 1]
+    assert [e["name"] for e in host] == [r.name for r in tracer.regions]
+    assert host[1]["ts"] == pytest.approx((tracer.regions[1].t0 - tracer._t0) * 1e6)
+    assert [(e["name"], e["dur"]) for e in dev] == [("train.step", pytest.approx(0.25e6))]
+    assert {e["args"]["name"] for e in ev if e["ph"] == "M"} >= {"req3", "train", "host",
+                                                                 "device"}
+    tracer.write(tmp_path / "t.jsonl")
+    lines = [json.loads(x) for x in (tmp_path / "t.jsonl").read_text().splitlines()]
+    assert lines[0]["name"] == "submit" and [x["name"] for x in lines[1:]] == [
+        r.name for r in tracer.regions]
+    assert lines[1]["device_dur"] == pytest.approx(0.25e6) and lines[2]["device_ts"] is None
+
+
+def test_no_tracer_is_a_shared_no_op_and_profiles_get_one():
+    assert ttrace.region(None, "train.step") is ttrace.region(None, "moe.combine")
+    with ttrace.region(None, "train.step"):
+        assert ttrace.current() is None
+    assert ttrace.profiled(torch.device("cpu")) is None and ttrace.last_profiled() is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        tracer = ttrace.profiled(torch.device("cpu"))
+        assert isinstance(tracer, tobs.Tracer) and ttrace.profiled("cpu") is tracer
+    assert ttrace.last_profiled() is tracer
+    assert ttrace.profiled("cpu") is None and ttrace.last_profiled() is None

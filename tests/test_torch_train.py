@@ -5,9 +5,12 @@ by leaf: ``Model.loss`` and the gradient of every adapted matrix's values
 against ``jax.value_and_grad`` of the reference's ``loss_fn`` on its jnp
 backend (loss 1e-5, dval rtol 1e-4: the same f32 sums in another order);
 three train steps against the reference's ``make_train_step`` with one
-and two microbatches; the data loaders; the launcher. The Pallas
+and two microbatches; the data loaders; the launcher; the trainer's step
+regions (a tracer changes no bit; none without one). The Pallas
 (interpret-mode) reference is in ``test_torch_train_interpret.py``.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +38,9 @@ from repro_torch.core.adapt import zip_adapters
 from repro_torch.data import TASKS, DataLoader, peek_batch
 from repro_torch.kernels import COUNTERS, reset_counters
 from repro_torch.launch import train as launch
+from repro_torch import obs as tobs
 from repro_torch.models import get_model
+from repro_torch.obs import trace as ttrace
 from repro_torch.optim import adamw, get_schedule
 from repro_torch.peft import get_peft, stats
 from repro_torch.train import Trainer, TrainState, make_train_step
@@ -244,6 +249,56 @@ def test_trainer_counts_the_papers_trainables(world):
     assert st["fraction"] == st["trainable"] / st["total"]
     hist = trainer.run(iter([peek_batch("lm", 512, 2, 8)] * 2))
     assert [h["step"] for h in hist] == [0, 1] and trainer.nan_guard.skipped == 0
+
+
+STEP_CHILDREN = ["train.upload", "train.forward", "train.backward", "train.optimizer",
+                 "train.read"]
+
+
+def test_a_traced_trainer_trains_bit_identically_and_records_each_step(world):
+    """A tracer changes no bit of the trainables or the moments, and each
+    step records ``train.step`` with its five children in order."""
+    batches = [peek_batch("lm", 512, 2, 8, seed=s) for s in range(2)]
+    tracer = tobs.Tracer()
+    plain, traced = (Trainer(world["tm"], get_peft(PeftConfig(k=1)), TrainConfig(steps=2),
+                             world["tp"], tracer=t) for t in (None, tracer))
+    for b in batches:
+        assert plain.step(b) == traced.step(b)
+    for tree in ("trainable", "opt_state"):
+        got = flatten(getattr(traced.state, tree))
+        for (p, a), (_, b) in zip(flatten(getattr(plain.state, tree)), got, strict=True):
+            assert (a is None and b is None) or torch.equal(a, b), (tree, p)
+    roots = [i for i, r in enumerate(tracer.regions) if r.parent is None]
+    assert [(tracer.regions[i].name, tracer.regions[i].rid) for i in roots] == [
+        ("train.step", 0), ("train.step", 1)]
+    for i in roots:
+        kids = [r for r in tracer.regions if r.parent == i]
+        assert [r.name for r in kids] == STEP_CHILDREN
+        assert all(r.rid == tracer.regions[i].rid for r in kids)
+        assert tracer.self_seconds(i) < 0.05 * (tracer.regions[i].t1 - tracer.regions[i].t0)
+    assert ttrace.current() is None and len(tracer) == 0
+
+
+def test_an_untraced_step_makes_no_event_and_no_region(world, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("an untraced step made a region or a CUDA event")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(tobs.Tracer, "region", refuse)
+    trainer = Trainer(world["tm"], get_peft(PeftConfig(k=1)), TrainConfig(steps=1),
+                      world["tp"])
+    assert np.isfinite(trainer.step(peek_batch("lm", 512, 2, 8))["loss"])
+    assert ttrace.last_profiled() is None and ttrace.current() is None
+
+
+def test_launcher_writes_the_training_regions(tmp_path):
+    out = tmp_path / "t.json"
+    hist = launch.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+                        "--seq", "8", "--trace-out", str(out)])
+    assert len(hist) == 2
+    ev = json.loads(out.read_text())["traceEvents"]
+    host = [e["name"] for e in ev if e["ph"] == "X" and e["tid"] == 0]
+    assert host == (["train.step"] + STEP_CHILDREN) * 2
 
 
 def test_launcher_trains_and_exports_on_the_cpu(tmp_path, caplog):
